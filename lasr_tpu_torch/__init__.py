@@ -1,0 +1,41 @@
+"""lasr_tpu_torch — the PyTorch/CUDA port of lasr_tpu for NVIDIA Hopper.
+
+The JAX package ``lasr_tpu`` is the reference: every module here mirrors
+the module of the same path there, keeps the reference torch
+``state_dict`` names (so lighting-asr checkpoints load unchanged), and is
+held against it by the ``tests/test_torch_port_*.py`` parity tests.  The
+TPU's Pallas kernels become hand-written CUDA C++ kernels for ``sm_90a``
+(``csrc/``), built with ``nvcc`` at first use into ``_build/``.
+
+This package imports torch, numpy and yaml only — never jax, flax or any
+module of ``lasr_tpu``.
+
+Layer map (same as lasr_tpu):
+  utils/     config registry, masks, the weight bridge / checkpoint loader
+  ops/       fbank frontend and the attention kernels (CUDA + plain torch)
+  modules/   nn.Modules (attention, embeddings, conformer, decoder, ...)
+  models/    dict-in/dict-out joint CTC/attention models
+  data/      WAV reader, tokenizers, the frontend chain
+  decode/    greedy CTC and joint CTC/attention beam search
+  process/   one-call ASRProcess user API
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means ``"cuda"``.
+
+    Raises when CUDA is asked for (explicitly or by default) and no GPU is
+    present — the port never carries on silently on the CPU; callers that
+    want the CPU (the tests) pass ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "lasr_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU explicitly")
+    return dev

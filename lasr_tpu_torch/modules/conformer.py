@@ -1,0 +1,149 @@
+"""Conformer encoder (counterpart of ``lasr_tpu/modules/conformer.py``).
+
+The blocks ``E2E_Conformer_CTC`` builds: pre-norm (LayerNorm eps 1e-12)
+MHA(+rel pos) → conv module → feed-forward (swish) → final norm, without
+macaron feed-forward (the model hard-codes ``macaron_style=False``).  The
+ConvolutionModule is pointwise → GLU → depthwise → BatchNorm (eval: running
+statistics, eps 1e-5) → swish → pointwise.  Inference only.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lasr_tpu_torch.modules.attention import (
+    MultiHeadedAttention, RelPositionMultiHeadedAttention)
+from lasr_tpu_torch.modules.embedding import (PositionalEncoding,
+                                              RelPositionalEncoding)
+from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
+from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
+from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
+
+
+class ConvolutionModule(nn.Module):
+    def __init__(self, channels: int, kernel_size: int = 31):
+        super().__init__()
+        self.pointwise_conv1 = nn.Conv1d(channels, 2 * channels, 1)
+        self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
+                                        padding=(kernel_size - 1) // 2,
+                                        groups=channels)
+        self.norm = nn.BatchNorm1d(channels, eps=1e-5)
+        self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, zero_mask=None) -> torch.Tensor:
+        """x: (B, T, C) → (B, T, C).  ``zero_mask`` (B, T) bool, True =
+        valid: zeroes the GLU output at invalid frames before the depthwise
+        conv, so a batched decode sees the zeros the conv's own padding
+        gives an utterance encoded alone."""
+        h = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
+        if zero_mask is not None:
+            h = h.masked_fill(~zero_mask[:, None, :], 0.0)
+        h = self.norm(self.depthwise_conv(h))
+        return self.pointwise_conv2(F.silu(h)).transpose(1, 2)
+
+
+class ConformerEncoderLayer(nn.Module):
+    def __init__(self, size: int, attention_heads: int, linear_units: int,
+                 dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0,
+                 selfattention_layer_type: str = "selfattn",
+                 use_cnn_module: bool = True, cnn_module_kernel: int = 31,
+                 use_pallas_attention: bool = False, rot_fold: bool = False,
+                 rot_fold_pallas: bool = False):
+        super().__init__()
+        self.rel = selfattention_layer_type == "rel_selfattn"
+        self.norm_mha = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        if self.rel:
+            self.self_attn = RelPositionMultiHeadedAttention(
+                attention_heads, size, attention_dropout_rate,
+                use_pallas=use_pallas_attention, rot_fold=rot_fold,
+                rot_fold_pallas=rot_fold_pallas)
+        elif selfattention_layer_type == "selfattn":
+            self.self_attn = MultiHeadedAttention(attention_heads, size,
+                                                  attention_dropout_rate)
+        else:
+            raise ValueError(
+                f"unknown selfattention_layer_type {selfattention_layer_type}")
+        self.use_cnn_module = use_cnn_module
+        if use_cnn_module:
+            self.norm_conv = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+            self.conv_module = ConvolutionModule(size, cnn_module_kernel)
+            self.norm_final = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm_ff = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.feed_forward = PositionwiseFeedForward(
+            size, linear_units, dropout_rate, activation=F.silu)
+
+    def forward(self, x, mask=None, pos_emb=None, conv_zero_mask=None):
+        y = self.norm_mha(x)
+        if self.rel:
+            x = x + self.self_attn(y, y, y, pos_emb, mask)
+        else:
+            x = x + self.self_attn(y, y, y, mask)
+        if self.use_cnn_module:
+            x = x + self.conv_module(self.norm_conv(x), conv_zero_mask)
+        x = x + self.feed_forward(self.norm_ff(x))
+        if self.use_cnn_module:
+            x = self.norm_final(x)
+        return x
+
+
+class ConformerEncoder(nn.Module):
+    """Conformer encoder stack with conv2d subsampling input."""
+
+    def __init__(self, idim: int, attention_dim: int = 256,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0,
+                 input_layer: str = "conv2d",
+                 pos_enc_layer_type: str = "abs_pos",
+                 selfattention_layer_type: str = "selfattn",
+                 use_cnn_module: bool = True, cnn_module_kernel: int = 31,
+                 use_pallas_attention: bool = False, rot_fold: bool = True,
+                 rot_fold_pallas: bool = False):
+        super().__init__()
+        if input_layer != "conv2d":
+            raise NotImplementedError(
+                f"input_layer {input_layer!r}: only conv2d is ported")
+        self.rel = pos_enc_layer_type == "rel_pos"
+        if self.rel:
+            if selfattention_layer_type != "rel_selfattn":
+                raise ValueError("rel_pos needs rel_selfattn")
+            pos_enc = RelPositionalEncoding(attention_dim,
+                                            positional_dropout_rate)
+        elif pos_enc_layer_type == "abs_pos":
+            pos_enc = PositionalEncoding(attention_dim,
+                                         positional_dropout_rate)
+        else:
+            raise NotImplementedError(
+                f"pos_enc_layer_type {pos_enc_layer_type!r} is not ported")
+        self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc,
+                                       dropout_rate)
+        self.encoders = nn.ModuleList([
+            ConformerEncoderLayer(
+                attention_dim, attention_heads, linear_units, dropout_rate,
+                attention_dropout_rate, selfattention_layer_type,
+                use_cnn_module, cnn_module_kernel,
+                use_pallas_attention=use_pallas_attention,
+                rot_fold=rot_fold and self.rel,
+                rot_fold_pallas=rot_fold_pallas)
+            for _ in range(num_blocks)])
+        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+
+    def forward(self, x, x_len, solo_pad: bool = False):
+        """x: (B, T, idim), x_len: (B,) → (hs (B, T', D), hs_len (B,)).
+
+        ``solo_pad``: decode-time semantics — per-row lengths as if each
+        utterance were encoded alone, and zeros past the valid length
+        before the conv module."""
+        out, h_len = self.embed(x, x_len, solo_len=solo_pad)
+        h, pos_emb = out if self.rel else (out, None)
+        T = h.shape[1]
+        pad = torch.arange(T, device=h.device)[None, :] < h_len[:, None]
+        mask = pad[:, None, :]
+        conv_zero = pad if solo_pad else None
+        for layer in self.encoders:
+            h = layer(h, mask, pos_emb, conv_zero)
+        return self.after_norm(h), h_len

@@ -1,0 +1,72 @@
+"""Positional encodings (counterpart of ``lasr_tpu/modules/embedding.py``).
+
+  - ``PositionalEncoding``: x·√d + sinusoid[offset : offset+T].
+  - ``RelPositionalEncoding``: (x·√d, pos_emb of length 2T-1) for
+    Transformer-XL attention; index T-1 is distance 0, earlier entries are
+    positive distances (key left of the query), later ones negative.
+
+Tables are computed (in float64, then cast to float32) for the rows a call
+needs; like the reference's non-persistent ``pe`` buffer they are not in
+the state_dict.  Inference only: dropout is the identity.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def sinusoid_rows(positions, d_model: int) -> np.ndarray:
+    """(len(positions), d_model) float32 sinusoid rows at the given (signed)
+    positions; sin on even columns, cos on odd.  Row p equals row p of
+    ``sinusoid_table`` for every length that contains it."""
+    pos = np.asarray(positions, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float64)
+                 * -(math.log(10000.0) / d_model))
+    table = np.zeros((pos.shape[0], d_model), dtype=np.float64)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table.astype(np.float32)
+
+
+def sinusoid_table(length: int, d_model: int,
+                   negative: bool = False) -> np.ndarray:
+    """(length, d_model) float32 sinusoid table over positions 0..length-1
+    (negated when ``negative``)."""
+    pos = np.arange(length, dtype=np.float64)
+    return sinusoid_rows(-pos if negative else pos, d_model)
+
+
+class PositionalEncoding(nn.Module):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1,
+                 max_len: int = 5000):
+        super().__init__()
+        self.d_model = d_model
+
+    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        T = x.shape[1]
+        pe = torch.from_numpy(
+            sinusoid_rows(np.arange(offset, offset + T), self.d_model))
+        return x * math.sqrt(self.d_model) + pe.to(x.device, x.dtype)[None]
+
+
+class RelPositionalEncoding(nn.Module):
+    """Returns (x·√d, relative pos-emb (1, 2T-1, d))."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1,
+                 max_dist: int = -1, max_len: int = 5000):
+        super().__init__()
+        self.d_model = d_model
+        self.max_dist = max_dist
+
+    def forward(self, x: torch.Tensor):
+        T = x.shape[1]
+        dist = (T - 1) - np.arange(2 * T - 1)       # T-1 .. -(T-1)
+        if self.max_dist >= 0:
+            dist = np.clip(dist, -self.max_dist, self.max_dist)
+        pos_emb = torch.from_numpy(sinusoid_rows(dist, self.d_model))
+        return (x * math.sqrt(self.d_model),
+                pos_emb.to(x.device, x.dtype)[None])

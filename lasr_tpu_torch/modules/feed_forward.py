@@ -1,0 +1,24 @@
+"""Position-wise feed-forward (counterpart of
+``lasr_tpu/modules/feed_forward.py``): w_2(act(w_1(x))), swish in the
+Conformer blocks and ReLU in the decoder.  Inference only: dropout is the
+identity."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+
+class PositionwiseFeedForward(nn.Module):
+    def __init__(self, idim: int, hidden_units: int,
+                 dropout_rate: float = 0.1,
+                 activation: Callable = torch.relu):
+        super().__init__()
+        self.w_1 = nn.Linear(idim, hidden_units)
+        self.w_2 = nn.Linear(hidden_units, idim)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_2(self.activation(self.w_1(x)))

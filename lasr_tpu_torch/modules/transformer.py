@@ -1,0 +1,128 @@
+"""Transformer decoder (counterpart of the decoder half of
+``lasr_tpu/modules/transformer.py``).
+
+Pre-norm residual blocks (LayerNorm eps 1e-12) of self-attention,
+source attention and a ReLU feed-forward, with an after-norm and the
+output projection.  Cached decode keeps fixed-shape per-layer KV caches
+``(layers, B, Lmax, H, dk)``: ``init_cache`` / ``project_memory`` /
+``forward_one_step``.  ``forward_one_step`` writes the new step's keys and
+values into the cache it is given, in place.  Inference only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from lasr_tpu_torch.modules.attention import MultiHeadedAttention
+from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
+from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
+
+LAYERNORM_EPS = 1e-12  # reference layer_norm.py eps
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, size: int, attention_heads: int, linear_units: int,
+                 dropout_rate: float = 0.1,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0):
+        super().__init__()
+        self.self_attn = MultiHeadedAttention(attention_heads, size,
+                                              self_attention_dropout_rate)
+        self.src_attn = MultiHeadedAttention(attention_heads, size,
+                                             src_attention_dropout_rate)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units,
+                                                    dropout_rate)
+        self.norm1 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm2 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm3 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+
+    def forward(self, tgt, tgt_mask, memory, memory_mask):
+        y = self.norm1(tgt)
+        x = tgt + self.self_attn(y, y, y, tgt_mask)
+        y = self.norm2(x)
+        x = x + self.src_attn(y, memory, memory, memory_mask)
+        return x + self.feed_forward(self.norm3(x))
+
+    def step(self, x_t, pos: int, self_k, self_v, mem_k, mem_v, mem_mask):
+        """One cached decode step.  x_t: (B, 1, D); self_k/v: (B, Lmax, H,
+        dk) caches, written in place at ``pos``; mem_k/v: (B, T, H, dk);
+        mem_mask: (B, 1, T).  Returns (B, 1, D)."""
+        y = self.norm1(x_t)
+        q = self.self_attn.project_q(y)
+        k_new, v_new = self.self_attn.project_kv(y, y)
+        self_k[:, pos] = k_new[:, 0]
+        self_v[:, pos] = v_new[:, 0]
+        Lmax = self_k.shape[1]
+        prefix = (torch.arange(Lmax, device=x_t.device) <= pos)[None, None, :]
+        x = x_t + self.self_attn.attend(q, self_k, self_v, prefix)
+        y = self.norm2(x)
+        q = self.src_attn.project_q(y)
+        x = x + self.src_attn.attend(q, mem_k, mem_v, mem_mask)
+        return x + self.feed_forward(self.norm3(x))
+
+
+class Decoder(nn.Module):
+    def __init__(self, odim: int, attention_dim: int = 256,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0,
+                 input_layer: str = "embed"):
+        super().__init__()
+        if input_layer != "embed":
+            raise NotImplementedError(
+                f"decoder input_layer {input_layer!r}: only embed is ported")
+        self.attention_dim = attention_dim
+        self.attention_heads = attention_heads
+        self.embed = nn.Sequential(
+            nn.Embedding(odim, attention_dim),
+            PositionalEncoding(attention_dim, positional_dropout_rate))
+        self.decoders = nn.ModuleList([
+            DecoderLayer(attention_dim, attention_heads, linear_units,
+                         dropout_rate, self_attention_dropout_rate,
+                         src_attention_dropout_rate)
+            for _ in range(num_blocks)])
+        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+        self.output_layer = nn.Linear(attention_dim, odim)
+
+    def forward(self, tgt, tgt_mask, memory, memory_mask):
+        """tgt: (B, L) ids; tgt_mask: (B, L, L); memory: (B, T, D);
+        memory_mask: (B, 1, T). Returns (B, L, odim) logits."""
+        x = self.embed(tgt)
+        for layer in self.decoders:
+            x = layer(x, tgt_mask, memory, memory_mask)
+        return self.output_layer(self.after_norm(x))
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        H = self.attention_heads
+        shape = (len(self.decoders), batch, max_len, H,
+                 self.attention_dim // H)
+        w = self.output_layer.weight
+        return {"k": torch.zeros(shape, dtype=w.dtype, device=w.device),
+                "v": torch.zeros(shape, dtype=w.dtype, device=w.device)}
+
+    def project_memory(self, memory) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-layer source-attention K/V, once per utterance: stacked
+        (layers, B, T, H, dk)."""
+        kv = [layer.src_attn.project_kv(memory, memory)
+              for layer in self.decoders]
+        return (torch.stack([k for k, _ in kv]),
+                torch.stack([v for _, v in kv]))
+
+    def forward_one_step(self, y_t, pos: int, cache, mem_k, mem_v, mem_mask):
+        """y_t: (B,) last token ids; pos: step index; cache from
+        ``init_cache`` (updated in place); mem_k/v from ``project_memory``;
+        mem_mask: (B, 1, T).  Returns (log-probs (B, odim), cache)."""
+        h = self.embed[0](y_t[:, None])                    # (B, 1, D)
+        pe = torch.from_numpy(sinusoid_rows([pos], self.attention_dim))
+        h = h * math.sqrt(self.attention_dim) + pe.to(h.device, h.dtype)
+        for i, layer in enumerate(self.decoders):
+            h = layer.step(h, pos, cache["k"][i], cache["v"][i], mem_k[i],
+                           mem_v[i], mem_mask)
+        y = self.output_layer(self.after_norm(h)[:, 0])
+        return torch.log_softmax(y, dim=-1), cache

@@ -1,0 +1,33 @@
+"""Mask construction (counterpart of ``lasr_tpu/utils/masks.py``).
+
+Semantics of the reference ``lasr/utils/mask.py``:
+  - ``make_pad_mask(lengths, maxlen)`` → True at PADDED positions (B, T)
+  - ``subsequent_mask(size)``          → lower-triangular causal (T, T)
+  - ``target_mask(ys_in, ignore_id)``  → valid ∧ causal (B, T, T)
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def make_pad_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
+    """True at padded positions. lengths: (B,) int; returns (B, maxlen)."""
+    pos = torch.arange(maxlen, device=lengths.device)
+    return pos[None, :] >= lengths[:, None]
+
+
+def make_non_pad_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
+    return ~make_pad_mask(lengths, maxlen)
+
+
+def subsequent_mask(size: int, device=None) -> torch.Tensor:
+    """Lower-triangular causal mask (size, size) bool; True = attendable."""
+    return torch.tril(torch.ones(size, size, dtype=torch.bool, device=device))
+
+
+def target_mask(ys_in: torch.Tensor, ignore_id: int = -1) -> torch.Tensor:
+    """Decoder self-attention mask (B, L, L): valid-token ∧ causal."""
+    valid = ys_in != ignore_id
+    causal = subsequent_mask(ys_in.shape[-1], device=ys_in.device)
+    return valid[:, None, :] & causal[None, :, :]

@@ -1,0 +1,180 @@
+"""Weight bridge and reference checkpoint loading (torch-only counterpart
+of ``lasr_tpu/utils/torch_compat.py``).
+
+``flax_to_state_dict`` is the inverse of ``torch_compat._map_leaf``: it
+turns the JAX model's ``{"params", "batch_stats"}`` tree (nested dicts of
+numpy arrays) into the reference-named torch ``state_dict``:
+
+  encoder/embed/Conv_{k}/*      → encoder.embed.conv.{2k}.*
+  encoder/embed/Dense_0/*       → encoder.embed.out.0.*
+  {encoder,decoder}/layers_N/*  → {encoder.encoders,decoder.decoders}.N.*
+  decoder/embed_tok/embedding   → decoder.embed.0.weight
+  feed_forward/Dense_{0,1}      → feed_forward.w_{1,2}
+  ctc/Dense_0/*                 → ctc.1.*
+  */scale                       → */weight (norms)
+  batch_stats */{mean,var}      → */running_{mean,var} (+ num_batches_tracked)
+
+Layouts: Linear (in,out) → (out,in); Conv2d (kh,kw,in,out) →
+(out,in,kh,kw); Conv1d (k,in/g,out) → (out,in/g,k).
+
+``load_reference_checkpoint`` reads a lighting-asr ``.pt``/``.ckpt`` file
+or averages a directory of ``.ckpt`` files (the reference's selection
+semantics), splits the Lightning ``model.`` / ``model_ema.`` prefixes and
+prefers the EMA shadow.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _torch_path(path: Tuple[str, ...]):
+    out = []
+    i = 0
+    while i < len(path):
+        p = path[i]
+        nxt = path[i + 1] if i + 1 < len(path) else None
+        if p.startswith("layers_"):
+            out += ["encoders" if out[:1] == ["encoder"] else "decoders",
+                    p[len("layers_"):]]
+        elif p == "embed" and nxt is not None and nxt.startswith("Conv_"):
+            out += ["embed", "conv", str(2 * int(nxt[len("Conv_"):]))]
+            i += 1
+        elif p == "embed" and nxt == "Dense_0":
+            out += ["embed", "out", "0"]
+            i += 1
+        elif p == "embed_tok":
+            out += ["embed", "0"]
+        elif p == "feed_forward" and nxt in ("Dense_0", "Dense_1"):
+            out += [p, "w_1" if nxt == "Dense_0" else "w_2"]
+            i += 1
+        elif p == "ctc" and nxt == "Dense_0":
+            out += ["ctc", "1"]
+            i += 1
+        else:
+            out.append(p)
+        i += 1
+    return out
+
+
+def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) → reference-
+    named torch state_dict of float32 tensors."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(variables.get("params", {})):
+        arr = np.asarray(arr)
+        names = _torch_path(path)
+        leaf = names[-1]
+        if leaf == "kernel":
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)
+            names[-1] = "weight"
+        elif leaf in ("scale", "embedding"):
+            names[-1] = "weight"
+        sd[".".join(names)] = torch.tensor(arr)
+    for path, arr in _flatten(variables.get("batch_stats", {})):
+        names = _torch_path(path)
+        names[-1] = {"mean": "running_mean", "var": "running_var"}[names[-1]]
+        sd[".".join(names)] = torch.tensor(np.asarray(arr))
+        if names[-1] == "running_mean":
+            sd[".".join(names[:-1] + ["num_batches_tracked"])] = \
+                torch.tensor(0, dtype=torch.int64)
+    return sd
+
+
+def split_lightning_state_dict(state_dict: Dict) -> Dict[str, Dict]:
+    """Split 'model.xxx' / 'model_ema.xxx' prefixes into sub-dicts."""
+    out: Dict[str, Dict] = {}
+    for k, v in state_dict.items():
+        head, _, rest = k.partition(".")
+        out.setdefault(head, {})[rest] = v
+    return out
+
+
+def _model_state(state: Dict, prefer_ema: bool = True) -> Dict:
+    """The model's state_dict from a Lightning one (EMA shadow preferred:
+    LitEma keys are the model's names with '.' removed), or ``state``
+    unchanged when it has no ``model.`` prefix."""
+    groups = split_lightning_state_dict(state)
+    if "model" not in groups:
+        return state
+    model_sd = groups["model"]
+    if prefer_ema and "model_ema" in groups:
+        flat_names = {k.replace(".", ""): k for k in model_sd}
+        for ema_key, v in groups["model_ema"].items():
+            if ema_key in flat_names:
+                model_sd[flat_names[ema_key]] = v
+    return model_sd
+
+
+def _read(path: str) -> Dict:
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    return blob.get("state_dict", blob)
+
+
+def average_reference_checkpoints(path: str, choose: str = "best",
+                                  avg: int = 10):
+    """Average the ``*.ckpt`` files under ``path``: filename sort, reversed
+    for ``choose='last'``, the first ``avg`` summed and divided by the
+    number found (integer tensors with ``//``).  Returns
+    ``(state_dict, chosen_filenames)``."""
+    names = sorted((n for n in os.listdir(path) if n.endswith(".ckpt")),
+                   reverse=(choose == "last"))[:avg]
+    if not names:
+        raise FileNotFoundError(f"no .ckpt files under {path}")
+    total = None
+    for name in names:
+        state = _read(os.path.join(path, name))
+        if total is None:
+            total = {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in state.items()}
+        else:
+            for k in total:
+                total[k] += state[k]
+    for k in total:
+        if torch.is_tensor(total[k]) and not torch.is_floating_point(total[k]):
+            total[k] //= len(names)
+        else:
+            total[k] /= len(names)
+    return total, names
+
+
+def load_reference_checkpoint(path: str, choose: str = "last", avg: int = 1,
+                              prefer_ema: bool = True) -> Dict:
+    """Model state_dict from a reference ``.pt``/``.ckpt`` file, or the
+    average of a directory of ``.ckpt`` files."""
+    if os.path.isfile(path):
+        state = _read(path)
+    elif os.path.isdir(path):
+        state, chosen = average_reference_checkpoints(path, choose, avg)
+        logging.info("averaged reference checkpoints: %s", chosen)
+    else:
+        raise FileNotFoundError(path)
+    return _model_state(state, prefer_ema)
+
+
+def load_model_weights(model: torch.nn.Module, state_dict: Dict) -> None:
+    """Load a reference-named state_dict strictly; only BatchNorm's
+    ``num_batches_tracked`` counters may be absent."""
+    missing, unexpected = model.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"state_dict mismatch: missing={sorted(missing)} "
+                         f"unexpected={sorted(unexpected)}")
