@@ -9,16 +9,34 @@ Phases, always all of them, in this order:
   build    compile every kernel of ``lasr_tpu_torch/csrc`` with nvcc
            (one process per source, in parallel) and print ptxas's
            registers / shared memory per kernel.
-  kernels  each kernel at the served shape (B=8 x 10 s -> BH=64, T=248,
-           dk=40, M=320, H=8, ragged kv_len >= 1) in f32 and bf16 against
-           its plain PyTorch version; kernel, plain and library times
-           (CUDA events) beside the least time the card could take.
+  kernels  each kernel in f32 and bf16 against its plain PyTorch version:
+           the forward kernels at the served shape (B=8 x 10 s -> BH=64,
+           T=248) and at the training shape, the backward kernels at the
+           training shape (B=32 x 15.6 s -> BH=256, T=388), dk=40, M=320,
+           H=8, ragged kv_len >= 1; kernel, plain and library times (CUDA
+           events) beside the least time the card could take.  Backward
+           errors are per gradient, relative to the plain gradient's
+           largest magnitude.
   slice_a  the recipe Conformer at full width with encoder_rot_fold_pallas
            on: ASRProcess on one seeded 10 s wav, then a B=8 x 10 s batch
            through DeviceFrontend + CTCAttBeamDecoder(beam 10, ctc_beam 15,
            ctc_weight 0.5); the rot kernel must launch 12 times per encoder
            forward and the encoder output must match the plain path.
   slice_b  the same with encoder_use_pallas_attention on (the rel kernel).
+  train_a  the recipe model trained by the port's Trainer with
+           encoder_rot_fold_pallas and encoder_pos_dropout_mode "rotated":
+           B=32 x 15.6 s seeded waves, L=64 token ids, norm + fbank:80 +
+           specaug, E2E_Loss(rate 0.3, smoothing 0.1), Noam(320, 3, 25000),
+           clip 5, EMA on.  3 steps with finite losses, K1 and K2 launched
+           12 times each per step; one step at dropout 0 without
+           SpecAugment by the kernel path and the plain rotated fold: loss
+           within 1e-4 (relative), every encoder gradient within 1e-3 of
+           its largest magnitude, decoder/CTC gradients within 1e-2 in L2
+           (the decoder's ReLU flips units within rounding of 0; counted),
+           zero-gradient leaves ~0; a checkpoint loaded back into
+           ASRProcess.
+  train_b  the same with encoder_use_pallas_attention (K3, K4), the plain
+           path being the skewed-table fold.
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -44,8 +62,10 @@ import numpy as np
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# served shape: 8 utterances x 10 s -> 248 encoder frames, 8 heads of 40
+# served shape: 8 utterances x 10 s -> 248 encoder frames, 8 heads of 40;
+# training shape: 32 utterances x 15.6 s -> 388 encoder frames
 SERVED = dict(B=8, H=8, T=248, dk=40, M=320)
+TRAINING = dict(B=32, H=8, T=388, dk=40, M=320)
 
 
 def log(msg: str) -> None:
@@ -115,38 +135,45 @@ def phase_build(state):
                 log(f"  {name}: {line.strip()}")
 
 
-def _rot_inputs(rng, dtype, dev):
+def _tensor(rng, dtype, dev, *shape, sc=1.0):
     import torch
-    B, H, T, dk, M = (SERVED[k] for k in ("B", "H", "T", "dk", "M"))
-    BH = B * H
-    f = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
-        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev, dtype)
-    lens = rng.integers(T // 2, T + 1, size=B)
-    kv_len = torch.from_numpy(np.repeat(lens, H).astype(np.int32)).to(dev)
-    return (f(BH, T, dk), f(BH, T, M, sc=0.3), f(BH, T, dk), f(BH, T, dk),
-            f(T, M, sc=0.3), kv_len)
+    return torch.from_numpy((rng.standard_normal(shape) * sc).astype(
+        np.float32)).to(dev, dtype)
 
 
-def _rel_inputs(rng, dtype, dev):
+def _kv_len(rng, shape, dev):
     import torch
-    B, H, T, dk = (SERVED[k] for k in ("B", "H", "T", "dk"))
-    BH = B * H
-    f = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
-    lens = rng.integers(T // 2, T + 1, size=B)
-    kv_len = torch.from_numpy(np.repeat(lens, H).astype(np.int32)).to(dev)
-    return (f(BH, T, dk), f(BH, T, dk), f(BH, T, dk), f(BH, T, dk),
-            f(H, 2 * T - 1, dk), kv_len)
+    lens = rng.integers(shape["T"] // 2, shape["T"] + 1, size=shape["B"])
+    return torch.from_numpy(np.repeat(lens, shape["H"]).astype(
+        np.int32)).to(dev)
+
+
+def _rot_inputs(rng, dtype, dev, shape):
+    B, H, T, dk, M = (shape[k] for k in ("B", "H", "T", "dk", "M"))
+    f = lambda *s, sc=1.0: _tensor(rng, dtype, dev, *s, sc=sc)  # noqa: E731
+    return (f(B * H, T, dk), f(B * H, T, M, sc=0.3), f(B * H, T, dk),
+            f(B * H, T, dk), f(T, M, sc=0.3), _kv_len(rng, shape, dev))
+
+
+def _rel_inputs(rng, dtype, dev, shape):
+    B, H, T, dk = (shape[k] for k in ("B", "H", "T", "dk"))
+    f = lambda *s: _tensor(rng, dtype, dev, *s)  # noqa: E731
+    return (f(B * H, T, dk), f(B * H, T, dk), f(B * H, T, dk),
+            f(B * H, T, dk), f(H, 2 * T - 1, dk), _kv_len(rng, shape, dev))
+
+
+def _kvl(args):
+    return args[5].cpu().numpy().astype(np.int64)
 
 
 def _rot_cost(args):
-    """(bytes, flops) this call needs: inputs read once (keys and table
+    """(bytes, flops) the forward needs: inputs read once (keys and table
     rows only up to each row's kv_len), outputs written once."""
-    q_u, u, k, v, vt, kv_len = args
+    q_u, u, k, v, vt, kv_len = args[:6]
     BH, T, dk = q_u.shape
     M = u.shape[-1]
     es = q_u.element_size()
-    kvl = kv_len.cpu().numpy().astype(np.int64)
+    kvl = _kvl(args)
     nbytes = es * (q_u.numel() + u.numel() + int(kvl.sum()) * 2 * dk
                    + int(kvl.max()) * M + q_u.numel()) + 4 * BH * T + 4 * BH
     flops = int((2 * T * kvl * (dk + M) + 2 * T * kvl * dk).sum())
@@ -154,14 +181,43 @@ def _rot_cost(args):
 
 
 def _rel_cost(args):
-    q_u, q_v, k, v, p, kv_len = args
+    q_u, q_v, k, v, p, kv_len = args[:6]
     BH, T, dk = q_u.shape
     es = q_u.element_size()
-    kvl = kv_len.cpu().numpy().astype(np.int64)
+    kvl = _kvl(args)
     nbytes = es * (2 * q_u.numel() + int(kvl.sum()) * 2 * dk + p.numel()
                    + q_u.numel()) + 4 * BH * T + 4 * BH
     flops = int((3 * 2 * T * kvl * dk).sum())
     return nbytes, flops
+
+
+def _rot_bwd_cost(args):
+    """Inputs (q_u, u, the keys' k / v / table rows up to kv_len, out,
+    lse, dout) read once, gradients (dq_u, du, dk, dv) written once;
+    4M + 10dk FLOP per (query, valid key) pair."""
+    q_u, u = args[:2]
+    BH, T, dk = q_u.shape
+    M = u.shape[-1]
+    es = q_u.element_size()
+    kvl = _kvl(args)
+    reads = es * (q_u.numel() + u.numel() + int(kvl.sum()) * 2 * dk
+                  + int(kvl.max()) * M + 2 * q_u.numel()) + 4 * BH * T \
+        + 4 * BH
+    writes = es * (3 * q_u.numel() + u.numel())
+    return reads + writes, int((T * kvl * (4 * M + 10 * dk)).sum())
+
+
+def _rel_bwd_cost(args):
+    """As ``_rot_bwd_cost``; 16 dk FLOP per pair (score 4dk, dout·v 2dk,
+    five dk-wide products)."""
+    q_u, q_v, k, v, p = args[:5]
+    BH, T, dk = q_u.shape
+    es = q_u.element_size()
+    kvl = _kvl(args)
+    reads = es * (2 * q_u.numel() + int(kvl.sum()) * 2 * dk + p.numel()
+                  + 2 * q_u.numel()) + 4 * BH * T + 4 * BH
+    writes = es * (4 * q_u.numel() + p.numel())
+    return reads + writes, int((T * kvl * 16 * dk).sum())
 
 
 def _bound_ms(nbytes, flops, dtype_name):
@@ -170,77 +226,154 @@ def _bound_ms(nbytes, flops, dtype_name):
          else "operations")
 
 
-def _rot_library(args):
-    """One PyTorch call computing the same function (the yardstick; the
-    port never calls it): SDPA over the concatenated [q_u ; u] / [k ; V]."""
+def _sdpa_operands(args):
     import torch
-    import torch.nn.functional as F
-    q_u, u, k, v, vt, kv_len = args
+    q_u, u, k, v, vt, kv_len = args[:6]
     BH, T, dk = q_u.shape
     q = torch.cat([q_u, u], dim=-1)
     kk = torch.cat([k, vt[None].expand(BH, -1, -1)], dim=-1)
     mask = (torch.arange(T, device=q.device)[None, None, :]
             < kv_len[:, None, None])
-    return lambda: F.scaled_dot_product_attention(
-        q, kk, v, attn_mask=mask, scale=1.0 / math.sqrt(dk))
+    return q, kk, v, mask, 1.0 / math.sqrt(dk)
+
+
+def _rot_library(args):
+    """One PyTorch call computing the same function (the yardstick; the
+    port never calls it): SDPA over the concatenated [q_u ; u] / [k ; V]."""
+    import torch.nn.functional as F
+    q, kk, v, mask, scale = _sdpa_operands(args)
+    return lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask,
+                                                  scale=scale)
+
+
+def _rot_bwd_library(args):
+    """The backward of that SDPA call (``torch.autograd.grad`` on a graph
+    kept across calls)."""
+    import torch
+    import torch.nn.functional as F
+    q, kk, v, mask, scale = _sdpa_operands(args)
+    leaves = [x.detach().requires_grad_() for x in (q, kk, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                         scale=scale)
+    dout = args[-1]
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def _with_grad_inputs(make, forward):
+    """Backward inputs: the forward's inputs, its kernel's out and lse,
+    and a seeded dout."""
+    def build(rng, dtype, dev, shape):
+        args = make(rng, dtype, dev, shape)
+        out, lse = forward(*args)
+        return args + (out, lse, _tensor(rng, dtype, dev, *out.shape))
+    return build
+
+
+def _f32(args):
+    return [a.float() if a.is_floating_point() else a for a in args]
+
+
+def _errors(got, want):
+    """Per output (only where the plain value is finite: a forward's lse
+    is +inf on empty rows): (max abs error, that over the plain output's
+    largest magnitude)."""
+    import torch
+    if not isinstance(got, (tuple, list)):
+        got, want = (got,), (want,)
+    out = []
+    for g, w in zip(got, want):
+        finite = torch.isfinite(w)
+        err = float((g.float()[finite] - w[finite]).abs().max())
+        out.append((err, err / max(float(w[finite].abs().max()), 1e-30)))
+    return out
+
+
+def _kernel_specs():
+    from lasr_tpu_torch.ops.rel_attention import (
+        rel_attention_backward, rel_attention_backward_reference,
+        rel_attention_forward, rel_attention_reference)
+    from lasr_tpu_torch.ops.rot_attention import (
+        rot_attention_backward, rot_attention_backward_reference,
+        rot_attention_forward, rot_attention_reference)
+    rot = "lasr_tpu/ops/rot_attention.py"
+    rel = "lasr_tpu/ops/rel_attention.py"
+    src = "lasr_tpu_torch/csrc/"
+    # name, kernel, plain, inputs, cost, library, source, replaces, shapes
+    return [
+        ("rot_attention_fwd", rot_attention_forward, rot_attention_reference,
+         _rot_inputs, _rot_cost, _rot_library, src + "rot_attention.cu",
+         rot + ":85", (SERVED, TRAINING)),
+        ("rot_attention_bwd", rot_attention_backward,
+         rot_attention_backward_reference,
+         _with_grad_inputs(_rot_inputs, rot_attention_forward),
+         _rot_bwd_cost, _rot_bwd_library, src + "rot_attention_bwd.cu",
+         rot + ":216", (TRAINING,)),
+        ("rel_attention_fwd", rel_attention_forward, rel_attention_reference,
+         _rel_inputs, _rel_cost, None, src + "rel_attention.cu",
+         rel + ":124", (SERVED, TRAINING)),
+        ("rel_attention_bwd", rel_attention_backward,
+         rel_attention_backward_reference,
+         _with_grad_inputs(_rel_inputs, rel_attention_forward),
+         _rel_bwd_cost, None, src + "rel_attention_bwd.cu", rel + ":282",
+         (TRAINING,)),
+    ]
 
 
 def phase_kernels(state):
     import torch
-    from lasr_tpu_torch.ops.rel_attention import (
-        rel_attention_forward, rel_attention_reference)
-    from lasr_tpu_torch.ops.rot_attention import (
-        rot_attention_forward, rot_attention_reference)
     dev = torch.device("cuda")
     rng = np.random.default_rng(state["seed"])
-    specs = [
-        ("rot_attention_fwd", rot_attention_forward, rot_attention_reference,
-         _rot_inputs, _rot_cost, _rot_library,
-         "lasr_tpu_torch/csrc/rot_attention.cu",
-         "lasr_tpu/ops/rot_attention.py:41"),
-        ("rel_attention_fwd", rel_attention_forward, rel_attention_reference,
-         _rel_inputs, _rel_cost, None,
-         "lasr_tpu_torch/csrc/rel_attention.cu",
-         "lasr_tpu/ops/rel_attention.py:72"),
-    ]
-    for name, kern, plain, make, cost, library, src, tpu in specs:
+    for (name, kern, plain, make, cost, library, src, tpu,
+         shapes) in _kernel_specs():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": tpu, "status": "ported"}
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[-1]
-            args = make(rng, dtype, dev)
-            out, lse = kern(*args)
-            torch.cuda.synchronize()
-            # the plain version in f32 on the same (possibly bf16) inputs
-            f32 = [a.float() if a.is_floating_point() else a for a in args]
-            want, want_lse = plain(*f32)
-            err = float((out.float() - want).abs().max())
-            lse_err = float((lse - want_lse).abs().max())
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"{name} {dn}: non-finite output")
-            ms = time_ms(lambda: kern(*args))
-            plain_ms = time_ms(lambda: plain(*args), iters=20)
-            lib_ms = time_ms(library(args)) if library else None
-            nbytes, flops = cost(args)
-            bound, bound_by = _bound_ms(nbytes, flops, dn)
-            log(f"kernel {name} {dn}: max_abs_err {err:.3e} (lse "
-                f"{lse_err:.3e}, tol {TOL[dn]:g}), {ms * 1e3:.1f} us, plain "
-                f"{plain_ms * 1e3:.1f} us, library "
-                f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, "
-                f"bound {bound * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f}"
-                f" MB, {flops / 1e9:.3f} GFLOP) [{state['card']}]")
-            check(err <= TOL[dn], f"{name} {dn}: max_abs_err {err} > "
-                  f"{TOL[dn]}")
-            check(lse_err <= TOL[dn], f"{name} {dn}: lse error {lse_err}")
-            numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound, bound_by=bound_by,
-                           library_ms=lib_ms)
-            # the served model computes in f32: its numbers are the
-            # entry's own, the bf16 ones ride beside them
-            if dtype == torch.float32:
-                entry.update(numbers)
-            else:
-                entry[dn] = numbers
+        for shape in shapes:
+            where = "served" if shape is SERVED else "training"
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[-1]
+                args = make(rng, dtype, dev, shape)
+                got = kern(*args)
+                torch.cuda.synchronize()
+                # the plain version in f32 on the same (possibly bf16) inputs
+                want = plain(*_f32(args))
+                errs = _errors(got, want)
+                abs_err = max(e for e, _ in errs)
+                rel_err = max(r for _, r in errs)
+                # forwards are held to an absolute bound on out and lse,
+                # backwards relative to each gradient's largest magnitude
+                err = rel_err if "bwd" in name else abs_err
+                check(all(bool(torch.isfinite(g.float()).all())
+                          for g in got), f"{name} {dn}: non-finite output")
+                ms = time_ms(lambda: kern(*args), iters=20)
+                plain_ms = time_ms(lambda: plain(*args), iters=5)
+                lib_ms = time_ms(library(args), iters=20) if library else None
+                nbytes, flops = cost(args)
+                bound, bound_by = _bound_ms(nbytes, flops, dn)
+                log(f"kernel {name} {dn} {where} shape (BH={args[0].shape[0]}"
+                    f", T={args[0].shape[1]}): max_abs_err {abs_err:.3e}, "
+                    f"max_rel_err {rel_err:.3e} (per output abs/rel "
+                    f"{', '.join(f'{e:.2e}/{r:.2e}' for e, r in errs)}; tol "
+                    f"{TOL[dn]:g} {'rel' if 'bwd' in name else 'abs'}),"
+                    f" {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                    f"library "
+                    f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'},"
+                    f" bound {bound * 1e3:.2f} us ({bound_by}: "
+                    f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) "
+                    f"[{state['card']}]")
+                check(err <= TOL[dn], f"{name} {dn} {where}: error {err} > "
+                      f"{TOL[dn]}")
+                numbers = dict(max_abs_err=abs_err, max_rel_err=rel_err,
+                               ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=bound_by,
+                               library_ms=lib_ms)
+                # the entry's own numbers: f32 at the shape of the path
+                # that launches it (served for a forward, training for a
+                # backward); the others ride beside them
+                key = dn if shape is shapes[0] else f"{where}_{dn}"
+                if dtype == torch.float32 and shape is shapes[0]:
+                    entry.update(numbers)
+                else:
+                    entry[key] = numbers
         state["kernels"][name] = entry
 
 
@@ -263,11 +396,9 @@ SECS, BATCH, SR = 10.0, 8, 16000
 
 
 def _write_recipe(tmp, flags, seed):
-    """Seeded random weights as a reference-format .pt, hparams.yaml and
-    decode.yaml naming the JAX package's classes (the port translates
-    them), and a 5000-entry CharTokenizer dictionary."""
+    """Seeded random weights as a reference-format .pt, and the configs of
+    ``_write_recipe_configs``."""
     import torch
-    import yaml
     from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
     torch.manual_seed(seed)
     model = E2E_Conformer_CTC(**RECIPE, device="cpu")
@@ -278,6 +409,13 @@ def _write_recipe(tmp, flags, seed):
         elif name.endswith("running_var"):
             buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
     torch.save(model.state_dict(), os.path.join(tmp, "model.pt"))
+    _write_recipe_configs(tmp, flags, DECODE["decode_method"])
+
+
+def _write_recipe_configs(tmp, flags, decode_method):
+    """hparams.yaml and decode.yaml naming the JAX package's classes (the
+    port translates them), and a 5000-entry CharTokenizer dictionary."""
+    import yaml
     with open(os.path.join(tmp, "dict.txt"), "w") as f:
         f.write("\n".join(f"T{i}" for i in range(RECIPE["odim"] - 6)) + "\n")
     with open(os.path.join(tmp, "hparams.yaml"), "w") as f:
@@ -289,14 +427,16 @@ def _write_recipe(tmp, flags, seed):
                 "name": "lasr_tpu.data.tokenizer:CharTokenizer",
                 "kwargs": {"dict_path": os.path.join(tmp, "dict.txt")}}}, f)
     with open(os.path.join(tmp, "decode.yaml"), "w") as f:
-        yaml.safe_dump({"decode_config": DECODE, "test_data_config": {
-            "kwargs": {"audio_trans": ["norm", "fbank:80"]}}}, f)
+        yaml.safe_dump({"decode_config": dict(DECODE,
+                                              decode_method=decode_method),
+                        "test_data_config": {"kwargs": {
+                            "audio_trans": ["norm", "fbank:80"]}}}, f)
 
 
-def make_waves(seed, n):
-    """n seeded 10 s waves: a few harmonics under noise."""
+def make_waves(seed, n, secs=SECS):
+    """n seeded waves of ``secs`` seconds: a few harmonics under noise."""
     rng = np.random.default_rng(seed)
-    t = np.arange(int(SECS * SR)) / SR
+    t = np.arange(int(secs * SR)) / SR
     out = []
     for _ in range(n):
         f0 = rng.uniform(90, 250)
@@ -408,6 +548,182 @@ def phase_slice_b(state):
            "rel_attention_fwd", rel_attention_forward)
 
 
+# the bench.py training batch: 32 utterances x 15.6 s, 64 token ids each
+TRAIN_BATCH, TRAIN_SECS, TRAIN_TOKENS = 32, 15.6, 64
+TRAIN_STEPS = 3
+# parameters whose true gradient is 0 (see _train)
+ZERO_GRADIENT_LEAVES = ("linear_k.bias", "conv_module.depthwise_conv.bias")
+
+
+def _train_batch(seed):
+    rng = np.random.default_rng(seed)
+    wav = make_waves(seed, TRAIN_BATCH, TRAIN_SECS)
+    return {"wav_array": wav,
+            "wav_len": np.full((TRAIN_BATCH,), wav.shape[1], np.int32),
+            "token_id": rng.integers(6, RECIPE["odim"],
+                                     (TRAIN_BATCH, TRAIN_TOKENS)).astype(
+                                         np.int32),
+            "token_len": np.full((TRAIN_BATCH,), TRAIN_TOKENS, np.int32)}
+
+
+def _trainer(model, chain, seed, log_interval=1):
+    """The Trainer of the training phases; ``log_interval=1`` computes the
+    greedy-CTC CER on every step."""
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.models.losses import E2E_Loss
+    from lasr_tpu_torch.train.optimizer import Noam
+    from lasr_tpu_torch.train.trainer import Trainer
+    return Trainer(model, E2E_Loss(size=RECIPE["odim"], smoothing=0.1,
+                                   rate=0.3),
+                   Noam(320, 3, 25000), DeviceFrontend(chain), use_ema=True,
+                   grad_clip=5.0, seed=seed, log_interval=log_interval)
+
+
+def _train(state, label, flags, plain_flags, kernels):
+    """One main-path run of training: ``flags`` select the kernel path,
+    ``plain_flags`` the plain path its gradients are held against,
+    ``kernels`` the (name, forward counter, backward counter) it runs."""
+    import torch
+    from lasr_tpu_torch.data.reader import write_wav
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from lasr_tpu_torch.utils.weights import load_model_weights
+
+    seed = state["seed"]
+    torch.manual_seed(seed)
+    model = E2E_Conformer_CTC(**RECIPE, **flags)
+    trainer = _trainer(model, ["norm", "fbank:80", "specaug"], seed)
+    batch = _train_batch(seed + 2)
+    tstate = trainer.init_state()
+    counters = [c for _, fwd, bwd in kernels for c in (fwd, bwd)]
+    for c in counters:
+        c.launches = 0
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tstate, m = trainer.train_step(tstate, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"{label}: {TRAIN_STEPS} train steps of B={TRAIN_BATCH} x "
+        f"{TRAIN_SECS:g} s, {trainer.param_count()} parameters: step times "
+        f"{', '.join(f'{t:.3f}' for t in times)} s [{state['card']}]")
+    for i, m in enumerate(metrics):
+        log(f"{label}: step {i} " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in m.items()))
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{label}: step {i} has a non-finite metric {m}")
+    log(f"{label}: launches in the main path {launches} over {TRAIN_STEPS} "
+        f"steps")
+    want = RECIPE["encoder_num_blocks"] * TRAIN_STEPS
+    for name, fwd, bwd in kernels:
+        check(fwd.launches == want and bwd.launches == want,
+              f"{label}: {fwd.__name__} / {bwd.__name__} launched "
+              f"{fwd.launches} / {bwd.launches} times, expected "
+              f"{RECIPE['encoder_num_blocks']} each per step")
+        state["launches"][name] = bwd.launches
+        state["train_launches"][name.replace("_bwd", "_fwd")] = fwd.launches
+    state["timings"][label] = dict(step_s=times)
+
+    # the same weights, dropout 0 and no SpecAugment: kernel path vs plain
+    weights = model.state_dict()
+    nodrop = dict(RECIPE, encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+                  ctc_dropout=0.0)
+    results = []
+    for f in (flags, plain_flags):
+        m = E2E_Conformer_CTC(**nodrop, **f)
+        load_model_weights(m, weights)
+        # the decoder's ReLU masks, to count the units that flip
+        relu = []
+        hooks = [layer.feed_forward.w_1.register_forward_hook(
+            lambda mod, inp, out: relu.append(out.detach() > 0))
+            for layer in m.decoder.decoders]
+        metrics0, grads = _trainer(m, ["norm", "fbank:80"],
+                                   seed).loss_and_grads(batch, 0)
+        for h in hooks:
+            h.remove()
+        results.append((float(metrics0["loss_main"].detach()), grads,
+                        [n for n, _ in m.named_parameters()], relu))
+        del m
+    (loss_k, grads_k, names, relu_k), (loss_p, grads_p, _, relu_p) = results
+    flips = [int((a != b).sum()) for a, b in zip(relu_k, relu_p)]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    # each encoder gradient (where the kernels act) entrywise against its
+    # own largest magnitude, except the leaves whose true gradient is 0 (a
+    # key bias: the softmax removes q·b_k; the depthwise bias: the
+    # train-mode BatchNorm removes it), which hold rounding noise only and
+    # must be ~0 on both paths.  The decoder's ReLU feed-forward flips the
+    # few units whose pre-activation is within rounding of 0 when its
+    # input moves by ~1e-7 (counted below), and each flip moves single
+    # entries of the decoder's gradients by up to ~1e-2 of their largest:
+    # decoder and CTC gradients are held in the L2 norm at 1e-2.
+    top = max(float(g.abs().max()) for g in grads_p)
+    entry, l2, noise = {}, {}, {}
+    for n, a, b in zip(names, grads_k, grads_p):
+        if n.endswith(ZERO_GRADIENT_LEAVES):
+            noise[n] = max(float(a.abs().max()), float(b.abs().max())) / top
+        elif n.startswith("encoder."):
+            entry[n] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+        else:
+            l2[n] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    worst_entry = max(entry, key=entry.get)
+    worst_l2 = max(l2, key=l2.get)
+    loudest = max(noise, key=noise.get)
+    log(f"{label}: dropout 0, no SpecAugment, kernel path vs plain path: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.2e}, tol 1e-4); "
+        f"{len(entry)} encoder gradients, worst entrywise {worst_entry} "
+        f"{entry[worst_entry]:.2e} (tol 1e-3); {len(l2)} decoder/CTC "
+        f"gradients, worst L2 {worst_l2} {l2[worst_l2]:.2e} (tol 1e-2; "
+        f"decoder ReLU units flipped per layer {flips} of "
+        f"{relu_k[0].numel()}); {len(noise)} zero-gradient leaves at most "
+        f"{noise[loudest]:.2e} of the largest gradient ({loudest}, tol "
+        f"1e-4) [{state['card']}]")
+    check(entry[worst_entry] <= 1e-3, f"{label}: gradient of {worst_entry} "
+          f"differs by {entry[worst_entry]}")
+    check(l2[worst_l2] <= 1e-2, f"{label}: gradient of {worst_l2} differs "
+          f"by {l2[worst_l2]} (L2)")
+    check(noise[loudest] <= 1e-4, f"{label}: gradient of {loudest} is not "
+          f"~0: {noise[loudest]} of the largest")
+    check(loss_err <= 1e-4, f"{label}: loss differs by {loss_err}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = trainer.save_checkpoint(tstate, os.path.join(tmp, "x.ckpt"))
+        _write_recipe_configs(tmp, flags, "ctc_greedy")
+        asr = ASRProcess(os.path.join(tmp, "hparams.yaml"),
+                         os.path.join(tmp, "decode.yaml"), ckpt)
+        loaded = asr.model.state_dict()
+        same = all(torch.equal(loaded[n], s.to(loaded[n].device))
+                   for n, s in zip(trainer.names, tstate.ema["shadow"]))
+        wav_path = os.path.join(tmp, "x.wav")
+        write_wav(wav_path, batch["wav_array"][0], SR)
+        tokens, _ = asr(wav_path)
+        log(f"{label}: checkpoint {os.path.getsize(ckpt) / 1e6:.1f} MB loaded "
+            f"into ASRProcess (EMA shadow: {same}), greedy decode of batch "
+            f"row 0 -> {len(tokens)} tokens")
+        check(same, f"{label}: ASRProcess did not load the EMA shadow")
+
+
+def phase_train_a(state):
+    from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
+                                                  rot_attention_forward)
+    _train(state, "train_a", {"encoder_rot_fold_pallas": True,
+                              "encoder_pos_dropout_mode": "rotated"},
+           {"encoder_pos_dropout_mode": "rotated"},
+           [("rot_attention_bwd", rot_attention_forward,
+             rot_attention_backward)])
+
+
+def phase_train_b(state):
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    _train(state, "train_b", {"encoder_use_pallas_attention": True}, {},
+           [("rel_attention_bwd", rel_attention_forward,
+             rel_attention_backward)])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -426,11 +742,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    state = {"seed": args.seed, "kernels": {}, "launches": {}, "timings": {},
-             "card": "not measured"}
+    state = {"seed": args.seed, "kernels": {}, "launches": {},
+             "train_launches": {}, "timings": {}, "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
-              ("slice_b", phase_slice_b)]
+              ("slice_b", phase_slice_b), ("train_a", phase_train_a),
+              ("train_b", phase_train_b)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -445,6 +762,8 @@ def main(argv=None) -> int:
     kernels = []
     for name, entry in state["kernels"].items():
         entry = dict(entry, launches=state["launches"].get(name, 0))
+        if name in state["train_launches"]:
+            entry["launches_training"] = state["train_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

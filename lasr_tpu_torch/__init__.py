@@ -11,11 +11,15 @@ This package imports torch, numpy and yaml only — never jax, flax or any
 module of ``lasr_tpu``.
 
 Layer map (same as lasr_tpu):
-  utils/     config registry, masks, the weight bridge / checkpoint loader
-  ops/       fbank frontend and the attention kernels (CUDA + plain torch)
-  modules/   nn.Modules (attention, embeddings, conformer, decoder, ...)
-  models/    dict-in/dict-out joint CTC/attention models
-  data/      WAV reader, tokenizers, the frontend chain
+  utils/     config registry, masks, edit distance, the weight bridge /
+             checkpoint loader
+  ops/       fbank, SpecAugment, the CTC loss, and the attention kernels
+             (CUDA + plain torch, forward and backward)
+  modules/   nn.Modules (attention, embeddings, conformer, decoder,
+             generator-driven dropout, ...)
+  models/    dict-in/dict-out joint CTC/attention models, losses
+  data/      WAV reader, tokenizers, the frontend chain, pack_s2s
+  train/     Adam/Noam (optax's update written out), EMA, the Trainer step
   decode/    greedy CTC and joint CTC/attention beam search
   process/   one-call ASRProcess user API
 """

@@ -6,8 +6,9 @@ The dict contract: ``forward`` takes ``(x, xlen, ys_in)`` and returns
 ``ctc_logits``, ``decode_full`` and the cached ``decoder_*`` helpers.
 Parameters carry the reference torch ``state_dict`` names
 (``encoder.encoders.N.*``, ``ctc.1.*``, ...), so lighting-asr checkpoints
-load unchanged.  This slice serves: the model runs in eval mode only, and
-a forward in training mode raises.
+load unchanged.  ``forward`` runs in train mode too (dropout from the
+generator of ``modules.dropout.dropout_generator``, BatchNorm batch
+statistics); the decode hooks are eval-only.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.modules.conformer import ConformerEncoder
+from lasr_tpu_torch.modules.dropout import Dropout
 from lasr_tpu_torch.modules.transformer import Decoder
 from lasr_tpu_torch.utils.masks import target_mask
 
@@ -29,7 +31,7 @@ class CTCHead(nn.Sequential):
 
     def __init__(self, idim: int, odim: int, dropout: float = 0.1,
                  domain_dim: int = 0):
-        super().__init__(nn.Dropout(dropout),
+        super().__init__(Dropout(dropout),
                          nn.Linear(idim + domain_dim, odim))
         self.domain_dim = domain_dim
 
@@ -50,12 +52,10 @@ class E2EBase(nn.Module):
 
     def _check_eval(self):
         if self.training:
-            raise NotImplementedError(
-                "training forwards belong to the training slice; call "
-                ".eval() (the port serves only, for now)")
+            raise RuntimeError("the decode hooks run in eval mode; call "
+                               ".eval() first")
 
     def forward(self, x, xlen, ys_in, ylen=None, domain=None):
-        self._check_eval()
         hs, hs_len = self.encoder(x, xlen)
         att_out = self.decoder(ys_in, target_mask(ys_in, ignore_id=-1), hs,
                                self._mem_mask(hs, hs_len))
@@ -101,14 +101,16 @@ class E2E_Conformer_CTC(E2EBase):
 
     Accepts every constructor kwarg of the JAX class.  The two kernel
     flags are honoured: ``encoder_rot_fold_pallas`` routes the encoder's
-    rotated-fold attention through the rot kernel,
+    rotated-fold attention through the rot kernels (eval, and training
+    under ``encoder_pos_dropout_mode="rotated"``),
     ``encoder_use_pallas_attention`` its rel-pos attention through the rel
-    kernel.  Knobs that only shape TPU training (``encoder_remat*``,
-    ``encoder_scan_layers``, ``encoder_ff_int8``, ``encoder_pos_dropout_mode``,
-    the pipeline microbatch count and the sharding objects) are accepted
-    and ignored; ``encoder_pipeline_stages > 1`` changes the parameter
-    layout and raises.  ``device=None`` means CUDA (raises without a GPU);
-    compute is float32."""
+    kernels; ``encoder_pos_dropout_mode`` places positional dropout as in
+    the JAX encoder.  Knobs that only shape TPU training
+    (``encoder_remat*``, ``encoder_scan_layers``, ``encoder_ff_int8``, the
+    pipeline microbatch count and the sharding objects) are accepted and
+    ignored; ``encoder_pipeline_stages > 1`` changes the parameter layout
+    and raises.  ``device=None`` means CUDA (raises without a GPU); compute
+    is float32."""
 
     def __init__(self, idim: int = 13, odim: int = 26,
                  encoder_attention_dim: int = 256,
@@ -146,9 +148,6 @@ class E2E_Conformer_CTC(E2EBase):
             raise NotImplementedError(
                 "encoder_pipeline_stages > 1 stacks the blocks into another "
                 "parameter layout; not ported")
-        if encoder_pos_dropout_mode not in ("table", "rotated"):
-            raise ValueError(
-                f"unknown pos_dropout_mode: {encoder_pos_dropout_mode!r}")
         if dtype not in _DTYPES:
             raise NotImplementedError(f"compute dtype {dtype!r}: the port "
                                       f"computes in float32 for now")
@@ -166,7 +165,8 @@ class E2E_Conformer_CTC(E2EBase):
             use_cnn_module=encoder_use_cnn,
             cnn_module_kernel=encoder_cnn_kernel,
             use_pallas_attention=encoder_use_pallas_attention,
-            rot_fold_pallas=encoder_rot_fold_pallas)
+            rot_fold_pallas=encoder_rot_fold_pallas,
+            pos_dropout_mode=encoder_pos_dropout_mode)
         self.decoder = Decoder(
             odim=odim, attention_dim=decoder_attention_dim,
             attention_heads=decoder_attention_heads,

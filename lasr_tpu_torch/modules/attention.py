@@ -1,16 +1,19 @@
 """Multi-head attention (counterpart of ``lasr_tpu/modules/attention.py``).
 
   - ``MultiHeadedAttention``: scaled-dot MHA with ``project_q`` /
-    ``project_kv`` / ``attend``, so cached decode reuses the projections.
+    ``project_kv`` / ``attend``, so cached decode reuses the projections;
+    dropout on the attention probabilities in train mode.
   - ``RelPositionMultiHeadedAttention``: Transformer-XL relative-position
-    scoring with pos_bias_u/v.  Three deterministic paths, as in the JAX
-    module: the rotated fold in plain PyTorch, the rotated fold through
-    the rot kernel (``rot_fold_pallas``), and the rel kernel
-    (``use_pallas``).  The table and rel-shift paths, which the JAX
-    package uses for training, belong to the training slice.
+    scoring with pos_bias_u/v, by the JAX module's paths in its order: the
+    rel kernel (``use_pallas``); the rotated fold (eval, or training under
+    ``rot_fold_train`` with positional dropout on ``u``), in plain PyTorch
+    or through the rot kernel (``rot_fold_pallas``); the skewed-table fold
+    (``pos_table``); the per-layer ``rel_shift``.  Both kernel paths run
+    forward and backward kernels through autograd Functions.
 
-All masks are boolean with True = attendable.  Inference only: dropout
-is the identity.
+All masks are boolean with True = attendable.  (``remat_attend``, a TPU
+memory knob of the JAX module, is accepted and ignored at the model,
+``encoder_remat_attend``.)
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import sinusoid_table
-from lasr_tpu_torch.ops.rel_attention import rel_attention_forward
-from lasr_tpu_torch.ops.rot_attention import rot_attention_forward
+from lasr_tpu_torch.ops.rel_attention import rel_attention_context
+from lasr_tpu_torch.ops.rot_attention import rot_attention_context
 
 
 @functools.lru_cache(maxsize=8)
@@ -37,6 +42,28 @@ def _rot_tables(T: int, M: int):
     V[:, 0::2] = W[:, 1::2]
     V[:, 1::2] = W[:, 0::2]
     return W, V
+
+
+def build_skewed_pos_table(pos_emb: torch.Tensor) -> torch.Tensor:
+    """(1, 2T-1, M) relative table → (T, T, M) with out[i, j] =
+    pos_emb[0, T-1-i+j]: the rel-shift index map on the batch-independent
+    table, built once per encoder forward (``lasr_tpu``'s pad/reshape
+    skew)."""
+    e = pos_emb[0]
+    P, M = e.shape
+    T = (P + 1) // 2
+    x = F.pad(e[None].expand(T, P, M), (0, 0, 1, 0))     # (T, P+1, M)
+    x = x.reshape(P + 1, T, M)[1:].reshape(T, P, M)
+    return x[:, :T]
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """Transformer-XL relative shift: x (B, H, T1, P = 2T1-1) scored
+    against distances [T1-1 .. -(T1-1)] → (B, H, T1, T1) with column j at
+    distance i-j."""
+    B, H, T1, P = x.shape
+    x = F.pad(x, (1, 0)).reshape(B, H, P + 1, T1)
+    return x[:, :, 1:].reshape(B, H, T1, P)[..., : P // 2 + 1]
 
 
 def _key_lengths(mask, B: int, T: int, H: int, device) -> torch.Tensor:
@@ -61,6 +88,7 @@ class MultiHeadedAttention(nn.Module):
                              f"{n_head}")
         self.n_head, self.n_feat = n_head, n_feat
         self.d_k = n_feat // n_head
+        self.dropout_rate = dropout_rate
         self.linear_q = nn.Linear(n_feat, n_feat)
         self.linear_k = nn.Linear(n_feat, n_feat)
         self.linear_v = nn.Linear(n_feat, n_feat)
@@ -88,6 +116,7 @@ class MultiHeadedAttention(nn.Module):
             attn = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
         else:
             attn = torch.softmax(scores, dim=-1)
+        attn = dropout(attn, self.dropout_rate, self.training)
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         B, T1 = x.shape[:2]
         return self.linear_out(x.reshape(B, T1, self.n_feat))
@@ -104,27 +133,38 @@ class MultiHeadedAttention(nn.Module):
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):
-    """``rot_fold``: merge content and position scores into one product
-    over dk+M lanes via the sinusoid angle-addition identity (valid for the
-    undropped, unclamped sinusoid table the conformer encoder owns).
-    ``rot_fold_pallas``: run that fold through the rot kernel.
-    ``use_pallas``: run the rel-pos scoring through the rel kernel (checked
-    first, as in the JAX module).  Both kernel paths need a key-prefix
-    padding mask."""
+    """``use_pallas``: the rel kernel, whenever attention dropout is off
+    in training, the mask is a key-prefix padding mask and the table is
+    the shared (1, 2T-1, D) one.  ``rot_fold``: merge content and position
+    scores into one product over dk+M lanes via the sinusoid
+    angle-addition identity (valid for the unclamped sinusoid table the
+    conformer encoder owns), in eval and, with ``rot_fold_train``, in
+    training with dropout at ``pos_dropout_rate`` on the rotated
+    position-query ``u``.  ``rot_fold_pallas``: run that fold through the
+    rot kernel."""
 
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
                  zero_triu: bool = False, use_pallas: bool = False,
-                 rot_fold: bool = False, rot_fold_pallas: bool = False):
+                 rot_fold: bool = False, rot_fold_pallas: bool = False,
+                 rot_fold_train: bool = False, pos_dropout_rate: float = 0.0):
         super().__init__(n_head, n_feat, dropout_rate)
         self.zero_triu = zero_triu
         self.use_pallas = use_pallas
         self.rot_fold = rot_fold
         self.rot_fold_pallas = rot_fold_pallas
+        self.rot_fold_train = rot_fold_train
+        self.pos_dropout_rate = pos_dropout_rate
         self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
         nn.init.xavier_uniform_(self.pos_bias_u)
         nn.init.xavier_uniform_(self.pos_bias_v)
+
+    def _kernel_ok(self, mask) -> bool:
+        """The kernels fuse the softmax, so attention dropout rules them
+        out in training."""
+        return (_is_key_prefix_mask(mask)
+                and (not self.training or self.dropout_rate == 0.0))
 
     def _heads_major(self, x):
         """(B, T, H, e) → contiguous (B*H, T, e), bh = b*H + h."""
@@ -135,6 +175,11 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         ctx = ctx.reshape(B, self.n_head, T, self.d_k).permute(0, 2, 1, 3)
         return self.linear_out(ctx.reshape(B, T, self.n_feat))
 
+    def _pos_kernel(self):
+        """linear_pos as (M, H, dk): contracted into the query side."""
+        return self.linear_pos.weight.t().reshape(self.n_feat, self.n_head,
+                                                  self.d_k)
+
     def _rel_kernel_attend(self, query, key, value, pos_emb, mask):
         B, T, _ = query.shape
         q = self.project_q(query)
@@ -143,7 +188,7 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         q_u = q + self.pos_bias_u.to(q.dtype)
         q_v = q + self.pos_bias_v.to(q.dtype)
         hm = self._heads_major
-        ctx, _ = rel_attention_forward(
+        ctx = rel_attention_context(
             hm(q_u), hm(q_v), hm(k), hm(v), p.permute(1, 0, 2).contiguous(),
             _key_lengths(mask, B, T, self.n_head, query.device))
         return self._from_heads_major(ctx, B, T)
@@ -154,8 +199,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         frequency pair, so scores = [q_u ; u] @ [k ; V]^T / sqrt(dk)."""
         B, T = q_u.shape[:2]
         M, H, dk = self.n_feat, self.n_head, self.d_k
-        kmat = self.linear_pos.weight.t().reshape(M, H, dk).to(q_v.dtype)
-        z = torch.einsum("bqhd,mhd->bqhm", q_v, kmat)      # (B, T, H, M)
+        z = torch.einsum("bqhd,mhd->bqhm", q_v,
+                         self._pos_kernel().to(q_v.dtype))  # (B, T, H, M)
         W, V = _rot_tables(T, M)
         W = torch.from_numpy(W).to(z.device, z.dtype)
         si = W[None, :, None, 0::2]
@@ -163,10 +208,13 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         zs, zc = z[..., 0::2], z[..., 1::2]
         u = torch.stack([zs * si + zc * ci, zc * si - zs * ci],
                         dim=-1).reshape(z.shape)
+        if self.rot_fold_train:
+            # rotated-space positional dropout (training only)
+            u = dropout(u, self.pos_dropout_rate, self.training)
         vt = torch.from_numpy(V).to(k.device, k.dtype)     # (T, M)
-        if self.rot_fold_pallas and _is_key_prefix_mask(mask):
+        if self.rot_fold_pallas and self._kernel_ok(mask):
             hm = self._heads_major
-            ctx, _ = rot_attention_forward(
+            ctx = rot_attention_context(
                 hm(q_u), hm(u), hm(k), hm(v), vt,
                 _key_lengths(mask, B, T, H, q_u.device))
             return self._from_heads_major(ctx, B, T)
@@ -175,20 +223,40 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         scores = torch.einsum("bqhe,bkhe->bhqk", qcat, kcat) / math.sqrt(dk)
         return self._softmax_attend(scores, v, mask)
 
-    def forward(self, query, key, value, pos_emb, mask=None):
+    def forward(self, query, key, value, pos_emb, mask=None, pos_table=None):
+        """``pos_table``: the (T, T, M) table of ``build_skewed_pos_table``;
+        when given (self-attention, T1 == T2), the position score is
+        ``(q_v @ W_pos)[b,h,i,:] · pos_table[i,j,:]``, the same rel-shift
+        contraction with the shift on the shared table."""
         T1, T2 = query.shape[1], key.shape[1]
         shared_table = (pos_emb is not None and pos_emb.shape[0] == 1
                         and pos_emb.shape[1] == 2 * T1 - 1)
-        if (self.use_pallas and not self.zero_triu and T1 == T2
-                and shared_table and _is_key_prefix_mask(mask)):
+        square = not self.zero_triu and T1 == T2
+        if self.use_pallas and square and shared_table \
+                and self._kernel_ok(mask):
             return self._rel_kernel_attend(query, key, value, pos_emb, mask)
-        if not (self.rot_fold and not self.zero_triu and T1 == T2
-                and shared_table):
-            raise NotImplementedError(
-                "only the rotated-fold and rel-kernel paths are ported; the "
-                "table / rel-shift paths belong to the training slice")
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
         q_u = q + self.pos_bias_u.to(q.dtype)
         q_v = q + self.pos_bias_v.to(q.dtype)
-        return self._rot_fold_attend(q_u, q_v, k, v, mask)
+        if (self.rot_fold and (not self.training or self.rot_fold_train)
+                and square and shared_table):
+            return self._rot_fold_attend(q_u, q_v, k, v, mask)
+        ac = torch.einsum("bqhd,bkhd->bhqk", q_u, k)
+        if pos_table is not None and square and pos_table.shape[0] == T1:
+            z = torch.einsum("bqhd,mhd->bhqm", q_v,
+                             self._pos_kernel().to(q_v.dtype))
+            bd = torch.einsum("bhqm,qkm->bhqk", z, pos_table.to(z.dtype))
+            return self._softmax_attend((ac + bd) / math.sqrt(self.d_k), v,
+                                        mask)
+        p = self._split(self.linear_pos(pos_emb))       # (1|B, 2T-1, H, dk)
+        if p.shape[0] == 1:
+            bd = torch.einsum("bqhd,phd->bhqp", q_v, p[0])
+        else:
+            bd = torch.einsum("bqhd,bphd->bhqp", q_v, p)
+        scores = (ac + rel_shift(bd)[..., :T2]) / math.sqrt(self.d_k)
+        if self.zero_triu:
+            tri = torch.ones(T1, T2, dtype=torch.bool,
+                             device=scores.device).tril(T2 - T1)
+            scores = scores.masked_fill(~tri, 0.0)
+        return self._softmax_attend(scores, v, mask)

@@ -1,10 +1,12 @@
 """Conformer encoder (counterpart of ``lasr_tpu/modules/conformer.py``).
 
 The blocks ``E2E_Conformer_CTC`` builds: pre-norm (LayerNorm eps 1e-12)
-MHA(+rel pos) → conv module → feed-forward (swish) → final norm, without
-macaron feed-forward (the model hard-codes ``macaron_style=False``).  The
-ConvolutionModule is pointwise → GLU → depthwise → BatchNorm (eval: running
-statistics, eps 1e-5) → swish → pointwise.  Inference only.
+MHA(+rel pos) → conv module → feed-forward (swish) → final norm, each
+branch dropped out before its residual add in training, without macaron
+feed-forward (the model hard-codes ``macaron_style=False``).  The
+ConvolutionModule is pointwise → GLU → depthwise → BatchNorm (eps 1e-5;
+Flax's batch statistics in training, see ``FlaxBatchNorm1d``) → swish →
+pointwise.
 """
 
 from __future__ import annotations
@@ -14,12 +16,36 @@ import torch.nn.functional as F
 from torch import nn
 
 from lasr_tpu_torch.modules.attention import (
-    MultiHeadedAttention, RelPositionMultiHeadedAttention)
+    MultiHeadedAttention, RelPositionMultiHeadedAttention,
+    build_skewed_pos_table)
+from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import (PositionalEncoding,
                                               RelPositionalEncoding)
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """BatchNorm over (B, C, T) with the reference state_dict names and
+    Flax's training semantics (``lasr_tpu`` ``nn.BatchNorm(momentum=0.9)``):
+    the statistics are taken over every B×T frame, padding included, the
+    variance is the biased E[x²] - E[x]² (clamped at 0), and the running
+    statistics move as ``ra = 0.9·ra + 0.1·batch_stat``, the running
+    variance with the biased batch variance (torch's BatchNorm keeps the
+    unbiased one).  Eval mode normalizes with the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
 
 
 class ConvolutionModule(nn.Module):
@@ -29,7 +55,7 @@ class ConvolutionModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
                                         padding=(kernel_size - 1) // 2,
                                         groups=channels)
-        self.norm = nn.BatchNorm1d(channels, eps=1e-5)
+        self.norm = FlaxBatchNorm1d(channels, eps=1e-5)
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, zero_mask=None) -> torch.Tensor:
@@ -51,15 +77,19 @@ class ConformerEncoderLayer(nn.Module):
                  selfattention_layer_type: str = "selfattn",
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  use_pallas_attention: bool = False, rot_fold: bool = False,
-                 rot_fold_pallas: bool = False):
+                 rot_fold_pallas: bool = False, rot_fold_train: bool = False,
+                 pos_dropout_rate: float = 0.0):
         super().__init__()
         self.rel = selfattention_layer_type == "rel_selfattn"
+        self.dropout_rate = dropout_rate
         self.norm_mha = nn.LayerNorm(size, eps=LAYERNORM_EPS)
         if self.rel:
             self.self_attn = RelPositionMultiHeadedAttention(
                 attention_heads, size, attention_dropout_rate,
                 use_pallas=use_pallas_attention, rot_fold=rot_fold,
-                rot_fold_pallas=rot_fold_pallas)
+                rot_fold_pallas=rot_fold_pallas,
+                rot_fold_train=rot_fold_train,
+                pos_dropout_rate=pos_dropout_rate)
         elif selfattention_layer_type == "selfattn":
             self.self_attn = MultiHeadedAttention(attention_heads, size,
                                                   attention_dropout_rate)
@@ -75,22 +105,35 @@ class ConformerEncoderLayer(nn.Module):
         self.feed_forward = PositionwiseFeedForward(
             size, linear_units, dropout_rate, activation=F.silu)
 
-    def forward(self, x, mask=None, pos_emb=None, conv_zero_mask=None):
+    def _drop(self, x):
+        return dropout(x, self.dropout_rate, self.training)
+
+    def forward(self, x, mask=None, pos_emb=None, conv_zero_mask=None,
+                pos_table=None):
         y = self.norm_mha(x)
         if self.rel:
-            x = x + self.self_attn(y, y, y, pos_emb, mask)
+            x = x + self._drop(self.self_attn(y, y, y, pos_emb, mask,
+                                              pos_table=pos_table))
         else:
-            x = x + self.self_attn(y, y, y, mask)
+            x = x + self._drop(self.self_attn(y, y, y, mask))
         if self.use_cnn_module:
-            x = x + self.conv_module(self.norm_conv(x), conv_zero_mask)
-        x = x + self.feed_forward(self.norm_ff(x))
+            x = x + self._drop(self.conv_module(self.norm_conv(x),
+                                                conv_zero_mask))
+        x = x + self._drop(self.feed_forward(self.norm_ff(x)))
         if self.use_cnn_module:
             x = self.norm_final(x)
         return x
 
 
 class ConformerEncoder(nn.Module):
-    """Conformer encoder stack with conv2d subsampling input."""
+    """Conformer encoder stack with conv2d subsampling input.
+
+    ``pos_dropout_mode`` (rel_pos only) places positional dropout as the
+    JAX encoder does: ``"table"`` on the (1, 2T-1, D) table (the
+    reference's semantics; training scores through the skewed-table fold
+    for T <= 1024, else the per-layer rel-shift), ``"rotated"`` on the
+    rotated position-query u, so training runs the rotated fold (and, with
+    ``rot_fold_pallas``, the rot kernels)."""
 
     def __init__(self, idim: int, attention_dim: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -102,17 +145,29 @@ class ConformerEncoder(nn.Module):
                  selfattention_layer_type: str = "selfattn",
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  use_pallas_attention: bool = False, rot_fold: bool = True,
-                 rot_fold_pallas: bool = False):
+                 rot_fold_pallas: bool = False,
+                 pos_dropout_mode: str = "table"):
         super().__init__()
         if input_layer != "conv2d":
             raise NotImplementedError(
                 f"input_layer {input_layer!r}: only conv2d is ported")
+        if pos_dropout_mode not in ("table", "rotated"):
+            raise ValueError(f"unknown pos_dropout_mode: {pos_dropout_mode!r}")
         self.rel = pos_enc_layer_type == "rel_pos"
+        if pos_dropout_mode == "rotated" and not (self.rel and rot_fold):
+            raise ValueError("pos_dropout_mode='rotated' needs "
+                             "pos_enc_layer_type='rel_pos' with rot_fold "
+                             "enabled")
+        self.rot_fold = rot_fold and self.rel
+        self.table_fold = (self.rel and not use_pallas_attention
+                           and pos_dropout_mode == "table")
+        rotated = pos_dropout_mode == "rotated"
         if self.rel:
             if selfattention_layer_type != "rel_selfattn":
                 raise ValueError("rel_pos needs rel_selfattn")
             pos_enc = RelPositionalEncoding(attention_dim,
-                                            positional_dropout_rate)
+                                            positional_dropout_rate,
+                                            drop_pos=not rotated)
         elif pos_enc_layer_type == "abs_pos":
             pos_enc = PositionalEncoding(attention_dim,
                                          positional_dropout_rate)
@@ -127,8 +182,9 @@ class ConformerEncoder(nn.Module):
                 attention_dropout_rate, selfattention_layer_type,
                 use_cnn_module, cnn_module_kernel,
                 use_pallas_attention=use_pallas_attention,
-                rot_fold=rot_fold and self.rel,
-                rot_fold_pallas=rot_fold_pallas)
+                rot_fold=self.rot_fold, rot_fold_pallas=rot_fold_pallas,
+                rot_fold_train=rotated,
+                pos_dropout_rate=positional_dropout_rate if rotated else 0.0)
             for _ in range(num_blocks)])
         self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
@@ -144,6 +200,12 @@ class ConformerEncoder(nn.Module):
         pad = torch.arange(T, device=h.device)[None, :] < h_len[:, None]
         mask = pad[:, None, :]
         conv_zero = pad if solo_pad else None
+        # the skewed table, once per forward, where the layers take the
+        # table fold: training, or eval without the rotated fold
+        pos_table = None
+        if (self.table_fold and (self.training or not self.rot_fold)
+                and pos_emb.shape[1] == 2 * T - 1 and T <= 1024):
+            pos_table = build_skewed_pos_table(pos_emb)
         for layer in self.encoders:
-            h = layer(h, mask, pos_emb, conv_zero)
+            h = layer(h, mask, pos_emb, conv_zero, pos_table)
         return self.after_norm(h), h_len

@@ -1,0 +1,56 @@
+"""Dropout that draws from a caller-owned ``torch.Generator``.
+
+Counterpart of Flax's ``nn.Dropout`` under the ``"dropout"`` rng stream:
+keep with probability ``1 - rate``, scale the kept entries by
+``1 / (1 - rate)``.  The bits come from the generator that the innermost
+``dropout_generator(...)`` block installs (the ``Trainer`` owns one per
+step), never from torch's global RNG; a train-mode forward with a nonzero
+rate outside such a block raises.  A rate of 0, or eval mode, is the
+identity and draws nothing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+from torch import nn
+
+_GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
+    "lasr_tpu_torch_dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: torch.Generator):
+    """Train-mode dropout inside the block draws from ``generator``."""
+    token = _GENERATOR.set(generator)
+    try:
+        yield generator
+    finally:
+        _GENERATOR.reset(token)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    if not training or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    gen = _GENERATOR.get()
+    if gen is None:
+        raise RuntimeError("train-mode dropout draws from a generator: run "
+                           "the forward inside dropout_generator(...)")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+class Dropout(nn.Module):
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.training)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"

@@ -7,7 +7,8 @@
 
 Tables are computed (in float64, then cast to float32) for the rows a call
 needs; like the reference's non-persistent ``pe`` buffer they are not in
-the state_dict.  Inference only: dropout is the identity.
+the state_dict.  In train mode the scaled input, and (``drop_pos``) the
+relative table, take dropout at ``dropout_rate``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from lasr_tpu_torch.modules.dropout import dropout
 
 
 def sinusoid_rows(positions, d_model: int) -> np.ndarray:
@@ -45,28 +48,38 @@ class PositionalEncoding(nn.Module):
                  max_len: int = 5000):
         super().__init__()
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         T = x.shape[1]
         pe = torch.from_numpy(
             sinusoid_rows(np.arange(offset, offset + T), self.d_model))
-        return x * math.sqrt(self.d_model) + pe.to(x.device, x.dtype)[None]
+        x = x * math.sqrt(self.d_model) + pe.to(x.device, x.dtype)[None]
+        return dropout(x, self.dropout_rate, self.training)
 
 
 class RelPositionalEncoding(nn.Module):
-    """Returns (x·√d, relative pos-emb (1, 2T-1, d))."""
+    """Returns (x·√d, relative pos-emb (1, 2T-1, d)).  ``drop_pos=False``
+    (the conformer's ``pos_dropout_mode="rotated"``) leaves the table
+    undropped; x takes its dropout either way."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.1,
-                 max_dist: int = -1, max_len: int = 5000):
+                 max_dist: int = -1, max_len: int = 5000,
+                 drop_pos: bool = True):
         super().__init__()
         self.d_model = d_model
+        self.dropout_rate = dropout_rate
         self.max_dist = max_dist
+        self.drop_pos = drop_pos
 
     def forward(self, x: torch.Tensor):
         T = x.shape[1]
         dist = (T - 1) - np.arange(2 * T - 1)       # T-1 .. -(T-1)
         if self.max_dist >= 0:
             dist = np.clip(dist, -self.max_dist, self.max_dist)
-        pos_emb = torch.from_numpy(sinusoid_rows(dist, self.d_model))
-        return (x * math.sqrt(self.d_model),
-                pos_emb.to(x.device, x.dtype)[None])
+        pos_emb = torch.from_numpy(sinusoid_rows(dist, self.d_model)).to(
+            x.device, x.dtype)[None]
+        return (dropout(x * math.sqrt(self.d_model), self.dropout_rate,
+                        self.training),
+                dropout(pos_emb, self.dropout_rate,
+                        self.training and self.drop_pos))

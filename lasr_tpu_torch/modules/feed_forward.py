@@ -1,7 +1,6 @@
 """Position-wise feed-forward (counterpart of
-``lasr_tpu/modules/feed_forward.py``): w_2(act(w_1(x))), swish in the
-Conformer blocks and ReLU in the decoder.  Inference only: dropout is the
-identity."""
+``lasr_tpu/modules/feed_forward.py``): w_2(dropout(act(w_1(x)))), swish
+in the Conformer blocks and ReLU in the decoder."""
 
 from __future__ import annotations
 
@@ -9,6 +8,8 @@ from typing import Callable
 
 import torch
 from torch import nn
+
+from lasr_tpu_torch.modules.dropout import dropout
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -19,6 +20,9 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = nn.Linear(idim, hidden_units)
         self.w_2 = nn.Linear(hidden_units, idim)
         self.activation = activation
+        self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(self.activation(self.w_1(x)))
+        h = dropout(self.activation(self.w_1(x)), self.dropout_rate,
+                    self.training)
+        return self.w_2(h)

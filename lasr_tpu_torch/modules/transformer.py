@@ -2,11 +2,12 @@
 ``lasr_tpu/modules/transformer.py``).
 
 Pre-norm residual blocks (LayerNorm eps 1e-12) of self-attention,
-source attention and a ReLU feed-forward, with an after-norm and the
-output projection.  Cached decode keeps fixed-shape per-layer KV caches
+source attention and a ReLU feed-forward, each branch dropped out before
+its residual add in training, with an after-norm and the output
+projection.  Cached decode keeps fixed-shape per-layer KV caches
 ``(layers, B, Lmax, H, dk)``: ``init_cache`` / ``project_memory`` /
-``forward_one_step``.  ``forward_one_step`` writes the new step's keys and
-values into the cache it is given, in place.  Inference only.
+``forward_one_step`` (eval only).  ``forward_one_step`` writes the new
+step's keys and values into the cache it is given, in place.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from lasr_tpu_torch.modules.attention import MultiHeadedAttention
+from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 
@@ -39,13 +41,17 @@ class DecoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
         self.norm2 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
         self.norm3 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.dropout_rate = dropout_rate
+
+    def _drop(self, x):
+        return dropout(x, self.dropout_rate, self.training)
 
     def forward(self, tgt, tgt_mask, memory, memory_mask):
         y = self.norm1(tgt)
-        x = tgt + self.self_attn(y, y, y, tgt_mask)
+        x = tgt + self._drop(self.self_attn(y, y, y, tgt_mask))
         y = self.norm2(x)
-        x = x + self.src_attn(y, memory, memory, memory_mask)
-        return x + self.feed_forward(self.norm3(x))
+        x = x + self._drop(self.src_attn(y, memory, memory, memory_mask))
+        return x + self._drop(self.feed_forward(self.norm3(x)))
 
     def step(self, x_t, pos: int, self_k, self_v, mem_k, mem_v, mem_mask):
         """One cached decode step.  x_t: (B, 1, D); self_k/v: (B, Lmax, H,

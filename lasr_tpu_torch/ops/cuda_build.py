@@ -20,7 +20,8 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-KERNEL_SOURCES = ("rot_attention", "rel_attention")
+KERNEL_SOURCES = ("rot_attention", "rot_attention_bwd", "rel_attention",
+                  "rel_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,15 @@
-"""Fused relative-position attention: the CUDA kernel and its plain version.
+"""Fused relative-position attention: the CUDA kernels, their plain
+versions and the autograd Function over them.
 
 Counterpart of ``lasr_tpu/ops/rel_attention.py``: computes
 ``softmax_j[(q_u·k_j + q_v·p_{T-1-i+j}) / sqrt(dk) + mask] @ v``
 flash-style (``csrc/rel_attention.cu``), never materializing the score
 matrix; the rel-shift is an index remap over a window of ``p`` staged in
-shared memory.  Forward only: the backward (K4 of the TPU package) belongs
-to the training slice.
+shared memory.  The backward (``csrc/rel_attention_bwd.cu``) recomputes the
+probabilities from the forward's ``lse`` and sums the positional-table
+gradient ``dp`` along the diagonals over the batch.
+``rel_attention_context`` pairs the two in a ``torch.autograd.Function``,
+as the JAX package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -15,18 +19,14 @@ import math
 
 import torch
 
-from lasr_tpu_torch.ops import cuda_build
 from lasr_tpu_torch.ops.rot_attention import (
-    _check, _masked_softmax_context, _ptr)
+    _bind, _check, _check_kv_len, _device_path, _key_mask, _launch,
+    _masked_softmax_context, _probs_and_score_grad, _ptr)
 
 
-def rel_attention_reference(q_u, q_v, k, v, p, kv_len):
-    """Plain PyTorch version of the kernel (the blockless math of
-    ``lasr_tpu/ops/rel_attention.py:_xla_reference``), in f32.
-
-    q_u/q_v/k/v: (BH, T, dk) with bh = b*H + h; p: (H, 2T-1, dk) shared
-    across the batch; kv_len: (BH,).  Returns (out (BH, T, dk), lse
-    (BH, T) f32); rows with kv_len == 0 give zeros and lse = +inf."""
+def _rel_scores(q_u, q_v, k, p):
+    """(scaled scores (BH, T, T) f32, rel-shift index (T, T)):
+    s[i, j] = (q_u_i·k_j + q_v_i·p[T-1-i+j]) / sqrt(dk)."""
     BH, T, dk = q_u.shape
     H = p.shape[0]
     ac = q_u.float() @ k.float().transpose(1, 2)
@@ -36,19 +36,50 @@ def rel_attention_reference(q_u, q_v, k, v, p, kv_len):
     idx = (T - 1 - torch.arange(T, device=w.device)[:, None]
            + torch.arange(T, device=w.device)[None, :])
     bd = torch.gather(w, 2, idx[None].expand(BH, T, T))
-    s = (ac + bd) / math.sqrt(dk)
-    mask = (torch.arange(T, device=s.device)[None, None, :]
-            < kv_len.to(s.device)[:, None, None])
-    return _masked_softmax_context(s, mask, v, q_u.dtype)
+    return (ac + bd) / math.sqrt(dk), idx
 
 
-def _lib():
-    fn = cuda_build.library("rel_attention").lasr_rel_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def rel_attention_reference(q_u, q_v, k, v, p, kv_len):
+    """Plain PyTorch version of the kernel (the blockless math of
+    ``lasr_tpu/ops/rel_attention.py:_xla_reference``), in f32.
+
+    q_u/q_v/k/v: (BH, T, dk) with bh = b*H + h; p: (H, 2T-1, dk) shared
+    across the batch; kv_len: (BH,).  Returns (out (BH, T, dk), lse
+    (BH, T) f32); rows with kv_len == 0 give zeros and lse = +inf."""
+    T = q_u.shape[1]
+    s, _ = _rel_scores(q_u, q_v, k, p)
+    return _masked_softmax_context(s, _key_mask(kv_len, T, s.device), v,
+                                   q_u.dtype)
+
+
+def rel_attention_backward_reference(q_u, q_v, k, v, p, kv_len, out, lse,
+                                     dout):
+    """Plain PyTorch version of the backward kernel (the math of
+    ``lasr_tpu/ops/rel_attention.py:_bwd_kernel``), in f32, from the
+    forward's ``out`` and ``lse``.
+
+    Returns (dq_u, dq_v, dk, dv, dp) in the dtypes of q_u, q_v, k, v, p;
+    dp[h, r] sums the inverse rel-shift of dz over the batch."""
+    BH, T, dk = q_u.shape
+    H = p.shape[0]
+    s, idx = _rel_scores(q_u, q_v, k, p)
+    P, dz = _probs_and_score_grad(s, _key_mask(kv_len, T, s.device), lse, v,
+                                  out, dout, dk)
+    # inverse rel-shift: dw[i, T-1-i+j] = dz[i, j]
+    dw = torch.zeros(BH, T, 2 * T - 1, dtype=dz.dtype, device=dz.device)
+    dw.scatter_(2, idx[None].expand(BH, T, T), dz)
+    dw = dw.reshape(BH // H, H, T, 2 * T - 1)
+    dq_v = (dw @ p.float()[None]).reshape(BH, T, dk)
+    dp = torch.einsum("bhip,bhid->hpd", dw,
+                      q_v.float().reshape(BH // H, H, T, dk))
+    return ((dz @ k.float()).to(q_u.dtype), dq_v.to(q_v.dtype),
+            (dz.transpose(1, 2) @ q_u.float()).to(k.dtype),
+            (P.transpose(1, 2) @ dout.float()).to(v.dtype), dp.to(p.dtype))
+
+
+def _check_heads(name, BH, H):
+    if H < 1 or BH % H:
+        raise ValueError(f"{name}: BH={BH} is not a multiple of H={H}")
 
 
 def rel_attention_forward(q_u, q_v, k, v, p, kv_len):
@@ -60,30 +91,90 @@ def rel_attention_forward(q_u, q_v, k, v, p, kv_len):
     version.  Any other device raises."""
     BH, T, dk = q_u.shape
     H = p.shape[0]
-    if H < 1 or BH % H:
-        raise ValueError(f"rel_attention: BH={BH} is not a multiple of H={H}")
+    _check_heads("rel_attention", BH, H)
     _check("rel_attention", [q_u, q_v, k, v, p],
            [(BH, T, dk)] * 4 + [(H, 2 * T - 1, dk)])
-    if kv_len.shape != (BH,) or kv_len.dtype != torch.int32 \
-            or kv_len.device != q_u.device:
-        raise ValueError("rel_attention: kv_len must be (BH,) int32 on the "
-                         "inputs' device")
-    if q_u.device.type == "cpu":
+    kv_len = _check_kv_len("rel_attention", kv_len, BH, q_u.device)
+    if not _device_path("rel_attention", q_u.device):
         return rel_attention_reference(q_u, q_v, k, v, p, kv_len)
-    if q_u.device.type != "cuda":
-        raise RuntimeError(f"rel_attention: no kernel for {q_u.device}")
-    kv_len = kv_len.contiguous()
     out = torch.empty_like(q_u)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
-    rc = _lib()(_ptr(q_u), _ptr(q_v), _ptr(k), _ptr(v), _ptr(p), _ptr(kv_len),
-                _ptr(out), _ptr(lse), BH, T, dk, H,
-                int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"rel_attention kernel launch failed: CUDA error "
-                           f"{rc}")
+    _launch("rel_attention",
+            _bind("rel_attention", "lasr_rel_attention_fwd", 8, 5),
+            _ptr(q_u), _ptr(q_v), _ptr(k), _ptr(v), _ptr(p), _ptr(kv_len),
+            _ptr(out), _ptr(lse), BH, T, dk, H,
+            int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     rel_attention_forward.launches += 1
     return out, lse
 
 
 rel_attention_forward.launches = 0
+
+# batch slices of the dp pass: each sums its share of the batch, and the
+# slices' partial sums are added in a fixed order (deterministic)
+DP_SLICES = 8
+
+
+def rel_attention_backward(q_u, q_v, k, v, p, kv_len, out, lse, dout):
+    """Gradients (dq_u, dq_v, dk, dv, dp) of ``rel_attention_forward``'s
+    output.
+
+    ``out`` and ``lse`` are the forward's, ``dout`` the output's gradient
+    (the inputs' dtype).  On CUDA tensors this launches the Hopper kernels
+    of ``csrc/rel_attention_bwd.cu`` (counted once per call in
+    ``rel_attention_backward.launches``); on CPU tensors it runs the plain
+    version.  Any other device raises."""
+    BH, T, dk = q_u.shape
+    H = p.shape[0]
+    _check_heads("rel_attention_bwd", BH, H)
+    _check("rel_attention_bwd", [q_u, q_v, k, v, p, out, dout],
+           [(BH, T, dk)] * 4 + [(H, 2 * T - 1, dk)] + [(BH, T, dk)] * 2)
+    kv_len = _check_kv_len("rel_attention_bwd", kv_len, BH, q_u.device)
+    if lse.shape != (BH, T) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("rel_attention_bwd: lse must be contiguous (BH, T) "
+                         "float32")
+    if not _device_path("rel_attention_bwd", q_u.device):
+        return rel_attention_backward_reference(q_u, q_v, k, v, p, kv_len,
+                                                out, lse, dout)
+    grads = [torch.empty_like(x) for x in (q_u, q_v, k, v, p)]
+    slices = min(DP_SLICES, BH // H)
+    delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
+    part = torch.empty((slices, H, 2 * T - 1, dk), dtype=torch.float32,
+                       device=q_u.device)
+    stream = torch.cuda.current_stream(q_u.device).cuda_stream
+    _launch("rel_attention_bwd",
+            _bind("rel_attention_bwd", "lasr_rel_attention_bwd", 16, 6),
+            _ptr(q_u), _ptr(q_v), _ptr(k), _ptr(v), _ptr(p), _ptr(kv_len),
+            _ptr(out), _ptr(lse), _ptr(dout), _ptr(delta), _ptr(part),
+            *[_ptr(g) for g in grads], BH, T, dk, H, slices,
+            int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
+    rel_attention_backward.launches += 1
+    return tuple(grads)
+
+
+rel_attention_backward.launches = 0
+
+
+class _RelAttentionContext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, p, kv_len):
+        out, lse = rel_attention_forward(q_u, q_v, k, v, p, kv_len)
+        ctx.save_for_backward(q_u, q_v, k, v, p, kv_len, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_u, q_v, k, v, p, kv_len, out, lse = ctx.saved_tensors
+        grads = rel_attention_backward(q_u, q_v, k, v, p, kv_len, out, lse,
+                                       dout.to(q_u.dtype).contiguous())
+        return (*grads, None)
+
+
+def rel_attention_context(q_u, q_v, k, v, p, kv_len):
+    """Rel-pos attention context (BH, T, dk) with a gradient:
+    ``rel_attention_forward`` forward, ``rel_attention_backward`` backward
+    (``lasr_tpu/ops/rel_attention.py:rel_attention_context``).  ``kv_len``
+    gets no gradient."""
+    return _RelAttentionContext.apply(q_u, q_v, k, v, p, kv_len)

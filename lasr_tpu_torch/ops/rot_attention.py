@@ -1,13 +1,15 @@
-"""Fused rotated-fold rel-pos attention: the CUDA kernel and its plain
-version.
+"""Fused rotated-fold rel-pos attention: the CUDA kernels, their plain
+versions and the autograd Function over them.
 
 Counterpart of ``lasr_tpu/ops/rot_attention.py``.  The rotated fold
 (``modules/attention.py`` ``_rot_fold_attend``) scores
 ``scores[i,j] = q_u[i]·k[j] + u[i]·V[j]`` with ``u`` the per-query rotated
-position-query and ``V`` the static swapped-sinusoid table; the kernel
-(``csrc/rot_attention.cu``) runs it flash-style, so the (B, H, T, T) score
-tensor never reaches device memory.  Forward only: the backward (K2 of
-the TPU package) belongs to the training slice.
+position-query and ``V`` the static swapped-sinusoid table.  The forward
+kernel (``csrc/rot_attention.cu``) runs it flash-style, so the (B, H, T, T)
+score tensor never reaches device memory; the backward kernel
+(``csrc/rot_attention_bwd.cu``) recomputes the probabilities from the
+forward's ``lse``.  ``rot_attention_context`` pairs them in a
+``torch.autograd.Function``, as the JAX package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -30,9 +32,13 @@ def rot_attention_reference(q_u, u, k, v, vt, kv_len):
     BH, T, dk = q_u.shape
     s = (q_u.float() @ k.float().transpose(1, 2)
          + u.float() @ vt.float().t()) / math.sqrt(dk)
-    mask = (torch.arange(T, device=s.device)[None, None, :]
-            < kv_len.to(s.device)[:, None, None])
-    return _masked_softmax_context(s, mask, v, q_u.dtype)
+    return _masked_softmax_context(s, _key_mask(kv_len, T, s.device), v,
+                                   q_u.dtype)
+
+
+def _key_mask(kv_len, T, device):
+    return (torch.arange(T, device=device)[None, None, :]
+            < kv_len.to(device)[:, None, None])
 
 
 def _masked_softmax_context(s, mask, v, dtype):
@@ -42,6 +48,36 @@ def _masked_softmax_context(s, mask, v, dtype):
     out = (a @ v.float()).to(dtype)
     lse = torch.where(mask.any(dim=-1), lse, math.inf)
     return out, lse
+
+
+def _probs_and_score_grad(s, mask, lse, v, out, dout, dk):
+    """P = exp(s - lse) on valid keys, and dz = P * (dout·v - delta) /
+    sqrt(dk) with delta = dout·out (f32).  Rows with lse = +inf (kv_len ==
+    0) give exact zeros."""
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dout = dout.float()
+    delta = (dout * out.float()).sum(-1)
+    dz = p * (dout @ v.float().transpose(1, 2) - delta[..., None]) \
+        / math.sqrt(dk)
+    return p, dz
+
+
+def rot_attention_backward_reference(q_u, u, k, v, vt, kv_len, out, lse,
+                                     dout):
+    """Plain PyTorch version of the backward kernel (the math of
+    ``lasr_tpu/ops/rot_attention.py:_bwd_kernel``), in f32, from the
+    forward's ``out`` and ``lse``.
+
+    Returns (dq_u, du, dk, dv) in the dtypes of q_u, u, k, v; vt (the
+    static table) gets no gradient."""
+    BH, T, dk = q_u.shape
+    s = (q_u.float() @ k.float().transpose(1, 2)
+         + u.float() @ vt.float().t()) / math.sqrt(dk)
+    p, dz = _probs_and_score_grad(s, _key_mask(kv_len, T, s.device), lse,
+                                  v, out, dout, dk)
+    return ((dz @ k.float()).to(q_u.dtype), (dz @ vt.float()).to(u.dtype),
+            (dz.transpose(1, 2) @ q_u.float()).to(k.dtype),
+            (p.transpose(1, 2) @ dout.float()).to(v.dtype))
 
 
 def _check(name, tensors, shapes):
@@ -62,14 +98,39 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _lib():
-    lib = cuda_build.library("rot_attention")
-    fn = lib.lasr_rot_attention_fwd
+def _bind(source, symbol, n_ptr, n_int):
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``: n_ptr pointers,
+    n_int ints, then the stream; returns a cudaError_t code."""
+    fn = getattr(cuda_build.library(source), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_kv_len(name, kv_len, BH, device):
+    if kv_len.shape != (BH,) or kv_len.dtype != torch.int32 \
+            or kv_len.device != device:
+        raise ValueError(f"{name}: kv_len must be (BH,) int32 on the "
+                         f"inputs' device")
+    return kv_len.contiguous()
+
+
+def _device_path(name, device) -> bool:
+    """True for CUDA (launch the kernel), False for the CPU (the plain
+    version); any other device raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {device}")
+    return True
+
+
+def _launch(name, fn, *args):
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def rot_attention_forward(q_u, u, k, v, vt, kv_len):
@@ -83,26 +144,81 @@ def rot_attention_forward(q_u, u, k, v, vt, kv_len):
     M = u.shape[-1]
     _check("rot_attention", [q_u, u, k, v, vt],
            [(BH, T, dk), (BH, T, M), (BH, T, dk), (BH, T, dk), (T, M)])
-    if kv_len.shape != (BH,) or kv_len.dtype != torch.int32 \
-            or kv_len.device != q_u.device:
-        raise ValueError("rot_attention: kv_len must be (BH,) int32 on the "
-                         "inputs' device")
-    if q_u.device.type == "cpu":
+    kv_len = _check_kv_len("rot_attention", kv_len, BH, q_u.device)
+    if not _device_path("rot_attention", q_u.device):
         return rot_attention_reference(q_u, u, k, v, vt, kv_len)
-    if q_u.device.type != "cuda":
-        raise RuntimeError(f"rot_attention: no kernel for {q_u.device}")
-    kv_len = kv_len.contiguous()
     out = torch.empty_like(q_u)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
-    rc = _lib()(_ptr(q_u), _ptr(u), _ptr(k), _ptr(v), _ptr(vt), _ptr(kv_len),
-                _ptr(out), _ptr(lse), BH, T, dk, M,
-                int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"rot_attention kernel launch failed: CUDA error "
-                           f"{rc}")
+    _launch("rot_attention",
+            _bind("rot_attention", "lasr_rot_attention_fwd", 8, 5),
+            _ptr(q_u), _ptr(u), _ptr(k), _ptr(v), _ptr(vt), _ptr(kv_len),
+            _ptr(out), _ptr(lse), BH, T, dk, M,
+            int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     rot_attention_forward.launches += 1
     return out, lse
 
 
 rot_attention_forward.launches = 0
+
+
+def rot_attention_backward(q_u, u, k, v, vt, kv_len, out, lse, dout):
+    """Gradients (dq_u, du, dk, dv) of ``rot_attention_forward``'s output.
+
+    ``out`` and ``lse`` are the forward's, ``dout`` the output's gradient
+    (the inputs' dtype).  On CUDA tensors this launches the Hopper kernels
+    of ``csrc/rot_attention_bwd.cu`` (counted once per call in
+    ``rot_attention_backward.launches``); on CPU tensors it runs the plain
+    version.  Any other device raises."""
+    BH, T, dk = q_u.shape
+    M = u.shape[-1]
+    _check("rot_attention_bwd", [q_u, u, k, v, vt, out, dout],
+           [(BH, T, dk), (BH, T, M), (BH, T, dk), (BH, T, dk), (T, M),
+            (BH, T, dk), (BH, T, dk)])
+    kv_len = _check_kv_len("rot_attention_bwd", kv_len, BH, q_u.device)
+    if lse.shape != (BH, T) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("rot_attention_bwd: lse must be contiguous (BH, T) "
+                         "float32")
+    if not _device_path("rot_attention_bwd", q_u.device):
+        return rot_attention_backward_reference(q_u, u, k, v, vt, kv_len,
+                                                out, lse, dout)
+    dq_u, du, dk_, dv = (torch.empty_like(q_u), torch.empty_like(u),
+                         torch.empty_like(k), torch.empty_like(v))
+    delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
+    stream = torch.cuda.current_stream(q_u.device).cuda_stream
+    _launch("rot_attention_bwd",
+            _bind("rot_attention_bwd", "lasr_rot_attention_bwd", 14, 5),
+            _ptr(q_u), _ptr(u), _ptr(k), _ptr(v), _ptr(vt), _ptr(kv_len),
+            _ptr(out), _ptr(lse), _ptr(dout), _ptr(delta), _ptr(dq_u),
+            _ptr(du), _ptr(dk_), _ptr(dv), BH, T, dk, M,
+            int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
+    rot_attention_backward.launches += 1
+    return dq_u, du, dk_, dv
+
+
+rot_attention_backward.launches = 0
+
+
+class _RotAttentionContext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_u, u, k, v, vt, kv_len):
+        out, lse = rot_attention_forward(q_u, u, k, v, vt, kv_len)
+        ctx.save_for_backward(q_u, u, k, v, vt, kv_len, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_u, u, k, v, vt, kv_len, out, lse = ctx.saved_tensors
+        dq_u, du, dk, dv = rot_attention_backward(
+            q_u, u, k, v, vt, kv_len, out, lse,
+            dout.to(q_u.dtype).contiguous())
+        return dq_u, du, dk, dv, None, None
+
+
+def rot_attention_context(q_u, u, k, v, vt, kv_len):
+    """Rotated-fold attention context (BH, T, dk) with a gradient:
+    ``rot_attention_forward`` forward, ``rot_attention_backward`` backward
+    (``lasr_tpu/ops/rot_attention.py:rot_attention_context``).  ``vt`` and
+    ``kv_len`` get no gradient."""
+    return _RotAttentionContext.apply(q_u, u, k, v, vt, kv_len)

@@ -17,6 +17,9 @@ numpy arrays) into the reference-named torch ``state_dict``:
 Layouts: Linear (in,out) → (out,in); Conv2d (kh,kw,in,out) →
 (out,in,kh,kw); Conv1d (k,in/g,out) → (out,in/g,k).
 
+``state_dict_to_numpy`` is the step back: a trained state_dict as numpy
+arrays, which ``lasr_tpu``'s ``torch_to_flax`` reads.
+
 ``load_reference_checkpoint`` reads a lighting-asr ``.pt``/``.ckpt`` file
 or averages a directory of ``.ckpt`` files (the reference's selection
 semantics), splits the Lightning ``model.`` / ``model_ema.`` prefixes and
@@ -97,6 +100,13 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             sd[".".join(names[:-1] + ["num_batches_tracked"])] = \
                 torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def state_dict_to_numpy(state_dict: Dict) -> Dict[str, np.ndarray]:
+    """A reference-named state_dict (after training: with its BatchNorm
+    running statistics) as numpy arrays on the host, the form
+    ``lasr_tpu.utils.torch_compat.torch_to_flax`` reads."""
+    return {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
 
 
 def split_lightning_state_dict(state_dict: Dict) -> Dict[str, Dict]:

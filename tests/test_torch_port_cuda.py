@@ -8,17 +8,21 @@ tests; without a card they skip.
 
 Tolerances: 1e-4 max-abs in f32 (summation order only); 2e-2 in bf16
 against the plain version run in f32 on the same bf16 inputs (P is
-rounded to bf16 before P@V, as in the TPU kernels).
+rounded to bf16 before P@V, as in the TPU kernels).  Backward kernels:
+the max error of each gradient relative to the largest magnitude of the
+plain gradient, within the same 1e-4 / 2e-2.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lasr_tpu_torch.ops.rel_attention import (rel_attention_forward,
-                                              rel_attention_reference)
-from lasr_tpu_torch.ops.rot_attention import (rot_attention_forward,
-                                              rot_attention_reference)
+from lasr_tpu_torch.ops.rel_attention import (
+    rel_attention_backward, rel_attention_backward_reference,
+    rel_attention_forward, rel_attention_reference)
+from lasr_tpu_torch.ops.rot_attention import (
+    rot_attention_backward, rot_attention_backward_reference,
+    rot_attention_forward, rot_attention_reference)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -46,13 +50,16 @@ def _inputs(which, BH, H, T, dk, M, lens, dtype, dev, seed=0):
             f(H, 2 * T - 1, dk), kv)
 
 
-@pytest.mark.parametrize("which", ["rot", "rel"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,dk,M,lens", [
+SHAPES = [
     (248, 40, 320, [248, 200, 131, 1]),     # the served shape, ragged
     (37, 64, 64, [37, 0, 5, 33]),           # an empty row, dk = 64
     (70, 16, 48, [64, 65, 1, 70]),          # tile edges
-])
+]
+
+
+@pytest.mark.parametrize("which", ["rot", "rel"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,dk,M,lens", SHAPES)
 def test_kernel_matches_plain(which, dtype, T, dk, M, lens):
     dev = _card()
     H = 2
@@ -72,6 +79,37 @@ def test_kernel_matches_plain(which, dtype, T, dk, M, lens):
     finite = torch.isfinite(want_lse)
     assert torch.equal(torch.isfinite(lse), finite)
     assert float((lse[finite] - want_lse[finite]).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("which", ["rot", "rel"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,dk,M,lens", SHAPES)
+def test_backward_kernel_matches_plain(which, dtype, T, dk, M, lens):
+    dev = _card()
+    H = 2
+    BH = len(lens) * H
+    fwd, bwd, ref = ((rot_attention_forward, rot_attention_backward,
+                      rot_attention_backward_reference) if which == "rot" else
+                     (rel_attention_forward, rel_attention_backward,
+                      rel_attention_backward_reference))
+    args = _inputs(which, BH, H, T, dk, M, lens, dtype, dev)
+    out, lse = fwd(*args)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (BH, T, dk)).astype(np.float32)).to(dev, dtype)
+    before = bwd.launches
+    grads = bwd(*args, out, lse, dout)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    want = ref(*f32, out.float(), lse, dout.float())
+    empty = torch.from_numpy(np.repeat(np.asarray(lens) == 0, H)).to(dev)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        err = float((g.float() - w).abs().max()) / float(w.abs().max())
+        assert err <= TOL[dtype], (i, err)
+        if i < 4:   # per-bh gradients: rows of an empty row are exact zeros
+            assert not bool(g[empty].any())
 
 
 @pytest.mark.parametrize("flags", [{"encoder_rot_fold_pallas": True},
@@ -101,3 +139,63 @@ def test_model_kernel_path_matches_plain_path(flags):
                         else [0, 2])
     assert torch.equal(hs_len, want_len)
     assert float((hs - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("flags,plain", [
+    ({"encoder_rot_fold_pallas": True, "encoder_pos_dropout_mode": "rotated"},
+     {"encoder_pos_dropout_mode": "rotated"}),          # A-train vs fold
+    ({"encoder_use_pallas_attention": True}, {}),        # B-train vs table
+])
+def test_model_gradients_kernel_path_match_plain_path(flags, plain):
+    """One train-mode loss and gradient (dropout 0, no SpecAugment) by the
+    kernel path and by the plain path on the same weights: each gradient
+    within 1e-3 of its largest magnitude, the zero-gradient leaves (key
+    biases, the depthwise bias before the BatchNorm) ~0 in both."""
+    dev = _card()
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.models.losses import E2E_Loss
+    from lasr_tpu_torch.train.optimizer import Adam
+    from lasr_tpu_torch.train.trainer import Trainer
+    kw = dict(idim=80, odim=50, encoder_attention_dim=64,
+              encoder_attention_heads=4, encoder_linear_units=128,
+              encoder_num_blocks=2, decoder_attention_dim=64,
+              decoder_attention_heads=4, decoder_linear_units=128,
+              decoder_num_block=1, encoder_pos_enc_layer_type="rel_pos",
+              encoder_selfattention_layer_type="rel_selfattn",
+              encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+              ctc_dropout=0.0)
+    rng = np.random.default_rng(0)
+    n = np.asarray([48000, 40000, 20000], np.int32)
+    wav = (0.1 * rng.standard_normal((3, 48000))).astype(np.float32)
+    wav *= np.arange(48000)[None, :] < n[:, None]
+    batch = {"wav_array": wav, "wav_len": n,
+             "token_id": rng.integers(3, 50, (3, 9)).astype(np.int32),
+             "token_len": np.asarray([9, 6, 4], np.int32)}
+    torch.manual_seed(0)
+    base = E2E_Conformer_CTC(**kw, **plain, device=dev)
+    fast = E2E_Conformer_CTC(**kw, **flags, device=dev)
+    fast.load_state_dict(base.state_dict())
+    counters = ((rot_attention_forward, rot_attention_backward)
+                if "encoder_rot_fold_pallas" in flags else
+                (rel_attention_forward, rel_attention_backward))
+    out = []
+    for m in (fast, base):
+        before = [c.launches for c in counters]
+        metrics, grads = Trainer(m, E2E_Loss(50), Adam(),
+                                 DeviceFrontend(["norm", "fbank:80"]),
+                                 device=dev).loss_and_grads(batch, 0)
+        out.append((float(metrics["loss_main"].detach()), grads,
+                    [c.launches - b for c, b in zip(counters, before)]))
+    (loss_k, grads_k, launched), (loss_p, grads_p, none) = out
+    assert launched == [2, 2] and none == [0, 0]
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    top = max(float(g.abs().max()) for g in grads_p)
+    names = [n for n, _ in base.named_parameters()]
+    for name, a, b in zip(names, grads_k, grads_p):
+        if name.endswith(("linear_k.bias", "depthwise_conv.bias")):
+            assert max(float(a.abs().max()), float(b.abs().max())) \
+                <= 1e-4 * top, name
+        else:
+            assert float((a - b).abs().max()) <= 1e-3 * float(
+                b.abs().max()), name

@@ -48,9 +48,15 @@ def test_device_frontend_matches_jax():
                                          torch.from_numpy(lens))
     np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
-    with pytest.raises(NotImplementedError, match="SpecAugment"):
+    # train mode: SpecAugment draws from the caller's generator only
+    with pytest.raises(ValueError, match="generator"):
         DeviceFrontend(chain)(torch.from_numpy(wav), torch.from_numpy(lens),
                               train=True)
+    aug, aug_len = DeviceFrontend(chain)(
+        torch.from_numpy(wav), torch.from_numpy(lens),
+        generator=torch.Generator().manual_seed(0), train=True)
+    assert torch.equal(aug_len, got_len) and aug.shape == got.shape
+    assert bool(torch.isfinite(aug).all()) and not torch.equal(aug, got)
 
 
 def test_frame_count_and_int16_wire_format():

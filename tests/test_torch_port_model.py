@@ -10,6 +10,7 @@ import torch
 
 from lasr_tpu.utils.torch_compat import torch_to_flax
 from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+from lasr_tpu_torch.modules.dropout import dropout_generator
 from tests.torch_port_common import CONFIGS, TINY, data, model_pair, t
 
 ATOL = 2e-4
@@ -74,8 +75,12 @@ def test_config_knobs():
         E2E_Conformer_CTC(**TINY, encoder_pipeline_stages=2, device="cpu")
     pm = E2E_Conformer_CTC(**TINY, device="cpu").train()
     x, xlen, ys = data()
-    with pytest.raises(NotImplementedError, match="training"):
+    # train-mode dropout draws from a caller-owned generator only
+    with pytest.raises(RuntimeError, match="generator"):
         pm(t(x), t(xlen), t(ys).long())
+    with dropout_generator(torch.Generator().manual_seed(0)):
+        out = pm(t(x), t(xlen), t(ys).long())
+    assert bool(torch.isfinite(out["att_out"]).all())
 
 
 def test_domain_tag_widens_the_ctc_head():

@@ -41,7 +41,7 @@ def test_rel_attention_paths_match_flax(path):
     rng = np.random.default_rng(4)
     x = rng.standard_normal((B, T, D)).astype(np.float32)
     _, pos_emb = JaxRelPE(D).apply({}, jnp.asarray(x))
-    _, port_pos = RelPositionalEncoding(D)(t(x))
+    _, port_pos = RelPositionalEncoding(D).eval()(t(x))
     np.testing.assert_allclose(port_pos.numpy(), np.asarray(pos_emb),
                                atol=1e-6)
     lens = np.asarray([T, 14])
