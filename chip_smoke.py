@@ -14,9 +14,10 @@ Phases, always all of them, in this order:
            T=248) and at the training shape, the backward kernels at the
            training shape (B=32 x 15.6 s -> BH=256, T=388), dk=40, M=320,
            H=8, ragged kv_len >= 1; kernel, plain and library times (CUDA
-           events) beside the least time the card could take.  Backward
-           errors are per gradient, relative to the plain gradient's
-           largest magnitude.
+           events) beside the least time the card could take, on the
+           CUDA cores (bound_ms) and through the tensor cores at the
+           same accuracy (bound_tc_ms).  Backward errors are per
+           gradient, relative to the plain gradient's largest magnitude.
   slice_a  the recipe Conformer at full width with encoder_rot_fold_pallas
            on: ASRProcess on one seeded 10 s wav, then a B=8 x 10 s batch
            through DeviceFrontend + CTCAttBeamDecoder(beam 10, ctc_beam 15,
@@ -61,6 +62,9 @@ import numpy as np
 # bf16 tensor-core FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the tensor cores at the same accuracy: f32 as 3xTF32 (three TF32
+# products at 495 TFLOP/s), bf16 at 989 TFLOP/s
+TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # served shape: 8 utterances x 10 s -> 248 encoder frames, 8 heads of 40;
 # training shape: 32 utterances x 15.6 s -> 388 encoder frames
@@ -298,24 +302,26 @@ def _kernel_specs():
     rot = "lasr_tpu/ops/rot_attention.py"
     rel = "lasr_tpu/ops/rel_attention.py"
     src = "lasr_tpu_torch/csrc/"
-    # name, kernel, plain, inputs, cost, library, source, replaces, shapes
+    # name, kernel, plain, inputs, cost, library, source, replaces, shapes,
+    # design: "simt-f32" f32 FMAs on the CUDA cores, "wmma-tf32x3" WMMA
+    # tensor-core tiles (3xTF32 for f32 inputs, one TF32 product for bf16)
     return [
         ("rot_attention_fwd", rot_attention_forward, rot_attention_reference,
          _rot_inputs, _rot_cost, _rot_library, src + "rot_attention.cu",
-         rot + ":85", (SERVED, TRAINING)),
+         rot + ":85", (SERVED, TRAINING), "simt-f32"),
         ("rot_attention_bwd", rot_attention_backward,
          rot_attention_backward_reference,
          _with_grad_inputs(_rot_inputs, rot_attention_forward),
          _rot_bwd_cost, _rot_bwd_library, src + "rot_attention_bwd.cu",
-         rot + ":216", (TRAINING,)),
+         rot + ":216", (TRAINING,), "wmma-tf32x3"),
         ("rel_attention_fwd", rel_attention_forward, rel_attention_reference,
          _rel_inputs, _rel_cost, None, src + "rel_attention.cu",
-         rel + ":124", (SERVED, TRAINING)),
+         rel + ":124", (SERVED, TRAINING), "simt-f32"),
         ("rel_attention_bwd", rel_attention_backward,
          rel_attention_backward_reference,
          _with_grad_inputs(_rel_inputs, rel_attention_forward),
          _rel_bwd_cost, None, src + "rel_attention_bwd.cu", rel + ":282",
-         (TRAINING,)),
+         (TRAINING,), "simt-f32"),
     ]
 
 
@@ -324,9 +330,9 @@ def phase_kernels(state):
     dev = torch.device("cuda")
     rng = np.random.default_rng(state["seed"])
     for (name, kern, plain, make, cost, library, src, tpu,
-         shapes) in _kernel_specs():
+         shapes, design) in _kernel_specs():
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": tpu, "status": "ported"}
+                 "replaces": tpu, "status": "ported", "design": design}
         for shape in shapes:
             where = "served" if shape is SERVED else "training"
             for dtype in (torch.float32, torch.bfloat16):
@@ -349,8 +355,11 @@ def phase_kernels(state):
                 lib_ms = time_ms(library(args), iters=20) if library else None
                 nbytes, flops = cost(args)
                 bound, bound_by = _bound_ms(nbytes, flops, dn)
-                log(f"kernel {name} {dn} {where} shape (BH={args[0].shape[0]}"
-                    f", T={args[0].shape[1]}): max_abs_err {abs_err:.3e}, "
+                bound_tc = max(nbytes / HBM_BPS,
+                               flops / TC_FLOPS[dn]) * 1e3
+                log(f"kernel {name} [{design}] {dn} {where} shape "
+                    f"(BH={args[0].shape[0]}, T={args[0].shape[1]}): "
+                    f"max_abs_err {abs_err:.3e}, "
                     f"max_rel_err {rel_err:.3e} (per output abs/rel "
                     f"{', '.join(f'{e:.2e}/{r:.2e}' for e, r in errs)}; tol "
                     f"{TOL[dn]:g} {'rel' if 'bwd' in name else 'abs'}),"
@@ -358,14 +367,15 @@ def phase_kernels(state):
                     f"library "
                     f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'},"
                     f" bound {bound * 1e3:.2f} us ({bound_by}: "
-                    f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) "
+                    f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+                    f"tensor-core bound {bound_tc * 1e3:.2f} us "
                     f"[{state['card']}]")
                 check(err <= TOL[dn], f"{name} {dn} {where}: error {err} > "
                       f"{TOL[dn]}")
                 numbers = dict(max_abs_err=abs_err, max_rel_err=rel_err,
                                ms=ms, plain_ms=plain_ms,
                                bound_ms=bound, bound_by=bound_by,
-                               library_ms=lib_ms)
+                               bound_tc_ms=bound_tc, library_ms=lib_ms)
                 # the entry's own numbers: f32 at the shape of the path
                 # that launches it (served for a forward, training for a
                 # backward); the others ride beside them

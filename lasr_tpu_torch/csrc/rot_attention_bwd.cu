@@ -15,50 +15,85 @@
 // the input type.  A row with kv_len == 0 has lse = +inf, so P and every
 // gradient it feeds are exact zeros.
 //
-// What bounds it on an H100: like the forward, each (i, j) pair recomputes
-// a 360-lane score (dk + M at dk=40, M=320) and adds a 320-lane du
-// product, ~4M + 10dk = 1680 FLOP per pair against a few hundred bytes
-// per row: bound by the 67 TFLOP/s non-tensor-core f32 rate.
+// What bounds it on an H100: each (i, j) pair needs a 360-lane score
+// (dk + M at dk=40, M=320), a 320-lane du product and four dk-wide ones,
+// ~4M + 10dk = 1680 FLOP per pair against a few hundred bytes per row:
+// bound by arithmetic.  On the CUDA cores (67 TFLOP/s f32) that bound is
+// ~2.5x what the tensor cores allow even as 3xTF32, so every product here
+// runs on them.
 //
-// Design (simple first, no tensor cores, no atomics, deterministic):
+// Design (tensor cores through WMMA, no atomics, bitwise repeatable):
+//  - the five products (S = [q_u ; u]·[k ; V]^T, dP = dout·v^T, P^T·dout,
+//    dz^T·q_u, dz·[k ; V]) are m16n16k8 TF32 WMMA tiles (mma_tf32.cuh):
+//    3xTF32 (hi·hi + hi·lo + lo·hi, f32 accuracy) for f32 inputs, one
+//    product for bf16 inputs, which TF32 holds exactly.
 //  - the TPU kernel walks query tiles in order and sums dk/dv into one
 //    output block across grid steps; blocks here run in no order, so the
 //    work is split in two passes, each owning what it writes:
-//      pass 1, grid (ceil(T/32), BH): one block per key tile; it keeps
-//        [k ; V ; v] of its 32 keys in shared memory, walks every query
-//        tile, and sums dk and dv in registers;
-//      pass 2, grid (ceil(T/32), BH): one block per query tile; it walks
-//        the key tiles below kv_len and sums [dq_u ; du] (32 x 360) in
-//        shared memory.
+//      key pass, grid (ceil(T/32), BH): one block per 32 keys keeps
+//        [k ; V] and v resident, streams every query tile, and sums dk
+//        and dv in accumulator fragments (warp w < 2*ceil(dk/16) owns one
+//        16 x 16 tile of each);
+//      query pass, grid (ceil(T/32), BH, ceil(E/384)): one block per 32
+//        query rows keeps [q_u ; u] and dout resident, streams the key
+//        tiles below kv_len, and sums its 32 x 384-column chunk of
+//        [dq_u ; du] in accumulator fragments (8 warps x up to 6 tiles)
+//        held in registers for the whole key loop, written once.
 //    A first tiny kernel writes delta[bh, i].
-//  - scores use the forward's layout: 4 warps x 8 query rows, one key per
-//    lane, query rows as float4 broadcasts, the key tile transposed with
-//    a padded stride of 33 (conflict-free); P and dz of a tile pair go
-//    through shared memory to the accumulation layout.
-//  - the 360-lane tiles exceed the 48 KB static limit: dynamic shared
-//    memory raised with cudaFuncSetAttribute (113 KB pass 1, 155 KB pass 2
-//    at dk=40, M=320).
+//  - per tile pair, warps 0-3 take the first half of S's depth steps and
+//    warps 4-7 the rest plus dP (one 16 x 16 tile each); the partials go
+//    to shared memory, where each element becomes P and dz (the kv_len
+//    mask, exp, lse), and come back as fragments (P^T and dz^T load the
+//    stored tile column-major, with no transposing copy).
+//  - tiles are f32 in shared memory (bf16 is widened on the way in, so
+//    both types take one path), zero-padded to 16 columns (E 360 -> 368,
+//    dk 40 -> 48), with a row stride of width + 4 floats (32-byte-aligned
+//    fragment origins, conflict-free row-major fragment loads); keys are
+//    loaded only below kv_len, rows past T are zero.
+//  - the streamed tile's copies run while the current one is computed:
+//    f32 by cp.async straight into the other of two buffers; bf16 by
+//    cp.async into a raw staging tile, widened to f32 in shared memory at
+//    the top of the next step (16-byte copies where every width and base
+//    allows, else 4-byte; bf16 of odd width goes through registers, 16
+//    loads in flight per thread).  At dk=40, M=320: 173 KB of dynamic
+//    shared memory in f32, 146 KB in bf16 (cudaFuncSetAttribute); one
+//    buffer where that does not fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 32;    // query rows per tile
-constexpr int BK = 32;    // keys per tile: one per lane
-constexpr int ROWS = 8;   // query rows per warp
-constexpr int THREADS = 128;
-constexpr int KS = BK + 1;  // padded stride of the transposed key tile
-constexpr int PS = BK + 1;  // padded stride of the P / dz tiles
+using namespace lasr_mma;
+
+constexpr int BQ = 32;        // query rows per tile
+constexpr int BK = 32;        // keys per tile
+constexpr int NWARPS = 8;
+constexpr int THREADS = 32 * NWARPS;
+constexpr int LS = BK + 4;    // row stride of the S / dP / P / dz tiles
 constexpr int DK_MAX = 64;
-// thread t owns column t % 32 and the d = t / 32 + DG * c of that column
-constexpr int DG = THREADS / 32;
-constexpr int DC = DK_MAX / DG;      // accumulators per output
+// query pass: 2 row tiles x 4 column groups of warps; a block sums one
+// chunk of CHUNK_CT column tiles of [dq_u ; du], ACC per warp
+constexpr int NCG = NWARPS / (BQ / TM);
+constexpr int ACC = 6;
+constexpr int CHUNK_CT = NCG * ACC;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+// A global load widened to f32 (bf16 through its bits, so the compiler
+// keeps many in flight).
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
 }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -73,6 +108,36 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// cp.async: global -> shared copies that bypass the registers; a source
+// size of 0 writes zeros.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most `pending` committed groups are in flight (0 or 1)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // delta[row] = dout[row]·out[row]; one warp per row.
@@ -93,112 +158,288 @@ __global__ void rot_bwd_delta_kernel(const T* __restrict__ out,
 }
 
 struct Dims {
-  int T, dk, M, E, E4, D4;
+  int T, dk, M, E;
+  int EP, DKP;  // E and dk rounded up to 16
+  int LQ, LD;   // row strides EP + 4, DKP + 4 of the wide and dk tiles
+  int NKS;      // depth steps of S: ceil(E / 8)
+  int NDS;      // depth steps of dP: ceil(dk / 8)
+  int H0;       // S depth steps of warps 0-3
+  int NCT;      // EP / 16 column tiles of [dq_u ; du]
+  int NBUF;     // f32 buffers of the streamed tile: 2, or 1 (see launch)
+  int chunk;    // elements per cp.async copy of a tile; 0: registers
+  int raw;      // bf16 tiles are staged raw and widened in shared memory
   float scale;
 };
 
-// Rows q0.. of [q_u ; u] into sQ[BQ][E4], of dout into sDO[BQ][D4], and
-// their lse / delta (rows past T: lse = +inf, so their P is 0).
-template <typename T>
-__device__ void load_query_tile(const T* qu, const T* u, const T* dout,
-                                const float* lse, const float* delta,
-                                size_t base, int q0, const Dims& D, float* sQ,
-                                float* sDO, float* sL, float* sD) {
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < BQ * D.E4; idx += THREADS) {
-    const int r = idx / D.E4, e = idx - r * D.E4, row = q0 + r;
-    float x = 0.f;
-    if (row < D.T && e < D.E)
-      x = e < D.dk ? to_f32(qu[(base + row) * D.dk + e])
-                   : to_f32(u[(base + row) * D.M + (e - D.dk)]);
-    sQ[idx] = x;
-  }
-  for (int idx = tid; idx < BQ * D.D4; idx += THREADS) {
-    const int r = idx / D.D4, d = idx - r * D.D4, row = q0 + r;
-    sDO[idx] = (row < D.T && d < D.dk) ? to_f32(dout[(base + row) * D.dk + d])
-                                       : 0.f;
-  }
-  for (int r = tid; r < BQ; r += THREADS) {
-    const int row = q0 + r;
-    sL[r] = row < D.T ? lse[base + row] : INFINITY;
-    sD[r] = row < D.T ? delta[base + row] : 0.f;
+// Shared memory: f32 tiles [q_u ; u] (Q) and [k ; V] (K), the dk tiles
+// dout (DO) and v (V), the query rows' lse (L) and delta (Dl), the S
+// halves S0 / S1 (then dz / P) and dP; the streamed side has NBUF tile
+// buffers ([1] == [0] for one) and two of L / Dl.  bf16 copies land raw
+// in RW / RN (the streamed wide and dk tiles, row stride EP / DKP).
+struct Smem {
+  float *Q[2], *K[2], *DO[2], *V[2], *L[2], *Dl[2];
+  float *S0, *S1, *DP;
+  void *RW, *RN;
+};
+
+__host__ __device__ __forceinline__ size_t smem_bytes(const Dims& D) {
+  const size_t floats = (size_t)(1 + D.NBUF) * BQ * (D.LQ + D.LD) +
+                        3 * (size_t)BQ * LS + 4 * (size_t)BQ;
+  return 4 * floats + (D.raw ? 2 * (size_t)BQ * (D.EP + D.DKP) : 0);
+}
+
+__device__ __forceinline__ void take(float*& p, float* (&buf)[2], int n,
+                                     int nbuf) {
+  buf[0] = p;
+  p += n;
+  buf[1] = buf[0];
+  if (nbuf == 2) {
+    buf[1] = p;
+    p += n;
   }
 }
 
-// Keys k0.. as the transposed tile sKt[E4 + D4][KS]: rows e < dk are k,
-// dk <= e < E the table V, E <= e < E4 zero, E4 + d the values v.
+// stream_keys: the query pass (K, V streamed); else the key pass (Q, DO,
+// L, Dl streamed).
+__device__ __forceinline__ Smem carve(float* p, const Dims& D,
+                                      bool stream_keys) {
+  const int nq = stream_keys ? 1 : D.NBUF, nk = stream_keys ? D.NBUF : 1;
+  Smem s;
+  take(p, s.Q, BQ * D.LQ, nq);
+  take(p, s.K, BK * D.LQ, nk);
+  take(p, s.DO, BQ * D.LD, nq);
+  take(p, s.V, BK * D.LD, nk);
+  s.S0 = p;
+  s.S1 = s.S0 + BQ * LS;
+  s.DP = s.S1 + BQ * LS;
+  p = s.DP + BQ * LS;
+  take(p, s.L, BQ, 2);
+  take(p, s.Dl, BQ, 2);
+  s.RW = p;
+  s.RN = reinterpret_cast<unsigned short*>(p) + BQ * D.EP;
+  return s;
+}
+
+// The source of one shared tile: rows r0 .. r0+R-1 of [a | b], a wa wide
+// and b wb wide (row strides wa, wb), zero at or past row rmax and in
+// columns wa+wb .. width-1; the f32 tile's row stride is ld.
 template <typename T>
-__device__ void load_key_tile(const T* k, const T* v, const T* vt,
-                              size_t base, int k0, const Dims& D, float* sKt) {
-  const int W = D.E4 + D.D4;
-  for (int idx = threadIdx.x; idx < BK * W; idx += THREADS) {
-    const int j = idx / W, e = idx - j * W, key = k0 + j;
-    float x = 0.f;
-    if (key < D.T) {
-      if (e < D.dk)
-        x = to_f32(k[(base + key) * D.dk + e]);
-      else if (e < D.E)
-        x = to_f32(vt[(size_t)key * D.M + (e - D.dk)]);
-      else if (e >= D.E4 && e - D.E4 < D.dk)
-        x = to_f32(v[(base + key) * D.dk + (e - D.E4)]);
+struct Src {
+  const T* a;
+  const T* b;
+  int wa, wb, rmax, width, ld;
+};
+
+// The tile into s (f32) through registers.  A warp takes R/8 rows, a lane
+// every 32nd column, 4 columns of each row per round: 16 loads in flight
+// per thread (every load is issued, from a valid address, and masked
+// after it returns, so none waits behind a branch).
+template <int R, typename T>
+__device__ __forceinline__ void load_rows(const Src<T>& src, int r0,
+                                          float* __restrict__ s) {
+  constexpr int RW = R / NWARPS;
+  constexpr int CB = 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = src.wa + src.wb;
+  for (int e0 = 0; e0 < src.width; e0 += 32 * CB) {
+    float x[RW][CB];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int row = r0 + warp + NWARPS * i;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        const int e = e0 + lane + 32 * c;
+        const bool ok = row < src.rmax && e < w;
+        const T* p = e < src.wa ? src.a + (size_t)row * src.wa + e
+                                : src.b + (size_t)row * src.wb + (e - src.wa);
+        const float val = load_f32(ok ? p : src.a);
+        x[i][c] = ok ? val : 0.f;
+      }
     }
-    sKt[e * KS + j] = x;
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        const int e = e0 + lane + 32 * c;
+        if (e < src.width) s[(warp + NWARPS * i) * src.ld + e] = x[i][c];
+      }
+    }
   }
 }
 
-// For the warp's 8 query rows and the lane's key: P and dz of the tile
-// pair, written to sP / sDZ[BQ][PS] (sP may be null).
-__device__ void tile_pair(const float* sQ, const float* sDO, const float* sL,
-                          const float* sD, const float* sKt, bool key_valid,
-                          const Dims& D, float* sP, float* sDZ) {
-  const int lane = threadIdx.x & 31;
+// The tile by cp.async into s (element type T, row stride ld), `chunk`
+// elements per copy (16 or 4 bytes; wa, wb and the bases multiples of
+// it); it lands at the next cp_async_wait.
+template <int R, typename T>
+__device__ __forceinline__ void copy_rows(const Src<T>& src, int r0, T* s,
+                                          int ld, int chunk) {
+  constexpr int RW = R / NWARPS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = src.wa + src.wb;
+  const bool wide = chunk * (int)sizeof(T) == 16;
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + NWARPS * i, row = r0 + r;
+    for (int e = lane * chunk; e < src.width; e += 32 * chunk) {
+      const bool ok = row < src.rmax && e < w;
+      const T* p = e < src.wa ? src.a + (size_t)row * src.wa + e
+                              : src.b + (size_t)row * src.wb + (e - src.wa);
+      if (wide)
+        cp_async16(s + r * ld + e, ok ? p : src.a, ok);
+      else
+        cp_async4(s + r * ld + e, ok ? p : src.a, ok);
+    }
+  }
+}
+
+// A raw bf16 tile (row stride width) widened into s (row stride ld).
+template <int R>
+__device__ __forceinline__ void widen_rows(const __nv_bfloat16* raw,
+                                           int width, float* s, int ld) {
+  constexpr int RW = R / NWARPS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + NWARPS * i;
+    const __nv_bfloat162* in =
+        reinterpret_cast<const __nv_bfloat162*>(raw + r * width);
+    float2* out = reinterpret_cast<float2*>(s + r * ld);
+    for (int e = lane; e < width / 2; e += 32)
+      out[e] = __bfloat1622float2(in[e]);
+  }
+}
+
+// A resident tile, loaded once: by cp.async for f32 (it lands with the
+// first step's wait), through registers for bf16.
+template <int R, typename T>
+__device__ __forceinline__ void load_resident(const Src<T>& src, int r0,
+                                              float* s, const Dims& D) {
+  if constexpr (std::is_same<T, float>::value)
+    copy_rows<R>(src, r0, s, src.ld, D.chunk);
+  else
+    load_rows<R>(src, r0, s);
+}
+
+// Starts the copies of a streamed tile: f32 straight into its buffer s,
+// bf16 into the raw staging tile (nothing where bf16 goes through
+// registers).
+template <int R, typename T>
+__device__ __forceinline__ void issue(const Src<T>& src, int r0, float* s,
+                                      void* raw, const Dims& D) {
+  if constexpr (std::is_same<T, float>::value)
+    copy_rows<R>(src, r0, s, src.ld, D.chunk);
+  else if (D.raw)
+    copy_rows<R>(src, r0, static_cast<T*>(raw), src.width, D.chunk);
+}
+
+// After the copies landed (wait, then a barrier): bf16 is widened from the
+// staging tile, or loaded through registers; f32 is in place already.
+template <int R, typename T>
+__device__ __forceinline__ void land(const Src<T>& src, int r0, float* s,
+                                     const void* raw, const Dims& D) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (D.raw)
+      widen_rows<R>(static_cast<const __nv_bfloat16*>(raw), src.width, s,
+                    src.ld);
+    else
+      load_rows<R>(src, r0, s);
+  }
+}
+
+// lse and delta of query rows q0.. (rows past T are masked by index in
+// softmax_step, so their zeros are never used).
+__device__ __forceinline__ void fetch_row_stats(const float* lse,
+                                                const float* delta,
+                                                size_t base, int q0, int T,
+                                                float* sL, float* sDl) {
+  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+    const bool ok = q0 + r < T;
+    const size_t at = ok ? base + q0 + r : 0;
+    cp_async4(sL + r, lse + at, ok);
+    cp_async4(sDl + r, delta + at, ok);
+  }
+}
+
+// S = Q·K^T and dP = DO·V^T of the tile pair, as partials in shared
+// memory: warp w owns output tile (w & 3) of the 2 x 2; warps 0-3 sum S's
+// depth steps [0, H0) into S0, warps 4-7 the steps [H0, NKS) into S1 and
+// all of dP into DP.
+template <int NS>
+__device__ __forceinline__ void scores(const float* Q, const float* K,
+                                       const float* DO, const float* V,
+                                       float* S0, float* S1, float* DP,
+                                       const Dims& D) {
   const int warp = threadIdx.x >> 5;
-  const float* qrows = sQ + warp * ROWS * D.E4;
-  float s[ROWS], dp[ROWS];
+  const int half = warp >> 2;
+  const int rt = (warp >> 1) & 1, ct = warp & 1;
+  // four accumulators over every fourth depth step: four independent
+  // chains, and four steps' fragments loaded before their products
+  FragC acc[4];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) s[r] = dp[r] = 0.f;
-  for (int e = 0; e < D.E4; e += 4) {
-    const float k0v = sKt[(e + 0) * KS + lane];
-    const float k1v = sKt[(e + 1) * KS + lane];
-    const float k2v = sKt[(e + 2) * KS + lane];
-    const float k3v = sKt[(e + 3) * KS + lane];
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+  const float* qa = Q + rt * TM * D.LQ;
+  const float* kb = K + ct * TN * D.LQ;
+  const int ks1 = half ? D.NKS : D.H0;
+  int ks = half ? D.H0 : 0;
+  for (; ks + 3 < ks1; ks += 4) {
+    Split<FragA<RowMajor>, NS> a[4];
+    Split<FragB<ColMajor>, NS> b[4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 q = *reinterpret_cast<const float4*>(qrows + r * D.E4 + e);
-      s[r] = fmaf(q.x, k0v, s[r]);
-      s[r] = fmaf(q.y, k1v, s[r]);
-      s[r] = fmaf(q.z, k2v, s[r]);
-      s[r] = fmaf(q.w, k3v, s[r]);
+    for (int j = 0; j < 4; ++j) {
+      load_split(a[j], qa + (ks + j) * TK, D.LQ);
+      load_split(b[j], kb + (ks + j) * TK, D.LQ);
     }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma_split(acc[j], a[j], b[j]);
   }
-  const float* vrows = sKt + D.E4 * KS;
-  for (int d = 0; d < D.D4; d += 4) {
-    const float v0 = vrows[(d + 0) * KS + lane];
-    const float v1 = vrows[(d + 1) * KS + lane];
-    const float v2 = vrows[(d + 2) * KS + lane];
-    const float v3 = vrows[(d + 3) * KS + lane];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 g = *reinterpret_cast<const float4*>(
-          sDO + (warp * ROWS + r) * D.D4 + d);
-      dp[r] = fmaf(g.x, v0, dp[r]);
-      dp[r] = fmaf(g.y, v1, dp[r]);
-      dp[r] = fmaf(g.z, v2, dp[r]);
-      dp[r] = fmaf(g.w, v3, dp[r]);
-    }
+  for (; ks < ks1; ++ks) {
+    Split<FragA<RowMajor>, NS> a;
+    Split<FragB<ColMajor>, NS> b;
+    load_split(a, qa + ks * TK, D.LQ);
+    load_split(b, kb + ks * TK, D.LQ);
+    mma_split(acc[1], a, b);
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int ii = warp * ROWS + r;
-    const float p = key_valid ? expf(s[r] * D.scale - sL[ii]) : 0.f;
-    if (sP) sP[ii * PS + lane] = p;
-    sDZ[ii * PS + lane] = p * (dp[r] - sD[ii]) * D.scale;
+  for (int t = 0; t < acc[0].num_elements; ++t)
+    acc[0].x[t] += acc[1].x[t] + acc[2].x[t] + acc[3].x[t];
+  wmma::store_matrix_sync((half ? S1 : S0) + rt * TM * LS + ct * TN, acc[0],
+                          LS, wmma::mem_row_major);
+  if (half) {
+    wmma::fill_fragment(acc[0], 0.f);
+    const float* ga = DO + rt * TM * D.LD;
+    const float* vb = V + ct * TN * D.LD;
+    for (int k = 0; k < D.NDS; ++k) {
+      Split<FragA<RowMajor>, NS> a;
+      Split<FragB<ColMajor>, NS> b;
+      load_split(a, ga + k * TK, D.LD);
+      load_split(b, vb + k * TK, D.LD);
+      mma_split(acc[0], a, b);
+    }
+    wmma::store_matrix_sync(DP + rt * TM * LS + ct * TN, acc[0], LS,
+                            wmma::mem_row_major);
   }
 }
 
-// Pass 1: one block per (key tile, bh); dk and dv of its 32 keys.
+// Each element of the tile pair: P into S1, dz into S0 (key k0 + j valid
+// below kv_len, query row i below nrows).
+__device__ __forceinline__ void softmax_step(float* S0, float* S1,
+                                             const float* DP, const float* L,
+                                             const float* Dl, int k0, int kvl,
+                                             int nrows, float scale) {
+  for (int idx = threadIdx.x; idx < BQ * BK; idx += THREADS) {
+    const int i = idx / BK, j = idx % BK;
+    const int o = i * LS + j;
+    const float s = S0[o] + S1[o];
+    const float p =
+        k0 + j < kvl && i < nrows ? expf(s * scale - L[i]) : 0.f;
+    S1[o] = p;
+    S0[o] = p * (DP[o] - Dl[i]) * scale;
+  }
+}
+
+// Key pass: one block per (key tile, bh); dk and dv of its 32 keys.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     rot_bwd_dkdv_kernel(const T* __restrict__ qu, const T* __restrict__ u,
                         const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ vt,
@@ -207,65 +448,116 @@ __global__ void __launch_bounds__(THREADS)
                         const T* __restrict__ dout,
                         const float* __restrict__ delta, T* __restrict__ dk_,
                         T* __restrict__ dv_, Dims D) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                       // [BQ][E4]
-  float* sDO = sQ + BQ * D.E4;            // [BQ][D4]
-  float* sKt = sDO + BQ * D.D4;           // [E4 + D4][KS]
-  float* sP = sKt + (D.E4 + D.D4) * KS;   // [BQ][PS]
-  float* sDZ = sP + BQ * PS;              // [BQ][PS]
-  float* sL = sDZ + BQ * PS;              // [BQ]
-  float* sD = sL + BQ;                    // [BQ]
-
+  constexpr int NS = SplitsFor<T>::value;
+  extern __shared__ __align__(128) float smem[];
+  const Smem sm = carve(smem, D, false);
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BK;
-  const int lane = threadIdx.x & 31;
-  const int g = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const size_t base = (size_t)bh * D.T;
-  const int kvl = min(kv_len[bh], D.T);
+  const int kvl = max(0, min(kv_len[bh], D.T));
+  // warp w < 2 * ndt owns the 16 x 16 tile (kt, dt) of dv and of dk
+  const int ndt = D.DKP / TN;
+  const bool owner = warp < (BK / TM) * ndt;
+  const int kt = warp / ndt, dt = warp % ndt;
+  // the streamed query tiles and the resident key tile
+  const Src<T> qw{qu + base * D.dk, u + base * D.M, D.dk, D.M, D.T, D.EP,
+                  D.LQ};
+  const Src<T> qn{dout + base * D.dk, dout, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> kw{k + base * D.dk, vt, D.dk, D.M, kvl, D.EP, D.LQ};
+  const Src<T> kn{v + base * D.dk, v, D.dk, 0, kvl, D.DKP, D.LD};
+  constexpr bool f32 = std::is_same<T, float>::value;
+  // prefetch: the next tile's copies run while this one is computed
+  const bool pre = f32 ? D.NBUF == 2 : D.raw != 0;
+  const int ntiles = (D.T + BQ - 1) / BQ;
 
-  float adv[DC], adk[DC];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) adv[c] = adk[c] = 0.f;
-
+  FragC adv, adk;
+  wmma::fill_fragment(adv, 0.f);
+  wmma::fill_fragment(adk, 0.f);
   if (k0 < kvl) {
-    load_key_tile(k, v, vt, base, k0, D, sKt);
-    const bool key_valid = k0 + lane < kvl;
-    for (int q0 = 0; q0 < D.T; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      load_query_tile(qu, u, dout, lse, delta, base, q0, D, sQ, sDO, sL, sD);
+    load_resident<BK>(kw, k0, sm.K[0], D);
+    load_resident<BK>(kn, k0, sm.V[0], D);
+    issue<BQ>(qw, 0, sm.Q[0], sm.RW, D);
+    issue<BQ>(qn, 0, sm.DO[0], sm.RN, D);
+    fetch_row_stats(lse, delta, base, 0, D.T, sm.L[0], sm.Dl[0]);
+    cp_async_commit();
+    for (int t = 0; t < ntiles; ++t) {
+      const int q0 = t * BQ;
+      // this step's buffers and the next one's (selects, not indexing,
+      // keep the pointer pairs in registers)
+      const bool odd = f32 && D.NBUF == 2 && (t & 1);
+      float* Qc = odd ? sm.Q[1] : sm.Q[0];
+      float* DOc = odd ? sm.DO[1] : sm.DO[0];
+      float* Qn = odd ? sm.Q[0] : sm.Q[1];
+      float* DOn = odd ? sm.DO[0] : sm.DO[1];
+      float* Lc = (t & 1) ? sm.L[1] : sm.L[0];
+      float* Dlc = (t & 1) ? sm.Dl[1] : sm.Dl[0];
+      float* Ln = (t & 1) ? sm.L[0] : sm.L[1];
+      float* Dln = (t & 1) ? sm.Dl[0] : sm.Dl[1];
+      if (!pre && t > 0) {
+        __syncthreads();  // the previous step's readers are done
+        issue<BQ>(qw, q0, sm.Q[0], sm.RW, D);
+        issue<BQ>(qn, q0, sm.DO[0], sm.RN, D);
+        fetch_row_stats(lse, delta, base, q0, D.T, Lc, Dlc);
+        cp_async_commit();
+      }
+      cp_async_wait(0);
+      __syncthreads();  // tile t has landed; step t-1's readers are done
+      if constexpr (!f32) {
+        land<BQ>(qw, q0, sm.Q[0], sm.RW, D);
+        land<BQ>(qn, q0, sm.DO[0], sm.RN, D);
+        __syncthreads();
+      }
+      if (pre && t + 1 < ntiles) {
+        issue<BQ>(qw, q0 + BQ, Qn, sm.RW, D);
+        issue<BQ>(qn, q0 + BQ, DOn, sm.RN, D);
+        fetch_row_stats(lse, delta, base, q0 + BQ, D.T, Ln, Dln);
+        cp_async_commit();
+      }
+      scores<NS>(Qc, sm.K[0], DOc, sm.V[0], sm.S0, sm.S1, sm.DP, D);
       __syncthreads();
-      tile_pair(sQ, sDO, sL, sD, sKt, key_valid, D, sP, sDZ);
+      softmax_step(sm.S0, sm.S1, sm.DP, Lc, Dlc, k0, kvl, D.T - q0,
+                   D.scale);
       __syncthreads();
-      for (int ii = 0; ii < BQ; ++ii) {
-        const float p = sP[ii * PS + lane];
-        const float z = sDZ[ii * PS + lane];
+      if (owner) {
+        // dv += P^T·dout, dk += dz^T·q_u over the tile's 32 query rows
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = g + DG * c;
-          if (d < D.dk) {
-            adv[c] = fmaf(p, sDO[ii * D.D4 + d], adv[c]);
-            adk[c] = fmaf(z, sQ[ii * D.E4 + d], adk[c]);
-          }
+        for (int ks = 0; ks < BQ / TK; ++ks) {
+          Split<FragA<ColMajor>, NS> p, z;
+          Split<FragB<RowMajor>, NS> g, q;
+          load_split(p, sm.S1 + ks * TK * LS + kt * TM, LS);
+          load_split(z, sm.S0 + ks * TK * LS + kt * TM, LS);
+          load_split(g, DOc + ks * TK * D.LD + dt * TN, D.LD);
+          load_split(q, Qc + ks * TK * D.LQ + dt * TN, D.LQ);
+          mma_split(adv, p, g);
+          mma_split(adk, z, q);
         }
       }
     }
   }
-  const int key = k0 + lane;
-  if (key < D.T) {
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = g + DG * c;
-      if (d < D.dk) {
-        dv_[(base + key) * D.dk + d] = from_f32<T>(adv[c]);
-        dk_[(base + key) * D.dk + d] = from_f32<T>(adk[c]);
-      }
-    }
+  cp_async_wait(0);
+  __syncthreads();
+  float* sdv = sm.Q[0];
+  float* sdk = sm.Q[0] + BK * D.LD;
+  if (owner) {
+    wmma::store_matrix_sync(sdv + kt * TM * D.LD + dt * TN, adv, D.LD,
+                            wmma::mem_row_major);
+    wmma::store_matrix_sync(sdk + kt * TM * D.LD + dt * TN, adk, D.LD,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BK * D.dk; idx += THREADS) {
+    const int r = idx / D.dk, d = idx - r * D.dk, key = k0 + r;
+    if (key >= D.T) continue;
+    dv_[(base + key) * D.dk + d] = from_f32<T>(sdv[r * D.LD + d]);
+    dk_[(base + key) * D.dk + d] = from_f32<T>(sdk[r * D.LD + d]);
   }
 }
 
-// Pass 2: one block per (query tile, bh); dq_u and du of its 32 rows.
+// Query pass: one block per (query tile, bh, column chunk); dq_u and du
+// of its 32 rows in that chunk.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     rot_bwd_dq_kernel(const T* __restrict__ qu, const T* __restrict__ u,
                       const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ vt,
@@ -274,54 +566,113 @@ __global__ void __launch_bounds__(THREADS)
                       const T* __restrict__ dout,
                       const float* __restrict__ delta, T* __restrict__ dqu_,
                       T* __restrict__ du_, Dims D) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                       // [BQ][E4]
-  float* sDO = sQ + BQ * D.E4;            // [BQ][D4]
-  float* sAcc = sDO + BQ * D.D4;          // [BQ][E4]  [dq_u ; du]
-  float* sKt = sAcc + BQ * D.E4;          // [E4 + D4][KS]
-  float* sDZ = sKt + (D.E4 + D.D4) * KS;  // [BQ][PS]
-  float* sL = sDZ + BQ * PS;
-  float* sD = sL + BQ;
-
+  constexpr int NS = SplitsFor<T>::value;
+  extern __shared__ __align__(128) float smem[];
+  const Smem sm = carve(smem, D, true);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int ct0 = blockIdx.z * CHUNK_CT;
+  const int ct1 = min(D.NCT, ct0 + CHUNK_CT);
+  const int warp = threadIdx.x >> 5;
+  // warp w owns row tile w & 1 and column tiles ct0 + (w >> 1) + NCG * i
+  const int rt = warp & 1, cg = warp >> 1;
   const size_t base = (size_t)bh * D.T;
-  const int kvl = min(kv_len[bh], D.T);
+  const int kvl = max(0, min(kv_len[bh], D.T));
+  // the resident query tile and the streamed key tiles
+  const Src<T> qw{qu + base * D.dk, u + base * D.M, D.dk, D.M, D.T, D.EP,
+                  D.LQ};
+  const Src<T> qn{dout + base * D.dk, dout, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> kw{k + base * D.dk, vt, D.dk, D.M, kvl, D.EP, D.LQ};
+  const Src<T> kn{v + base * D.dk, v, D.dk, 0, kvl, D.DKP, D.LD};
+  constexpr bool f32 = std::is_same<T, float>::value;
+  // prefetch: the next tile's copies run while this one is computed
+  const bool pre = f32 ? D.NBUF == 2 : D.raw != 0;
+  const int ntiles = (kvl + BK - 1) / BK;
 
-  load_query_tile(qu, u, dout, lse, delta, base, q0, D, sQ, sDO, sL, sD);
-  for (int idx = tid; idx < BQ * D.E4; idx += THREADS) sAcc[idx] = 0.f;
+  load_resident<BQ>(qw, q0, sm.Q[0], D);
+  load_resident<BQ>(qn, q0, sm.DO[0], D);
+  fetch_row_stats(lse, delta, base, q0, D.T, sm.L[0], sm.Dl[0]);
+  if (ntiles > 0) {
+    issue<BK>(kw, 0, sm.K[0], sm.RW, D);
+    issue<BK>(kn, 0, sm.V[0], sm.RN, D);
+  }
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < kvl; k0 += BK) {
-    __syncthreads();
-    load_key_tile(k, v, vt, base, k0, D, sKt);
-    __syncthreads();
-    tile_pair(sQ, sDO, sL, sD, sKt, k0 + lane < kvl, D, nullptr, sDZ);
-    __syncthreads();
-    // thread t owns columns e = t, t + 128, ... of all 32 rows
-    for (int e = tid; e < D.E; e += THREADS) {
-      float kv[BK];
+  FragC acc[ACC];
 #pragma unroll
-      for (int j = 0; j < BK; ++j) kv[j] = sKt[e * KS + j];
-      for (int ii = 0; ii < BQ; ++ii) {
-        float a = sAcc[ii * D.E4 + e];
+  for (int i = 0; i < ACC; ++i) wmma::fill_fragment(acc[i], 0.f);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    const bool odd = f32 && D.NBUF == 2 && (t & 1);
+    float* Kc = odd ? sm.K[1] : sm.K[0];
+    float* Vc = odd ? sm.V[1] : sm.V[0];
+    float* Kn = odd ? sm.K[0] : sm.K[1];
+    float* Vn = odd ? sm.V[0] : sm.V[1];
+    if (!pre && t > 0) {
+      __syncthreads();  // the previous step's readers are done
+      issue<BK>(kw, k0, sm.K[0], sm.RW, D);
+      issue<BK>(kn, k0, sm.V[0], sm.RN, D);
+      cp_async_commit();
+    }
+    cp_async_wait(0);
+    __syncthreads();  // tile t has landed; step t-1's readers are done
+    if constexpr (!f32) {
+      land<BK>(kw, k0, sm.K[0], sm.RW, D);
+      land<BK>(kn, k0, sm.V[0], sm.RN, D);
+      __syncthreads();
+    }
+    if (pre && t + 1 < ntiles) {
+      issue<BK>(kw, k0 + BK, Kn, sm.RW, D);
+      issue<BK>(kn, k0 + BK, Vn, sm.RN, D);
+      cp_async_commit();
+    }
+    scores<NS>(sm.Q[0], Kc, sm.DO[0], Vc, sm.S0, sm.S1, sm.DP, D);
+    __syncthreads();
+    softmax_step(sm.S0, sm.S1, sm.DP, sm.L[0], sm.Dl[0], k0, kvl, D.T - q0,
+                 D.scale);
+    __syncthreads();
+    // [dq_u ; du] += dz·[k ; V] over the tile's 32 keys
 #pragma unroll
-        for (int j = 0; j < BK; ++j) a = fmaf(sDZ[ii * PS + j], kv[j], a);
-        sAcc[ii * D.E4 + e] = a;
+    for (int ks = 0; ks < BK / TK; ++ks) {
+      Split<FragA<RowMajor>, NS> z;
+      load_split(z, sm.S0 + rt * TM * LS + ks * TK, LS);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        const int ct = ct0 + cg + NCG * i;
+        if (ct < ct1) {
+          Split<FragB<RowMajor>, NS> kf;
+          load_split(kf, Kc + ks * TK * D.LQ + ct * TN, D.LQ);
+          mma_split(acc[i], z, kf);
+        }
       }
     }
   }
+  cp_async_wait(0);
   __syncthreads();
-  for (int idx = tid; idx < BQ * D.E; idx += THREADS) {
-    const int r = idx / D.E, e = idx - r * D.E, row = q0 + r;
+  // written once: fragments -> the Q tile's place -> the outputs
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) {
+    const int ct = ct0 + cg + NCG * i;
+    if (ct < ct1)
+      wmma::store_matrix_sync(sm.Q[0] + rt * TM * D.LQ + ct * TN, acc[i],
+                              D.LQ, wmma::mem_row_major);
+  }
+  __syncthreads();
+  const int e0 = ct0 * TN, w = min(D.E, ct1 * TN) - e0;
+  for (int idx = threadIdx.x; idx < BQ * w; idx += THREADS) {
+    const int r = idx / w, e = e0 + (idx - r * w), row = q0 + r;
     if (row >= D.T) continue;
-    const float a = sAcc[r * D.E4 + e];
+    const float a = sm.Q[0][r * D.LQ + e];
     if (e < D.dk)
       dqu_[(base + row) * D.dk + e] = from_f32<T>(a);
     else
       du_[(base + row) * D.M + (e - D.dk)] = from_f32<T>(a);
   }
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
 }
 
 template <typename T>
@@ -335,9 +686,44 @@ int launch(const void* qu, const void* u, const void* k, const void* v,
   D.dk = dk;
   D.M = M;
   D.E = dk + M;
-  D.E4 = (dk + M + 3) / 4 * 4;
-  D.D4 = (dk + 3) / 4 * 4;
+  D.EP = (D.E + 15) / 16 * 16;
+  D.DKP = (dk + 15) / 16 * 16;
+  D.LQ = D.EP + 4;
+  D.LD = D.DKP + 4;
+  D.NKS = (D.E + 7) / 8;
+  D.NDS = (dk + 7) / 8;
+  D.H0 = min(D.NKS, (D.NKS + D.NDS + 1) / 2);
+  D.NCT = D.EP / 16;
   D.scale = 1.0f / sqrtf((float)dk);
+  // cp.async copies: 16 bytes where every width and base allows, else 4
+  // bytes (bf16 pairs); bf16 of odd width goes through registers
+  const void* src[] = {qu, u, k, v, vt, dout};
+  auto all = [&](uintptr_t n) {
+    for (const void* p : src)
+      if (!aligned(p, n)) return false;
+    return true;
+  };
+  const int vec = 16 / (int)sizeof(T), pair = 4 / (int)sizeof(T);
+  D.chunk = dk % vec == 0 && M % vec == 0 && all(16) ? vec
+            : dk % pair == 0 && M % pair == 0 && all(4) ? pair
+                                                        : 0;
+  const bool f32 = std::is_same<T, float>::value;
+  D.raw = !f32 && D.chunk > 0;
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // f32 double-buffers the streamed tile, bf16 stages it raw; where that
+  // does not fit, one buffer loaded at the top of each step
+  D.NBUF = f32 ? 2 : 1;
+  if (smem_bytes(D) > (size_t)smem_max) {
+    D.NBUF = 1;
+    if (!f32) D.chunk = D.raw = 0;
+  }
+  const size_t smem = smem_bytes(D);
+
   const T* q = static_cast<const T*>(qu);
   const T* uu = static_cast<const T*>(u);
   const T* kk = static_cast<const T*>(k);
@@ -348,30 +734,26 @@ int launch(const void* qu, const void* u, const void* k, const void* v,
   const int rows = BH * T_;
   rot_bwd_delta_kernel<T><<<(rows + 3) / 4, 128, 0, stream>>>(
       static_cast<const T*>(out), g, delta, rows, dk);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t kt = (size_t)(D.E4 + D.D4) * KS;
-  const size_t smem1 = sizeof(float) * ((size_t)BQ * D.E4 + (size_t)BQ * D.D4 +
-                                        kt + 2 * (size_t)BQ * PS + 2 * BQ);
-  const size_t smem2 = sizeof(float) * (2 * (size_t)BQ * D.E4 +
-                                        (size_t)BQ * D.D4 + kt +
-                                        (size_t)BQ * PS + 2 * BQ);
   err = cudaFuncSetAttribute(rot_bwd_dkdv_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem1);
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(rot_bwd_dq_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T_ + BQ - 1) / BQ, BH);
-  rot_bwd_dkdv_kernel<T><<<grid, THREADS, smem1, stream>>>(
+  const dim3 grid_k((T_ + BK - 1) / BK, BH);
+  rot_bwd_dkdv_kernel<T><<<grid_k, THREADS, smem, stream>>>(
       q, uu, kk, vv, tt, kv_len, lse, g, delta, static_cast<T*>(dk_),
       static_cast<T*>(dv_), D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  rot_bwd_dq_kernel<T><<<grid, THREADS, smem2, stream>>>(
+  const dim3 grid_q((T_ + BQ - 1) / BQ, BH,
+                    (D.NCT + CHUNK_CT - 1) / CHUNK_CT);
+  rot_bwd_dq_kernel<T><<<grid_q, THREADS, smem, stream>>>(
       q, uu, kk, vv, tt, kv_len, lse, g, delta, static_cast<T*>(dqu),
       static_cast<T*>(du), D);
   return (int)cudaGetLastError();

@@ -45,9 +45,14 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header ``csrc/*.cuh`` (a source may include any of them)."""
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return any(built < s.stat().st_mtime for s in sources)
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES,

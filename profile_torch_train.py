@@ -31,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +88,10 @@ def main(argv=None) -> int:
                 return label
         return None
 
+    def short(kernel_name):
+        m = re.search(r"\w*kernel\w*(<[^>]*>)?", kernel_name)
+        return m.group(0) if m else kernel_name[:60]
+
     summary = {"card": card, "configs": {}}
     for name in args.configs.split(","):
         torch.manual_seed(args.seed)
@@ -119,7 +124,7 @@ def main(argv=None) -> int:
             start = max(e.time_range.start, end)
             busy_us += max(e.time_range.end - start, 0.0)
             end = max(end, e.time_range.end)
-        by_name, ours = {}, {}
+        by_name, ours, parts = {}, {}, {}
         for e in dev:
             us = e.time_range.elapsed_us()
             n, t = by_name.get(e.name, (0, 0.0))
@@ -128,6 +133,9 @@ def main(argv=None) -> int:
             if label:
                 n, t = ours.get(label, (0, 0.0))
                 ours[label] = (n + 1, t + us)
+                key = (label, short(e.name))
+                n, t = parts.get(key, (0, 0.0))
+                parts[key] = (n + 1, t + us)
         step_s = sum(times) / len(times)
         print(f"{name}: step {step_s * 1e3:.1f} ms (mean of {len(times)}: "
               f"{', '.join(f'{t * 1e3:.1f}' for t in times)}); profiled step "
@@ -137,6 +145,9 @@ def main(argv=None) -> int:
         for label, (n, us) in sorted(ours.items()):
             print(f"  {label}: {us / 1e3:.2f} ms device over {n} device "
                   f"functions, {us / 1e4 / wall_s:.1f}% of the profiled step")
+            for (owner_label, fn), (m, fus) in sorted(parts.items()):
+                if owner_label == label:
+                    print(f"    {fn}: {fus / 1e3:.2f} ms over {m} calls")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
         for kname, (n, us) in top:
             print(f"  {us / 1e3:9.2f} ms  {n:7d} calls  {kname[:90]}")
@@ -146,6 +157,8 @@ def main(argv=None) -> int:
             "device_busy_share": busy_us / 1e6 / wall_s,
             "device_ops": len(dev),
             "port_kernels_ms": {k: us / 1e3 for k, (n, us) in ours.items()},
+            "port_functions_ms": {f"{k} {fn}": us / 1e3
+                                  for (k, fn), (n, us) in parts.items()},
             "top_kernels_ms": [[k[:90], us / 1e3] for k, (n, us) in top[:5]]}
         del model, trainer, state
         torch.cuda.empty_cache()

@@ -54,6 +54,8 @@ SHAPES = [
     (248, 40, 320, [248, 200, 131, 1]),     # the served shape, ragged
     (37, 64, 64, [37, 0, 5, 33]),           # an empty row, dk = 64
     (70, 16, 48, [64, 65, 1, 70]),          # tile edges
+    (45, 12, 20, [45, 17]),                 # dk, M not multiples of 16
+    (388, 40, 320, [388, 291, 97, 1]),      # training width, ragged T
 ]
 
 
@@ -110,6 +112,48 @@ def test_backward_kernel_matches_plain(which, dtype, T, dk, M, lens):
         assert err <= TOL[dtype], (i, err)
         if i < 4:   # per-bh gradients: rows of an empty row are exact zeros
             assert not bool(g[empty].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,dk,M,lens", [
+    (29, 9, 21, [29, 11]),      # odd widths: 4-byte copies / registers
+    (70, 40, 600, [70, 33]),    # E = 640: one tile buffer, two column chunks
+])
+def test_rot_backward_kernel_copy_routes(dtype, T, dk, M, lens):
+    """K2's other routes into shared memory, against the plain backward
+    (the forward's out and lse from the plain forward)."""
+    dev = _card()
+    H = 2
+    args = _inputs("rot", len(lens) * H, H, T, dk, M, lens, dtype, dev)
+    out, lse = rot_attention_reference(*args)
+    out = out.to(dtype)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        out.shape).astype(np.float32)).to(dev, dtype)
+    grads = rot_attention_backward(*args, out, lse, dout)
+    torch.cuda.synchronize()
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    want = rot_attention_backward_reference(*f32, out.float(), lse,
+                                            dout.float())
+    for i, (g, w) in enumerate(zip(grads, want)):
+        err = float((g.float() - w).abs().max()) / float(w.abs().max())
+        assert err <= TOL[dtype], (i, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rot_backward_kernel_is_bitwise_repeatable(dtype):
+    """Two K2 calls on the same inputs give the same bits: each pass owns
+    what it writes and sums in a fixed order, with no atomics."""
+    dev = _card()
+    H, lens = 2, [388, 291, 97, 1]
+    args = _inputs("rot", len(lens) * H, H, 388, 40, 320, lens, dtype, dev)
+    out, lse = rot_attention_forward(*args)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        out.shape).astype(np.float32)).to(dev, dtype)
+    first = rot_attention_backward(*args, out, lse, dout)
+    second = rot_attention_backward(*args, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("flags", [{"encoder_rot_fold_pallas": True},
