@@ -308,7 +308,7 @@ def _kernel_specs():
     return [
         ("rot_attention_fwd", rot_attention_forward, rot_attention_reference,
          _rot_inputs, _rot_cost, _rot_library, src + "rot_attention.cu",
-         rot + ":85", (SERVED, TRAINING), "simt-f32"),
+         rot + ":85", (SERVED, TRAINING), "wmma-tf32x3"),
         ("rot_attention_bwd", rot_attention_backward,
          rot_attention_backward_reference,
          _with_grad_inputs(_rot_inputs, rot_attention_forward),

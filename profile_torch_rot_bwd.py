@@ -5,10 +5,10 @@ NVIDIA GPU.
     python3 profile_torch_rot_bwd.py [--seed 0]
 
 It builds variants of ``lasr_tpu_torch/csrc/rot_attention_bwd.cu`` (and
-its header ``mma_tf32.cuh``), each with one part of the work taken out or
-changed by a text edit of a copy of the committed sources, and times each
-at chip_smoke's training shape (BH=256, T=388, dk=40, M=320, ragged
-kv_len) in f32 and bf16 with CUDA events:
+its headers ``mma_tf32.cuh``, ``tile_io.cuh``), each with one part of the
+work taken out or changed by a text edit of a copy of the committed
+sources, and times each at chip_smoke's training shape (BH=256, T=388,
+dk=40, M=320, ragged kv_len) in f32 and bf16 with CUDA events:
 
   base         the committed kernel
   one_product  one TF32 product per tile instead of 3xTF32 (f32)
@@ -24,6 +24,7 @@ kv_len) in f32 and bf16 with CUDA events:
 Variants that leave work out give wrong gradients; only ``base`` is
 checked against the plain version.  The builds go to a temporary
 directory.  It needs a CUDA device and nvcc, and fails without them.
+``build_variants`` serves ``profile_torch_rot_fwd.py`` too.
 """
 
 from __future__ import annotations
@@ -72,9 +73,13 @@ EDITS["no_compute"] = (EDITS["no_scores"] + EDITS["no_products"]
                        + EDITS["no_softmax"])
 
 
-def write_variant(csrc, out_dir, name):
-    sources = {f: open(os.path.join(csrc, f)).read() for f in (KERNEL, HEADER)}
-    for fname, anchor, new in EDITS.get(name, []):
+def write_variant(csrc, out_dir, name, kernel, edits):
+    """A copy of ``kernel`` and every shared header of ``csrc`` in
+    ``out_dir/name``, with the variant's edits; returns the kernel's path."""
+    files = [kernel, *sorted(f for f in os.listdir(csrc)
+                             if f.endswith(".cuh"))]
+    sources = {f: open(os.path.join(csrc, f)).read() for f in files}
+    for fname, anchor, new in edits.get(name, []):
         if anchor not in sources[fname]:
             raise RuntimeError(f"{name}: anchor not found in {fname}: "
                                f"{anchor!r}")
@@ -84,7 +89,42 @@ def write_variant(csrc, out_dir, name):
     for fname, text in sources.items():
         with open(os.path.join(d, fname), "w") as f:
             f.write(text)
-    return os.path.join(d, KERNEL)
+    return os.path.join(d, kernel)
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def build_variants(tmp, kernel, edits, symbol, n_ptr):
+    """Builds ``base`` and every variant of ``edits`` in parallel under
+    ``tmp``; returns {name: the C entry point ``symbol`` (n_ptr pointers,
+    5 ints, the stream)}, or None after printing nvcc's log of a failed
+    build."""
+    from lasr_tpu_torch.ops import cuda_build
+    procs = {}
+    for name in ["base", *edits]:
+        src = write_variant(str(cuda_build.CSRC), tmp, name, kernel, edits)
+        lib = os.path.join(tmp, f"lib{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            print(f"{name}: nvcc failed\n{log}", file=sys.stderr)
+            return None
+        fn = getattr(ctypes.CDLL(lib), symbol)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+    return libs
 
 
 def main(argv=None) -> int:
@@ -98,36 +138,18 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke
-    from lasr_tpu_torch.ops import cuda_build
     from lasr_tpu_torch.ops.rot_attention import (
         rot_attention_backward_reference, rot_attention_forward)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     names = ["base", *EDITS]
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for name in names:
-            src = write_variant(str(cuda_build.CSRC), tmp, name)
-            lib = os.path.join(tmp, f"lib{name}.so")
-            procs[name] = (lib, subprocess.Popen(
-                [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        libs = {}
-        for name, (lib, proc) in procs.items():
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                print(f"{name}: nvcc failed\n{log}", file=sys.stderr)
-                return 1
-            fn = ctypes.CDLL(lib).lasr_rot_attention_bwd
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            libs[name] = fn
+        libs = build_variants(tmp, KERNEL, EDITS, "lasr_rot_attention_bwd",
+                              14)
+        if libs is None:
+            return 1
 
         rng = np.random.default_rng(args.seed)
         dev = torch.device("cuda")

@@ -117,6 +117,39 @@ def test_backward_kernel_matches_plain(which, dtype, T, dk, M, lens):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,dk,M,lens", [
     (29, 9, 21, [29, 11]),      # odd widths: 4-byte copies / registers
+    (70, 40, 600, [70, 33]),    # E = 640: one key-tile buffer
+])
+def test_rot_forward_kernel_copy_routes(dtype, T, dk, M, lens):
+    """K1's other routes into shared memory, against the plain forward."""
+    dev = _card()
+    H = 2
+    args = _inputs("rot", len(lens) * H, H, T, dk, M, lens, dtype, dev)
+    out, lse = rot_attention_forward(*args)
+    torch.cuda.synchronize()
+    want, want_lse = rot_attention_reference(
+        *[a.float() if a.is_floating_point() else a for a in args])
+    assert out.dtype == dtype
+    assert float((out.float() - want).abs().max()) <= TOL[dtype]
+    assert float((lse - want_lse).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rot_forward_kernel_is_bitwise_repeatable(dtype):
+    """Two K1 calls on the same inputs give the same bits: each block owns
+    its rows and sums in a fixed order."""
+    dev = _card()
+    H, lens = 2, [388, 291, 97, 1]
+    args = _inputs("rot", len(lens) * H, H, 388, 40, 320, lens, dtype, dev)
+    first = rot_attention_forward(*args)
+    second = rot_attention_forward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,dk,M,lens", [
+    (29, 9, 21, [29, 11]),      # odd widths: 4-byte copies / registers
     (70, 40, 600, [70, 33]),    # E = 640: one tile buffer, two column chunks
 ])
 def test_rot_backward_kernel_copy_routes(dtype, T, dk, M, lens):
