@@ -321,7 +321,7 @@ def _kernel_specs():
          rel_attention_backward_reference,
          _with_grad_inputs(_rel_inputs, rel_attention_forward),
          _rel_bwd_cost, None, src + "rel_attention_bwd.cu", rel + ":282",
-         (TRAINING,), "simt-f32"),
+         (TRAINING,), "wmma-tf32x3"),
     ]
 
 

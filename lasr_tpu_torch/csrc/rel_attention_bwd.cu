@@ -13,69 +13,87 @@
 //   dq_u[i] = sum_j dz[i,j] k[j]         dq_v[i] = sum_j dz[i,j] p[h, r]
 //   dp[h,r] = sum_b sum_{i-j = T-1-r} dz[b,h,i,j] q_v[b,h,i]
 //
-// Inputs are all f32 or all bf16; sums accumulate in f32; gradients are
-// written in the input type.  A row with kv_len == 0 has lse = +inf, so
-// its P and every gradient it feeds are exact zeros.
+// Inputs are all f32 or all bf16; every sum accumulates in f32; gradients
+// are written in the input type.  A row with kv_len == 0 has lse = +inf,
+// so its P and every gradient it feeds are exact zeros.
 //
-// What bounds it on an H100: per (i, j) pair the backward does ~16 dk
-// FLOP (score recompute 4dk, dout·v 2dk, five dk-wide products) against
-// ~10 dk values of input and output per row: bound by the non-tensor-core
-// f32 rate in f32, close to the memory line in bf16.
+// What bounds it on an H100: per (i, j) pair ~16 dk FLOP (the score's two
+// products 4dk, dout·v 2dk, five dk-wide gradient products) against ~10 dk
+// values of input and output per row: bound by arithmetic, and on the CUDA
+// cores (67 TFLOP/s f32) that bound is ~2.5x what the tensor cores allow
+// even as 3xTF32, so every product here runs on them.
 //
-// Design (simple first, no tensor cores, no atomics, deterministic):
-//  - the TPU kernel sums dk, dv and dp across sequential grid steps; here
-//    each pass owns what it writes:
-//      pass 1, grid (ceil(T/32), BH): a block per key tile walks every
-//        query tile and sums dk and dv in registers;
-//      pass 2, grid (ceil(T/32), BH): a block per query tile walks the key
-//        tiles below kv_len and sums dq_u and dq_v in registers;
-//      pass 3, grid (ceil((2T-1)/32), H, S): a block per (32 relative
-//        positions, head, batch slice) walks its slice of the batch and
-//        every query tile; the 32 lanes are 32 diagonals r, so dp[h, r] is
-//        a sum down the lane's own diagonal.  S partial sums, one per batch
-//        slice, are added in a fixed order by a last small kernel (the TPU
-//        package sums per-bh partials outside its kernel).
+// Design (tensor cores through WMMA, no atomics, bitwise repeatable):
+//  - for a tile pair (32 query rows from q0, 32 keys from k0) the
+//    rel-shift is an index remap between plain products.  The window
+//    Pwin = p[h, r0 .. r0+63], r0 = T-1-q0-31+k0 (rows outside [0, 2T-2]
+//    zero), gives W = q_v·Pwin^T (32 x 64) beside AC = q_u·k^T and
+//    dPa = dout·v^T (32 x 32); query ii / key jj reads W[ii][31-ii+jj].
+//    dz goes back the same way into dW[ii][31-ii+jj] (the rest of dW
+//    zero), and dq_v = dW·Pwin, dPwin = dW^T·q_v are plain products again.
+//    The TPU kernel's barrel-shifter rolls are Mosaic layout devices and
+//    are not carried over.
+//  - every product is an m16n16k8 TF32 WMMA tile (mma_tf32.cuh): 3xTF32
+//    (f32 accuracy) for f32 inputs, one product for bf16 inputs, which
+//    TF32 holds exactly.  Each tile's product starts from zero and is
+//    added to its running sum in f32 registers: the tensor cores do not
+//    round the sum they accumulate into to nearest, and over a long loop
+//    that drift shows in training (K1's first version, PERF.md).
+//  - the TPU kernel sums dk, dv and dp across sequential grid steps;
+//    blocks here run in no order, so each pass owns what it writes:
+//      key pass, grid (ceil(T/32), BH): one block per 32 keys keeps k and
+//        v resident, streams every query tile and sums dk and dv;
+//      query pass, grid (ceil(T/32), BH): one block per 32 query rows
+//        keeps q_u, q_v and dout resident, streams the key tiles below
+//        kv_len and sums dq_u and dq_v, and dp of its windows: consecutive
+//        windows overlap by 31 rows, so a rolling 64-row sum in registers
+//        is final for its lower 32 rows after each key tile; those rows go
+//        to the block's own partial part[bh][q-tile] (f32, 32 (nq+1) rows);
+//      a last kernel adds the partials of each dp row over the batch and
+//        the query tiles in a fixed order.
 //    A first tiny kernel writes delta[bh, i].
-//  - the rel-shift is an index remap, as in the forward: for the tile pair
-//    (q0, k0) the window p[r0 .. r0+62], r0 = T-1-q0-31+k0, sits in shared
-//    memory (rows outside [0, 2T-2] zero) and query ii / key jj reads
-//    window row 31-ii+jj; pass 3 stages the key window k[j0 .. j0+62] the
-//    same way, and query ii / diagonal rr reads key row ii+rr.  The
-//    barrel-shifter rolls and the p_off / Pp padding of the TPU kernel are
-//    Mosaic layout devices and are not carried over.
-//  - row reads of key and window tiles use an odd stride (conflict-free);
-//    query rows are float4 broadcasts; P and dz of a tile pair pass
-//    through shared memory to the accumulation layout.
+//  - per tile pair, warps 0-3 take a column tile of W, warps 4-7 one of
+//    AC or dPa, each over both row tiles (a B fragment split once feeds
+//    two products); the scores go to shared memory, where each element
+//    becomes P and dz, and come back as fragments (P^T and dz^T load the
+//    stored tile column-major, with no transposing copy).  The band
+//    structure of dW (31-ii .. 62-ii) cuts the dq_v and dp products to the
+//    6 of 8 depth steps that hold non-zeros.
+//  - tiles are f32 in shared memory (bf16 is widened on the way in), zero-
+//    padded to 16 columns (dk 40 -> 48) with a row stride of width + 4
+//    floats; keys are loaded only below kv_len, rows past T are zero.  The
+//    streamed tiles' copies (tile_io.cuh) run while the current pair is
+//    computed: f32 by cp.async into the other of two buffers, bf16 by
+//    cp.async into raw staging tiles widened at the top of the next step
+//    (bf16 of odd width through registers).  The window is a ring of three
+//    32-row halves: each step loads one new half, not 64 rows.  About
+//    92 KB of dynamic shared memory per block in f32, so two 8-warp blocks
+//    share an SM (at most 128 registers a thread): one block's copies,
+//    barriers and element work overlap the other's products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_tf32.cuh"
+#include "tile_io.cuh"
 
 namespace {
 
-constexpr int BQ = 32;
-constexpr int BK = 32;
-constexpr int ROWS = 8;
-constexpr int THREADS = 128;
-constexpr int WIN = BQ + BK - 1;  // window rows per tile pair
-constexpr int PS = BK + 1;        // padded stride of the P / dz tiles
-constexpr int DK_MAX = 64;
-// thread t owns column t % 32 and the d = t / 32 + DG * c of that column
-constexpr int DG = THREADS / 32;
-constexpr int DC = DK_MAX / DG;
+using namespace lasr_mma;
+using namespace lasr_tile;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int BQ = 32;           // query rows per tile
+constexpr int BK = 32;           // keys per tile
+constexpr int HALF = 32;         // rows of a window half
+constexpr int THREADS = 32 * NWARPS;
+constexpr int MIN_BLOCKS = 2;    // blocks per SM: at most 128 registers
+constexpr int LS = BK + 4;       // row stride of the AC / dPa (P, dz) tiles
+constexpr int LW = 2 * HALF + 4; // row stride of the W (dW) tile
+constexpr int DK_MAX = 64;       // at most 2 x 4 output tiles, one a warp
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -83,6 +101,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// delta[row] = dout[row]·out[row]; one warp per row.
 template <typename T>
 __global__ void rel_bwd_delta_kernel(const T* __restrict__ out,
                                      const T* __restrict__ dout,
@@ -100,92 +119,183 @@ __global__ void rel_bwd_delta_kernel(const T* __restrict__ out,
 }
 
 struct Dims {
-  int T, dk, H, P, D4, RS;
+  int T, dk, H, P;  // P = 2T - 1 rows of the positional table
+  int DKP, LD;      // dk rounded up to 16; row stride DKP + 4 of dk tiles
+  int NDS;          // depth steps of the score products: ceil(dk / 8)
+  int NQT;          // query (and key) tiles: ceil(T / 32)
+  int LP;           // rows of a dp partial: 32 (NQT + 1)
+  int chunk;        // elements per cp.async copy of a tile; 0: registers
+  int raw;          // bf16 tiles are staged raw and widened in shared memory
   float scale;
 };
 
-// Query rows q0.. of q_u, q_v, dout into [BQ][D4] tiles, with lse / delta
-// (rows past T: lse = +inf, so their P is 0).
-template <typename T>
-__device__ void load_query_tile(const T* qu, const T* qv, const T* dout,
-                                const float* lse, const float* delta,
-                                size_t base, int q0, const Dims& D, float* sQu,
-                                float* sQv, float* sDO, float* sL, float* sD) {
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < BQ * D.D4; idx += THREADS) {
-    const int r = idx / D.D4, e = idx - r * D.D4, row = q0 + r;
-    const bool in = row < D.T && e < D.dk;
-    const size_t off = (base + row) * D.dk + e;
-    sQu[idx] = in ? to_f32(qu[off]) : 0.f;
-    sQv[idx] = in ? to_f32(qv[off]) : 0.f;
-    sDO[idx] = in ? to_f32(dout[off]) : 0.f;
-  }
-  for (int r = tid; r < BQ; r += THREADS) {
-    const int row = q0 + r;
-    sL[r] = row < D.T ? lse[base + row] : INFINITY;
-    sD[r] = row < D.T ? delta[base + row] : 0.f;
+// Shared memory of a pass: the dk tiles q_u (Qu), q_v (Qv), dout (DO), k
+// (K), v (V) — the streamed ones in two buffers for f32 ([1] == [0] for
+// bf16) — the ring of three window halves, the score tiles AC, W and DP,
+// the query rows' lse (L) and delta (Dl) twice, and (query pass) a 16 x 16
+// staging tile per warp for the dp rows.  bf16 copies land raw in RS (the
+// streamed dk tiles: the key pass's q_u, q_v, dout or the query pass's k,
+// v, 32 rows each) and RP (64 window rows), each row DKP wide.
+struct Smem {
+  float *Qu[2], *Qv[2], *DO[2], *K[2], *V[2];
+  float *ring, *AC, *W, *DP, *L[2], *Dl[2], *stage;
+  __nv_bfloat16 *RS, *RP;
+};
+
+__host__ __device__ __forceinline__ size_t smem_bytes(const Dims& D,
+                                                      bool query, bool f32) {
+  const int nbuf = f32 ? 2 : 1;
+  const size_t tile = (size_t)BQ * D.LD;
+  const size_t dk_tiles = query ? 3 + 2 * nbuf : 2 + 3 * nbuf;
+  const size_t floats = (dk_tiles + 3) * tile + 2 * (size_t)BQ * LS +
+                        (size_t)BQ * LW + 4 * BQ +
+                        (query ? NWARPS * TM * TN : 0);
+  const size_t raw_rows = (query ? 2 * BK : 3 * BQ) + 2 * HALF;
+  return 4 * floats + (D.raw ? 2 * raw_rows * D.DKP : 0);
+}
+
+__device__ __forceinline__ void take(float*& p, float* (&buf)[2], int n,
+                                     int nbuf) {
+  buf[0] = p;
+  p += n;
+  buf[1] = buf[0];
+  if (nbuf == 2) {
+    buf[1] = p;
+    p += n;
   }
 }
 
-// n rows of x starting at row `first` into s[n][RS]; rows outside
-// [0, limit) are zero.
-template <typename T>
-__device__ void load_rows(const T* x, int first, int n, int limit,
-                          const Dims& D, float* s) {
-  for (int idx = threadIdx.x; idx < n * D.D4; idx += THREADS) {
-    const int w = idx / D.D4, e = idx - w * D.D4, row = first + w;
-    s[w * D.RS + e] = (row >= 0 && row < limit && e < D.dk)
-                          ? to_f32(x[(size_t)row * D.dk + e])
-                          : 0.f;
+// query: the query pass (k, v streamed); else the key pass (q_u, q_v,
+// dout streamed).  f32 tiles stream through two buffers.
+__device__ __forceinline__ Smem carve(float* p, const Dims& D, bool query,
+                                      bool f32) {
+  const int tile = BQ * D.LD;
+  const int nq = query || !f32 ? 1 : 2, nk = query && f32 ? 2 : 1;
+  Smem s;
+  take(p, s.Qu, tile, nq);
+  take(p, s.Qv, tile, nq);
+  take(p, s.DO, tile, nq);
+  take(p, s.K, tile, nk);
+  take(p, s.V, tile, nk);
+  s.ring = p;
+  p += 3 * tile;
+  s.AC = p;
+  s.W = s.AC + BQ * LS;
+  s.DP = s.W + BQ * LW;
+  p = s.DP + BQ * LS;
+  take(p, s.L, BQ, 2);
+  take(p, s.Dl, BQ, 2);
+  s.stage = p;
+  if (query) p += NWARPS * TM * TN;
+  s.RS = reinterpret_cast<__nv_bfloat16*>(p);
+  s.RP = s.RS + (query ? 2 * BK : 3 * BQ) * D.DKP;
+  return s;
+}
+
+// lse and delta of query rows q0.. (rows past T are masked by index in
+// softmax_step, so their zeros are never used).
+__device__ __forceinline__ void fetch_row_stats(const float* lse,
+                                                const float* delta,
+                                                size_t base, int q0, int T,
+                                                float* sL, float* sDl) {
+  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+    const bool ok = q0 + r < T;
+    const size_t at = ok ? base + q0 + r : 0;
+    cp_async4(sL + r, lse + at, ok);
+    cp_async4(sDl + r, delta + at, ok);
   }
 }
 
-// s and dout·v for the warp's 8 rows and the lane's key (passes 1, 2):
-// krow / vrow are the lane's key and value rows, the window row of query
-// ii is sPw + (31 - ii + lane) * RS.
-__device__ __forceinline__ void scores(const float* sQu, const float* sQv,
-                                       const float* sDO, const float* krow,
-                                       const float* vrow, const float* sPw,
-                                       const Dims& D, float* s, float* dp) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void add_to(FragC& acc, const FragC& x) {
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) s[r] = dp[r] = 0.f;
-  for (int e = 0; e < D.D4; e += 4) {
-    const float k0v = krow[e], k1v = krow[e + 1];
-    const float k2v = krow[e + 2], k3v = krow[e + 3];
-    const float v0 = vrow[e], v1 = vrow[e + 1];
-    const float v2 = vrow[e + 2], v3 = vrow[e + 3];
+  for (int t = 0; t < acc.num_elements; ++t) acc.x[t] += x.x[t];
+}
+
+// The score tiles of the tile pair into shared memory: W = Qv·Pwin^T
+// (Plo / Phi: window rows 0-31 / 32-63), AC = Qu·K^T, DP = DO·V^T.  Warp
+// w < 4 takes column tile w of W, warps 4-5 a column tile of AC, warps
+// 6-7 one of DP, each over both row tiles: a B fragment loaded and split
+// once feeds two products.
+template <int NS>
+__device__ __forceinline__ void scores(const float* Qu, const float* Qv,
+                                       const float* DO, const float* K,
+                                       const float* V, const float* Plo,
+                                       const float* Phi, float* AC, float* W,
+                                       float* DP, const Dims& D) {
+  const int warp = threadIdx.x >> 5, c = warp & 1;
+  const float* a = warp < 4 ? Qv : warp < 6 ? Qu : DO;
+  const float* b = (warp < 2 ? Plo : warp < 4 ? Phi : warp < 6 ? K : V) +
+                   c * TN * D.LD;
+  float* out = warp < 4 ? W + warp * TN : (warp < 6 ? AC : DP) + c * TN;
+  const int ld = warp < 4 ? LW : LS;
+  FragC x0, x1;
+  wmma::fill_fragment(x0, 0.f);
+  wmma::fill_fragment(x1, 0.f);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int ii = warp * ROWS + r;
-      const float4 a = *reinterpret_cast<const float4*>(sQu + ii * D.D4 + e);
-      const float4 b = *reinterpret_cast<const float4*>(sQv + ii * D.D4 + e);
-      const float4 g = *reinterpret_cast<const float4*>(sDO + ii * D.D4 + e);
-      const float* prow = sPw + ((BQ - 1) - ii + lane) * D.RS + e;
-      float x = s[r];
-      x = fmaf(a.x, k0v, x);
-      x = fmaf(a.y, k1v, x);
-      x = fmaf(a.z, k2v, x);
-      x = fmaf(a.w, k3v, x);
-      x = fmaf(b.x, prow[0], x);
-      x = fmaf(b.y, prow[1], x);
-      x = fmaf(b.z, prow[2], x);
-      x = fmaf(b.w, prow[3], x);
-      s[r] = x;
-      float y = dp[r];
-      y = fmaf(g.x, v0, y);
-      y = fmaf(g.y, v1, y);
-      y = fmaf(g.z, v2, y);
-      y = fmaf(g.w, v3, y);
-      dp[r] = y;
+  for (int ks = 0; ks < DK_MAX / TK; ++ks) {
+    if (ks < D.NDS) {
+      Split<FragB<ColMajor>, NS> bf;
+      Split<FragA<RowMajor>, NS> a0, a1;
+      load_split(bf, b + ks * TK, D.LD);
+      load_split(a0, a + ks * TK, D.LD);
+      load_split(a1, a + TM * D.LD + ks * TK, D.LD);
+      mma_split(x0, a0, bf);
+      mma_split(x1, a1, bf);
+    }
+  }
+  wmma::store_matrix_sync(out, x0, ld, wmma::mem_row_major);
+  wmma::store_matrix_sync(out + TM * ld, x1, ld, wmma::mem_row_major);
+}
+
+// Each element (i, j) of the tile pair (a warp per row, a lane per key):
+// s = AC[i][j] + W[i][31-i+j] (the rel-shift), P = exp(s·scale - lse[i])
+// for key k0 + j below kv_len and query row i below nrows, dz = P (dPa[i]
+// [j] - delta[i]) scale into AC.  The key pass keeps P in DP; the query
+// pass writes dz back to dW[i][31-i+j] in W's place and zeroes the rest of
+// dW's row (each element is read and written by one thread only).
+template <bool QUERY>
+__device__ __forceinline__ void softmax_step(float* AC, float* W, float* DP,
+                                             const float* L, const float* Dl,
+                                             int k0, int kvl, int nrows,
+                                             float scale) {
+  for (int idx = threadIdx.x; idx < BQ * BK; idx += THREADS) {
+    const int i = idx / BK, j = idx % BK;
+    const int o = i * LS + j, w = i * LW + (BQ - 1) - i + j;
+    const float s = AC[o] + W[w];
+    const float p =
+        k0 + j < kvl && i < nrows ? expf(s * scale - L[i]) : 0.f;
+    const float z = p * (DP[o] - Dl[i]) * scale;
+    AC[o] = z;
+    if constexpr (QUERY) {
+      W[w] = z;
+      W[i * LW + (j < BQ - 1 - i ? j : j + BK)] = 0.f;
+    } else {
+      DP[o] = p;
     }
   }
 }
 
-// Pass 1: one block per (key tile, bh); dk and dv of its 32 keys.
+// The warp's 16 x 16 fragment f to rows out[0 .. 15] (row stride dk),
+// columns col0 .. col0+15 below dk, through its staging tile.
+__device__ __forceinline__ void flush_rows(const FragC& f, float* stage,
+                                           float* out, int col0, int dk) {
+  const int lane = threadIdx.x & 31;
+  wmma::store_matrix_sync(stage, f, TN, wmma::mem_row_major);
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < TM * TN; e += 32) {
+    const int c = col0 + (e & (TN - 1));
+    if (c < dk) out[(size_t)(e / TN) * dk + c] = stage[e];
+  }
+  __syncwarp();
+}
+
+// Key pass: one block per (key tile, bh); dk and dv of its 32 keys.  The
+// window of query tile t is rows G(t+1) (lower half) and G(t) (upper) with
+// G(h) = p rows from T + k0 - 32h; G(h) lives in ring slot 2 - h % 3, so
+// G(1), G(0) sit in slots 1, 2 in row order for the first 64-row copy.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     rel_bwd_dkdv_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                         const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ p,
@@ -194,270 +304,333 @@ __global__ void __launch_bounds__(THREADS)
                         const T* __restrict__ dout,
                         const float* __restrict__ delta, T* __restrict__ dk_,
                         T* __restrict__ dv_, Dims D) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQu = smem;               // [BQ][D4]
-  float* sQv = sQu + BQ * D.D4;    // [BQ][D4]
-  float* sDO = sQv + BQ * D.D4;    // [BQ][D4]
-  float* sK = sDO + BQ * D.D4;     // [BK][RS]
-  float* sV = sK + BK * D.RS;      // [BK][RS]
-  float* sPw = sV + BK * D.RS;     // [WIN][RS]
-  float* sP = sPw + WIN * D.RS;    // [BQ][PS]
-  float* sDZ = sP + BQ * PS;       // [BQ][PS]
-  float* sL = sDZ + BQ * PS;
-  float* sD = sL + BQ;
-
+  constexpr int NS = SplitsFor<T>::value;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(128) float smem[];
+  const Smem sm = carve(smem, D, false, f32);
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BK;
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t base = (size_t)bh * D.T;
+  const int kvl = max(0, min(kv_len[bh], D.T));
+  const int tile = BQ * D.LD;
+  // warp w < 2 * ndt owns column tile dt of dv (w < ndt) or of dk, both
+  // row tiles: one B fragment feeds two products
+  const int ndt = D.DKP / TN;
+  const bool owner = warp < 2 * ndt;
+  const bool is_dk = warp >= ndt;
+  const int dt = warp % ndt;
+  const Src<T> su{qu + base * D.dk, qu, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> sv{qv + base * D.dk, qv, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> sg{dout + base * D.dk, dout, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> sk{k + base * D.dk, k, D.dk, 0, kvl, D.DKP, D.LD};
+  const Src<T> sn{v + base * D.dk, v, D.dk, 0, kvl, D.DKP, D.LD};
   const T* ph = p + (size_t)(bh % D.H) * D.P * D.dk;
-  const int kvl = min(kv_len[bh], D.T);
+  const Src<T> sp{ph, ph, D.dk, 0, D.P, D.DKP, D.LD};
+  auto slot = [&](int h) { return sm.ring + (2 - h % 3) * tile; };
+  auto grow = [&](int h) { return D.T + k0 - HALF * h; };
 
-  float adv[DC], adk[DC];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) adv[c] = adk[c] = 0.f;
-
+  FragC acc0, acc1;  // rows 0-15 and 16-31 of the warp's dv or dk tile
+  wmma::fill_fragment(acc0, 0.f);
+  wmma::fill_fragment(acc1, 0.f);
   if (k0 < kvl) {
-    load_rows(k + base * D.dk, k0, BK, D.T, D, sK);
-    load_rows(v + base * D.dk, k0, BK, D.T, D, sV);
-    const bool key_valid = k0 + lane < kvl;
-    for (int q0 = 0; q0 < D.T; q0 += BQ) {
-      __syncthreads();
-      load_query_tile(qu, qv, dout, lse, delta, base, q0, D, sQu, sQv, sDO,
-                      sL, sD);
-      load_rows(ph, (D.T - 1) - q0 - (BQ - 1) + k0, WIN, D.P, D, sPw);
-      __syncthreads();
-      float s[ROWS], dp[ROWS];
-      scores(sQu, sQv, sDO, sK + lane * D.RS, sV + lane * D.RS, sPw, D, s,
-             dp);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int ii = warp * ROWS + r;
-        const float pr = key_valid ? expf(s[r] * D.scale - sL[ii]) : 0.f;
-        sP[ii * PS + lane] = pr;
-        sDZ[ii * PS + lane] = pr * (dp[r] - sD[ii]) * D.scale;
+    load_resident<BK>(sk, k0, sm.K[0], D);
+    load_resident<BK>(sn, k0, sm.V[0], D);
+    issue<BQ>(su, 0, sm.Qu[0], sm.RS, D);
+    issue<BQ>(sv, 0, sm.Qv[0], sm.RS + BQ * D.DKP, D);
+    issue<BQ>(sg, 0, sm.DO[0], sm.RS + 2 * BQ * D.DKP, D);
+    issue<2 * HALF>(sp, grow(1), slot(1), sm.RP, D);
+    fetch_row_stats(lse, delta, base, 0, D.T, sm.L[0], sm.Dl[0]);
+    cp_async_commit();
+    for (int t = 0; t < D.NQT; ++t) {
+      const int q0 = t * BQ;
+      // this step's buffers and the next one's (selects, not indexing,
+      // keep the pointer pairs in registers)
+      const bool odd = f32 && (t & 1);
+      float* Quc = odd ? sm.Qu[1] : sm.Qu[0];
+      float* Qvc = odd ? sm.Qv[1] : sm.Qv[0];
+      float* DOc = odd ? sm.DO[1] : sm.DO[0];
+      float* Lc = (t & 1) ? sm.L[1] : sm.L[0];
+      float* Dlc = (t & 1) ? sm.Dl[1] : sm.Dl[0];
+      cp_async_wait(0);
+      __syncthreads();  // tile t has landed; step t-1's readers are done
+      if constexpr (!f32) {
+        land<BQ>(su, q0, sm.Qu[0], sm.RS, D);
+        land<BQ>(sv, q0, sm.Qv[0], sm.RS + BQ * D.DKP, D);
+        land<BQ>(sg, q0, sm.DO[0], sm.RS + 2 * BQ * D.DKP, D);
+        if (t == 0)
+          land<2 * HALF>(sp, grow(1), slot(1), sm.RP, D);
+        else
+          land<HALF>(sp, grow(t + 1), slot(t + 1), sm.RP, D);
+        __syncthreads();
       }
+      // the next step's copies run while this one is computed (issue does
+      // nothing where bf16 goes through registers: land loads it then)
+      if (t + 1 < D.NQT) {
+        issue<BQ>(su, q0 + BQ, odd ? sm.Qu[0] : sm.Qu[1], sm.RS, D);
+        issue<BQ>(sv, q0 + BQ, odd ? sm.Qv[0] : sm.Qv[1],
+                  sm.RS + BQ * D.DKP, D);
+        issue<BQ>(sg, q0 + BQ, odd ? sm.DO[0] : sm.DO[1],
+                  sm.RS + 2 * BQ * D.DKP, D);
+        issue<HALF>(sp, grow(t + 2), slot(t + 2), sm.RP, D);
+        fetch_row_stats(lse, delta, base, q0 + BQ, D.T,
+                        (t & 1) ? sm.L[0] : sm.L[1],
+                        (t & 1) ? sm.Dl[0] : sm.Dl[1]);
+        cp_async_commit();
+      }
+      scores<NS>(Quc, Qvc, DOc, sm.K[0], sm.V[0], slot(t + 1), slot(t),
+                 sm.AC, sm.W, sm.DP, D);
       __syncthreads();
-      for (int ii = 0; ii < BQ; ++ii) {
-        const float pr = sP[ii * PS + lane];
-        const float z = sDZ[ii * PS + lane];
+      softmax_step<false>(sm.AC, sm.W, sm.DP, Lc, Dlc, k0, kvl, D.T - q0,
+                          D.scale);
+      __syncthreads();
+      if (owner) {
+        // dv += P^T·dout or dk += dz^T·q_u over the tile's 32 query rows
+        const float* at = is_dk ? sm.AC : sm.DP;
+        const float* bt = (is_dk ? Quc : DOc) + dt * TN;
+        FragC t0, t1;
+        wmma::fill_fragment(t0, 0.f);
+        wmma::fill_fragment(t1, 0.f);
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = warp + DG * c;
-          if (d < D.dk) {
-            adv[c] = fmaf(pr, sDO[ii * D.D4 + d], adv[c]);
-            adk[c] = fmaf(z, sQu[ii * D.D4 + d], adk[c]);
-          }
+        for (int ks = 0; ks < BQ / TK; ++ks) {
+          Split<FragB<RowMajor>, NS> bf;
+          Split<FragA<ColMajor>, NS> a0, a1;
+          load_split(bf, bt + ks * TK * D.LD, D.LD);
+          load_split(a0, at + ks * TK * LS, LS);
+          load_split(a1, at + ks * TK * LS + TM, LS);
+          mma_split(t0, a0, bf);
+          mma_split(t1, a1, bf);
         }
+        add_to(acc0, t0);
+        add_to(acc1, t1);
       }
     }
   }
-  const int key = k0 + lane;
-  if (key < D.T) {
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = warp + DG * c;
-      if (d < D.dk) {
-        dv_[(base + key) * D.dk + d] = from_f32<T>(adv[c]);
-        dk_[(base + key) * D.dk + d] = from_f32<T>(adk[c]);
-      }
-    }
+  cp_async_wait(0);
+  __syncthreads();
+  float* sdv = sm.Qu[0];
+  float* sdk = sm.Qv[0];
+  if (owner) {
+    float* o = (is_dk ? sdk : sdv) + dt * TN;
+    wmma::store_matrix_sync(o, acc0, D.LD, wmma::mem_row_major);
+    wmma::store_matrix_sync(o + TM * D.LD, acc1, D.LD, wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BK * D.dk; idx += THREADS) {
+    const int r = idx / D.dk, d = idx - r * D.dk, key = k0 + r;
+    if (key >= D.T) continue;
+    dv_[(base + key) * D.dk + d] = from_f32<T>(sdv[r * D.LD + d]);
+    dk_[(base + key) * D.dk + d] = from_f32<T>(sdk[r * D.LD + d]);
   }
 }
 
-// Pass 2: one block per (query tile, bh); dq_u and dq_v of its 32 rows.
+// Query pass: one block per (query tile, bh); dq_u and dq_v of its 32
+// rows, and its windows' dp rows into part[bh][q-tile] (row m of it is p
+// row T - 32 - q0 + m).  The window of key tile t is rows G(t) (lower
+// half) and G(t+1) (upper) with G(h) = p rows from T - 32 - q0 + 32h, in
+// ring slot h % 3.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     rel_bwd_dq_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                       const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ p, const int* __restrict__ kv_len,
                       const float* __restrict__ lse,
                       const T* __restrict__ dout,
                       const float* __restrict__ delta, T* __restrict__ dqu_,
-                      T* __restrict__ dqv_, Dims D) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQu = smem;
-  float* sQv = sQu + BQ * D.D4;
-  float* sDO = sQv + BQ * D.D4;
-  float* sK = sDO + BQ * D.D4;
-  float* sV = sK + BK * D.RS;
-  float* sPw = sV + BK * D.RS;
-  float* sDZ = sPw + WIN * D.RS;
-  float* sL = sDZ + BQ * PS;
-  float* sD = sL + BQ;
-
+                      T* __restrict__ dqv_, float* __restrict__ part,
+                      Dims D) {
+  constexpr int NS = SplitsFor<T>::value;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(128) float smem[];
+  const Smem sm = carve(smem, D, true, f32);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t base = (size_t)bh * D.T;
+  const int kvl = max(0, min(kv_len[bh], D.T));
+  const int tile = BQ * D.LD;
+  // warp w < 2 * ndt owns the 16 x 16 tile (rt, ct) of dq_u and of dq_v,
+  // and rows rt and rt + 2 (16 each) of the rolling dp window in column
+  // tile ct
+  const int ndt = D.DKP / TN;
+  const bool owner = warp < (BQ / TM) * ndt;
+  const int rt = warp / ndt, ct = warp % ndt;
+  const Src<T> su{qu + base * D.dk, qu, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> sv{qv + base * D.dk, qv, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> sg{dout + base * D.dk, dout, D.dk, 0, D.T, D.DKP, D.LD};
+  const Src<T> sk{k + base * D.dk, k, D.dk, 0, kvl, D.DKP, D.LD};
+  const Src<T> sn{v + base * D.dk, v, D.dk, 0, kvl, D.DKP, D.LD};
   const T* ph = p + (size_t)(bh % D.H) * D.P * D.dk;
-  const int kvl = min(kv_len[bh], D.T);
+  const Src<T> sp{ph, ph, D.dk, 0, D.P, D.DKP, D.LD};
+  auto slot = [&](int h) { return sm.ring + (h % 3) * tile; };
+  auto grow = [&](int h) { return D.T - HALF - q0 + HALF * h; };
+  const int ntiles = (kvl + BK - 1) / BK;
+  float* out_dp = part + ((size_t)bh * D.NQT + blockIdx.x) * D.LP * D.dk +
+                  (size_t)rt * TM * D.dk;
+  float* stage = sm.stage + warp * TM * TN;
 
-  float aqu[DC], aqv[DC];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) aqu[c] = aqv[c] = 0.f;
+  load_resident<BQ>(su, q0, sm.Qu[0], D);
+  load_resident<BQ>(sv, q0, sm.Qv[0], D);
+  load_resident<BQ>(sg, q0, sm.DO[0], D);
+  fetch_row_stats(lse, delta, base, q0, D.T, sm.L[0], sm.Dl[0]);
+  if (ntiles > 0) {
+    issue<BK>(sk, 0, sm.K[0], sm.RS, D);
+    issue<BK>(sn, 0, sm.V[0], sm.RS + BK * D.DKP, D);
+    issue<2 * HALF>(sp, grow(0), slot(0), sm.RP, D);
+  }
+  cp_async_commit();
 
-  load_query_tile(qu, qv, dout, lse, delta, base, q0, D, sQu, sQv, sDO, sL,
-                  sD);
-  for (int k0 = 0; k0 < kvl; k0 += BK) {
-    __syncthreads();
-    load_rows(k + base * D.dk, k0, BK, D.T, D, sK);
-    load_rows(v + base * D.dk, k0, BK, D.T, D, sV);
-    load_rows(ph, (D.T - 1) - q0 - (BQ - 1) + k0, WIN, D.P, D, sPw);
-    __syncthreads();
-    float s[ROWS], dp[ROWS];
-    scores(sQu, sQv, sDO, sK + lane * D.RS, sV + lane * D.RS, sPw, D, s, dp);
-    const bool key_valid = k0 + lane < kvl;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int ii = warp * ROWS + r;
-      const float pr = key_valid ? expf(s[r] * D.scale - sL[ii]) : 0.f;
-      sDZ[ii * PS + lane] = pr * (dp[r] - sD[ii]) * D.scale;
+  // running sums: dq_u, dq_v, and the rolling dp rows (lo: window rows
+  // 16 rt.., final after this key tile; hi: rows 32 + 16 rt..)
+  FragC au, av, lo, hi;
+  wmma::fill_fragment(au, 0.f);
+  wmma::fill_fragment(av, 0.f);
+  wmma::fill_fragment(lo, 0.f);
+  wmma::fill_fragment(hi, 0.f);
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    const bool odd = f32 && (t & 1);
+    float* Kc = odd ? sm.K[1] : sm.K[0];
+    float* Vc = odd ? sm.V[1] : sm.V[0];
+    cp_async_wait(0);
+    __syncthreads();  // tile t has landed; step t-1's readers are done
+    if constexpr (!f32) {
+      land<BK>(sk, k0, sm.K[0], sm.RS, D);
+      land<BK>(sn, k0, sm.V[0], sm.RS + BK * D.DKP, D);
+      if (t == 0)
+        land<2 * HALF>(sp, grow(0), slot(0), sm.RP, D);
+      else
+        land<HALF>(sp, grow(t + 1), slot(t + 1), sm.RP, D);
+      __syncthreads();
     }
+    if (t + 1 < ntiles) {
+      issue<BK>(sk, k0 + BK, odd ? sm.K[0] : sm.K[1], sm.RS, D);
+      issue<BK>(sn, k0 + BK, odd ? sm.V[0] : sm.V[1], sm.RS + BK * D.DKP,
+                D);
+      issue<HALF>(sp, grow(t + 2), slot(t + 2), sm.RP, D);
+      cp_async_commit();
+    }
+    const float* Plo = slot(t);
+    const float* Phi = slot(t + 1);
+    scores<NS>(sm.Qu[0], sm.Qv[0], sm.DO[0], Kc, Vc, Plo, Phi, sm.AC, sm.W,
+               sm.DP, D);
     __syncthreads();
-    // thread (row i = lane, d-group warp): sum over the tile's keys
-    const int i = lane;
-    for (int j = 0; j < BK; ++j) {
-      const float z = sDZ[i * PS + j];
-      const float* krow = sK + j * D.RS;
-      const float* prow = sPw + ((BQ - 1) - i + j) * D.RS;
+    softmax_step<true>(sm.AC, sm.W, sm.DP, sm.L[0], sm.Dl[0], k0, kvl,
+                       D.T - q0, D.scale);
+    __syncthreads();
+    if (owner) {
+      // each product from zero, then added to its running sum (one
+      // temporary fragment live at a time)
+      FragC tmp;
+      // dq_u += dz·k over the tile's 32 keys
+      wmma::fill_fragment(tmp, 0.f);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = warp + DG * c;
-        if (d < D.dk) {
-          aqu[c] = fmaf(z, krow[d], aqu[c]);
-          aqv[c] = fmaf(z, prow[d], aqv[c]);
+      for (int ks = 0; ks < BK / TK; ++ks) {
+        Split<FragA<RowMajor>, NS> a;
+        Split<FragB<RowMajor>, NS> b;
+        load_split(a, sm.AC + rt * TM * LS + ks * TK, LS);
+        load_split(b, Kc + ks * TK * D.LD + ct * TN, D.LD);
+        mma_split(tmp, a, b);
+      }
+      add_to(au, tmp);
+      // dq_v += dW·Pwin over the 48 window rows where row tile rt of dW
+      // has non-zeros (rt 0: rows 16-63, rt 1: rows 0-47)
+      wmma::fill_fragment(tmp, 0.f);
+#pragma unroll
+      for (int s = 0; s < 6; ++s) {
+        const int ks = s + (rt == 0 ? 2 : 0);
+        Split<FragA<RowMajor>, NS> a;
+        Split<FragB<RowMajor>, NS> b;
+        load_split(a, sm.W + rt * TM * LW + ks * TK, LW);
+        load_split(b, (ks < 4 ? Plo : Phi) + (ks & 3) * TK * D.LD + ct * TN,
+                   D.LD);
+        mma_split(tmp, a, b);
+      }
+      add_to(av, tmp);
+      // dPwin rows of tile R = dW^T·q_v over the query rows where column
+      // tile R of dW has non-zeros (R 0: rows 16-31, R 3: rows 0-15, R 1
+      // and 2: all): lo += tile rt, hi += tile rt + 2
+      const int lo0 = rt == 0 ? 2 : 0, hi1 = rt == 0 ? 4 : 2;
+      FragC thi;
+      wmma::fill_fragment(tmp, 0.f);
+      wmma::fill_fragment(thi, 0.f);
+#pragma unroll
+      for (int ks = 0; ks < BQ / TK; ++ks) {
+        Split<FragB<RowMajor>, NS> b;
+        load_split(b, sm.Qv[0] + ks * TK * D.LD + ct * TN, D.LD);
+        if (ks >= lo0) {
+          Split<FragA<ColMajor>, NS> a;
+          load_split(a, sm.W + ks * TK * LW + rt * TM, LW);
+          mma_split(tmp, a, b);
+        }
+        if (ks < hi1) {
+          Split<FragA<ColMajor>, NS> a;
+          load_split(a, sm.W + ks * TK * LW + (rt + 2) * TM, LW);
+          mma_split(thi, a, b);
         }
       }
+      add_to(lo, tmp);
+      add_to(hi, thi);
+      // rows 32t + 16rt .. of the partial are final: out, then roll
+      flush_rows(lo, stage, out_dp + (size_t)k0 * D.dk, ct * TN, D.dk);
+      lo = hi;
+      wmma::fill_fragment(hi, 0.f);
     }
   }
-  const int row = q0 + lane;
-  if (row < D.T) {
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = warp + DG * c;
-      if (d < D.dk) {
-        dqu_[(base + row) * D.dk + d] = from_f32<T>(aqu[c]);
-        dqv_[(base + row) * D.dk + d] = from_f32<T>(aqv[c]);
-      }
-    }
+  if (owner)
+    flush_rows(lo, stage, out_dp + (size_t)ntiles * BK * D.dk, ct * TN,
+               D.dk);
+  cp_async_wait(0);
+  __syncthreads();
+  // written once: fragments -> the K / V tiles' place -> the outputs
+  float* squ = sm.K[0];
+  float* sqv = sm.V[0];
+  if (owner) {
+    wmma::store_matrix_sync(squ + rt * TM * D.LD + ct * TN, au, D.LD,
+                            wmma::mem_row_major);
+    wmma::store_matrix_sync(sqv + rt * TM * D.LD + ct * TN, av, D.LD,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BQ * D.dk; idx += THREADS) {
+    const int r = idx / D.dk, d = idx - r * D.dk, row = q0 + r;
+    if (row >= D.T) continue;
+    dqu_[(base + row) * D.dk + d] = from_f32<T>(squ[r * D.LD + d]);
+    dqv_[(base + row) * D.dk + d] = from_f32<T>(sqv[r * D.LD + d]);
   }
 }
 
-// Pass 3: one block per (32 relative positions, head, batch slice); the
-// lane's diagonal r = rb0 + lane, summed over the slice's batch rows
-// b = slice, slice + S, ... into part[slice][h][r][d] (f32).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    rel_bwd_dp_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
-                      const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ p, const int* __restrict__ kv_len,
-                      const float* __restrict__ lse,
-                      const T* __restrict__ dout,
-                      const float* __restrict__ delta,
-                      float* __restrict__ part, int B, Dims D) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQu = smem;
-  float* sQv = sQu + BQ * D.D4;
-  float* sDO = sQv + BQ * D.D4;
-  float* sPr = sDO + BQ * D.D4;    // [32][RS]  p rows rb0 .. rb0+31
-  float* sKw = sPr + BK * D.RS;    // [WIN][RS] key window
-  float* sVw = sKw + WIN * D.RS;   // [WIN][RS] value window
-  float* sDZ = sVw + WIN * D.RS;   // [BQ][PS]
-  float* sL = sDZ + BQ * PS;
-  float* sD = sL + BQ;
-
-  const int rb0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int slice = blockIdx.z;
-  const int S = gridDim.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool r_valid = rb0 + lane < D.P;
-
-  load_rows(p + (size_t)h * D.P * D.dk, rb0, BK, D.P, D, sPr);
-  float adp[DC];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) adp[c] = 0.f;
-
-  for (int b = slice; b < B; b += S) {
-    const int bh = b * D.H + h;
-    const size_t base = (size_t)bh * D.T;
-    const int kvl = min(kv_len[bh], D.T);
-    for (int q0 = 0; q0 < D.T; q0 += BQ) {
-      // keys j = j0 + ii + rr of this (query tile, diagonal tile)
-      const int j0 = q0 + rb0 - (D.T - 1);
-      if (j0 + WIN - 1 < 0 || j0 >= kvl) continue;   // uniform per block
-      __syncthreads();
-      load_query_tile(qu, qv, dout, lse, delta, base, q0, D, sQu, sQv, sDO,
-                      sL, sD);
-      load_rows(k + base * D.dk, j0, WIN, kvl, D, sKw);
-      load_rows(v + base * D.dk, j0, WIN, kvl, D, sVw);
-      __syncthreads();
-      const float* prow = sPr + lane * D.RS;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int ii = warp * ROWS + r;
-        const float* krow = sKw + (ii + lane) * D.RS;
-        const float* vrow = sVw + (ii + lane) * D.RS;
-        float x = 0.f, y = 0.f;
-        for (int e = 0; e < D.D4; e += 4) {
-          const float4 a =
-              *reinterpret_cast<const float4*>(sQu + ii * D.D4 + e);
-          const float4 bq =
-              *reinterpret_cast<const float4*>(sQv + ii * D.D4 + e);
-          const float4 g =
-              *reinterpret_cast<const float4*>(sDO + ii * D.D4 + e);
-          x = fmaf(a.x, krow[e], x);
-          x = fmaf(a.y, krow[e + 1], x);
-          x = fmaf(a.z, krow[e + 2], x);
-          x = fmaf(a.w, krow[e + 3], x);
-          x = fmaf(bq.x, prow[e], x);
-          x = fmaf(bq.y, prow[e + 1], x);
-          x = fmaf(bq.z, prow[e + 2], x);
-          x = fmaf(bq.w, prow[e + 3], x);
-          y = fmaf(g.x, vrow[e], y);
-          y = fmaf(g.y, vrow[e + 1], y);
-          y = fmaf(g.z, vrow[e + 2], y);
-          y = fmaf(g.w, vrow[e + 3], y);
-        }
-        const int j = j0 + ii + lane;
-        const bool valid = r_valid && j >= 0 && j < kvl;
-        const float pr = valid ? expf(x * D.scale - sL[ii]) : 0.f;
-        sDZ[ii * PS + lane] = pr * (y - sD[ii]) * D.scale;
-      }
-      __syncthreads();
-      for (int ii = 0; ii < BQ; ++ii) {
-        const float z = sDZ[ii * PS + lane];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = warp + DG * c;
-          if (d < D.dk) adp[c] = fmaf(z, sQv[ii * D.D4 + d], adp[c]);
-        }
-      }
-    }
-  }
-  if (r_valid) {
-    float* out = part + (((size_t)slice * D.H + h) * D.P + rb0 + lane) * D.dk;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = warp + DG * c;
-      if (d < D.dk) out[d] = adp[c];
-    }
-  }
-}
-
-// dp[i] = sum over slices s of part[s][i], in slice order.
+// dp[h][r][d] = sum over b, then query tile qt, of part[b*H + h][qt][m][d]
+// with m = r - (T - 32 - 32 qt), over the rows that the query pass wrote
+// (m < 32 (ceil(kv_len / 32) + 1)); a fixed order, so bitwise repeatable.
 template <typename T>
 __global__ void rel_bwd_dp_reduce_kernel(const float* __restrict__ part,
-                                         T* __restrict__ dp, int n, int S) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                                         const int* __restrict__ kv_len,
+                                         T* __restrict__ dp, int B, Dims D) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= D.H * D.P * D.dk) return;
+  const int h = idx / (D.P * D.dk);
+  const int rd = idx - h * D.P * D.dk;
+  const int r = rd / D.dk, d = rd - r * D.dk;
+  const int c = D.T - HALF - r;  // m = 32 qt - c
+  const int qlo = c <= 0 ? 0 : (c + HALF - 1) / HALF;
   float a = 0.f;
-  for (int s = 0; s < S; ++s) a += part[(size_t)s * n + i];
-  dp[i] = from_f32<T>(a);
+  for (int b = 0; b < B; ++b) {
+    const int bh = b * D.H + h;
+    const int kvl = max(0, min(kv_len[bh], D.T));
+    const int mlim = HALF * ((kvl + BK - 1) / BK + 1);
+    const int x = mlim + c;
+    const int qhi = x <= 0 ? 0 : min(D.NQT, (x + HALF - 1) / HALF);
+    const float* pb = part + (size_t)bh * D.NQT * D.LP * D.dk + d;
+#pragma unroll 4
+    for (int qt = qlo; qt < qhi; ++qt)
+      a += pb[((size_t)qt * D.LP + HALF * qt - c) * D.dk];
+  }
+  dp[idx] = from_f32<T>(a);
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
 }
 
 template <typename T>
@@ -465,15 +638,33 @@ int launch(const void* qu, const void* qv, const void* k, const void* v,
            const void* p, const int* kv_len, const void* out,
            const float* lse, const void* dout, float* delta, float* part,
            void* dqu, void* dqv, void* dk_, void* dv_, void* dp, int BH,
-           int T_, int dk, int H, int S, cudaStream_t stream) {
+           int T_, int dk, int H, cudaStream_t stream) {
   Dims D;
   D.T = T_;
   D.dk = dk;
   D.H = H;
   D.P = 2 * T_ - 1;
-  D.D4 = (dk + 3) / 4 * 4;
-  D.RS = D.D4 + 1;
+  D.DKP = (dk + 15) / 16 * 16;
+  D.LD = D.DKP + 4;
+  D.NDS = (dk + 7) / 8;
+  D.NQT = (T_ + BQ - 1) / BQ;
+  D.LP = HALF * (D.NQT + 1);
   D.scale = 1.0f / sqrtf((float)dk);
+  // cp.async copies: 16 bytes where the width and every base allow, else
+  // 4 bytes (f32 always, bf16 pairs); bf16 of odd width goes through
+  // registers
+  const void* src[] = {qu, qv, k, v, p, dout};
+  auto all = [&](uintptr_t n) {
+    for (const void* s : src)
+      if (!aligned(s, n)) return false;
+    return true;
+  };
+  const int vec = 16 / (int)sizeof(T), pair = 4 / (int)sizeof(T);
+  D.chunk = dk % vec == 0 && all(16)    ? vec
+            : dk % pair == 0 && all(4) ? pair
+                                       : 0;
+  const bool f32 = std::is_same<T, float>::value;
+  D.raw = !f32 && D.chunk > 0;
   const T* a = static_cast<const T*>(qu);
   const T* b = static_cast<const T*>(qv);
   const T* kk = static_cast<const T*>(k);
@@ -487,60 +678,45 @@ int launch(const void* qu, const void* qv, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t q3 = 3 * (size_t)BQ * D.D4, tail = (size_t)BQ * PS + 2 * BQ;
-  const size_t smem1 = sizeof(float) * (q3 + (2 * BK + WIN) * (size_t)D.RS +
-                                        (size_t)BQ * PS + tail);
-  const size_t smem2 = sizeof(float) * (q3 + (2 * BK + WIN) * (size_t)D.RS +
-                                        tail);
-  const size_t smem3 = sizeof(float) * (q3 + (BK + 2 * WIN) * (size_t)D.RS +
-                                        tail);
+  const size_t smem_k = smem_bytes(D, false, f32);
+  const size_t smem_q = smem_bytes(D, true, f32);
   err = cudaFuncSetAttribute(rel_bwd_dkdv_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem1);
+                             (int)smem_k);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(rel_bwd_dq_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
+                             (int)smem_q);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rel_bwd_dp_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem3);
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 grid((T_ + BQ - 1) / BQ, BH);
-  rel_bwd_dkdv_kernel<T><<<grid, THREADS, smem1, stream>>>(
+  const dim3 grid(D.NQT, BH);
+  rel_bwd_dkdv_kernel<T><<<grid, THREADS, smem_k, stream>>>(
       a, b, kk, vv, pp, kv_len, lse, g, delta, static_cast<T*>(dk_),
       static_cast<T*>(dv_), D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  rel_bwd_dq_kernel<T><<<grid, THREADS, smem2, stream>>>(
+  rel_bwd_dq_kernel<T><<<grid, THREADS, smem_q, stream>>>(
       a, b, kk, vv, pp, kv_len, lse, g, delta, static_cast<T*>(dqu),
-      static_cast<T*>(dqv), D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid3((D.P + BK - 1) / BK, H, S);
-  rel_bwd_dp_kernel<T><<<grid3, THREADS, smem3, stream>>>(
-      a, b, kk, vv, pp, kv_len, lse, g, delta, part, BH / H, D);
+      static_cast<T*>(dqv), part, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = H * D.P * dk;
   rel_bwd_dp_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
-      part, static_cast<T*>(dp), n, S);
+      part, kv_len, static_cast<T*>(dp), BH / H, D);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t code: 0 when every launch was accepted.  Scratch:
-// `delta` f32 (BH*T), `part` f32 (S, H, 2T-1, dk) with 1 <= S <= BH/H.
+// `delta` f32 (BH*T), `part` f32 (BH, ceil(T/32), 32 (ceil(T/32) + 1), dk).
 extern "C" int lasr_rel_attention_bwd(
     const void* qu, const void* qv, const void* k, const void* v,
     const void* p, const void* kv_len, const void* out, const void* lse,
     const void* dout, void* delta, void* part, void* dqu, void* dqv,
-    void* dk, void* dv, void* dp, int BH, int T_, int dk_dim, int H, int S,
+    void* dk, void* dv, void* dp, int BH, int T_, int dk_dim, int H,
     int is_bf16, void* stream) {
   if (dk_dim < 1 || dk_dim > DK_MAX || H < 1 || BH % H != 0 || T_ < 1 ||
-      BH < 1 || S < 1 || S > BH / H)
+      BH < 1)
     return (int)cudaErrorInvalidValue;
   const int* kl = static_cast<const int*>(kv_len);
   const float* ls = static_cast<const float*>(lse);
@@ -549,8 +725,7 @@ extern "C" int lasr_rel_attention_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(qu, qv, k, v, p, kl, out, ls, dout, dl, pt,
-                                 dqu, dqv, dk, dv, dp, BH, T_, dk_dim, H, S,
-                                 st);
+                                 dqu, dqv, dk, dv, dp, BH, T_, dk_dim, H, st);
   return launch<float>(qu, qv, k, v, p, kl, out, ls, dout, dl, pt, dqu, dqv,
-                       dk, dv, dp, BH, T_, dk_dim, H, S, st);
+                       dk, dv, dp, BH, T_, dk_dim, H, st);
 }

@@ -2,8 +2,8 @@
 // kernels on sm_90a: f32 tiles, bf16 widened to f32 on the way in.
 //
 // A tile is R rows of [a | b] (two row-major sources side by side), zero
-// past a row limit and in its padding columns, stored in shared memory
-// with a row stride ld.  Three routes:
+// before row 0, past a row limit and in its padding columns, stored in
+// shared memory with a row stride ld.  Three routes:
 //  - cp.async straight into the f32 tile (f32 inputs), 16-byte copies
 //    where every width and base allows, else 4-byte;
 //  - cp.async of raw bf16 into a staging tile, widened to f32 in shared
@@ -75,7 +75,9 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 }
 
 // The source of one shared tile: rows r0 .. r0+R-1 of [a | b], a wa wide
-// and b wb wide (row strides wa, wb), zero at or past row rmax and in
+// and b wb wide (row strides wa, wb), zero before row 0 (r0 may be
+// negative: one unsigned compare with rmax >= 0 tests both ends), at or
+// past row rmax and in
 // columns wa+wb .. width-1; the f32 tile's row stride is ld.
 template <typename T>
 struct Src {
@@ -103,7 +105,7 @@ __device__ __forceinline__ void load_rows(const Src<T>& src, int r0,
 #pragma unroll
       for (int c = 0; c < CB; ++c) {
         const int e = e0 + lane + 32 * c;
-        const bool ok = row < src.rmax && e < w;
+        const bool ok = (unsigned)row < (unsigned)src.rmax && e < w;
         const T* p = e < src.wa ? src.a + (size_t)row * src.wa + e
                                 : src.b + (size_t)row * src.wb + (e - src.wa);
         const float val = load_f32(ok ? p : src.a);
@@ -135,7 +137,7 @@ __device__ __forceinline__ void copy_rows(const Src<T>& src, int r0, T* s,
   for (int i = 0; i < RW; ++i) {
     const int r = warp + NWARPS * i, row = r0 + r;
     for (int e = lane * chunk; e < src.width; e += 32 * chunk) {
-      const bool ok = row < src.rmax && e < w;
+      const bool ok = (unsigned)row < (unsigned)src.rmax && e < w;
       const T* p = e < src.wa ? src.a + (size_t)row * src.wa + e
                               : src.b + (size_t)row * src.wb + (e - src.wa);
       if (wide)

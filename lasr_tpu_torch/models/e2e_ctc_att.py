@@ -106,11 +106,12 @@ class E2E_Conformer_CTC(E2EBase):
     ``encoder_use_pallas_attention`` its rel-pos attention through the rel
     kernels; ``encoder_pos_dropout_mode`` places positional dropout as in
     the JAX encoder.  Knobs that only shape TPU training
-    (``encoder_remat*``, ``encoder_scan_layers``, ``encoder_ff_int8``, the
-    pipeline microbatch count and the sharding objects) are accepted and
-    ignored; ``encoder_pipeline_stages > 1`` changes the parameter layout
-    and raises.  ``device=None`` means CUDA (raises without a GPU); compute
-    is float32."""
+    (``encoder_remat*``, ``encoder_scan_layers``, the pipeline microbatch
+    count and the sharding objects) are accepted and ignored;
+    ``encoder_pipeline_stages > 1`` changes the parameter layout and
+    ``encoder_ff_int8`` the feed-forward's numbers (int8 GEMMs, at eval
+    too), and both raise.  ``device=None`` means CUDA (raises without a
+    GPU); compute is float32."""
 
     def __init__(self, idim: int = 13, odim: int = 26,
                  encoder_attention_dim: int = 256,
@@ -148,6 +149,10 @@ class E2E_Conformer_CTC(E2EBase):
             raise NotImplementedError(
                 "encoder_pipeline_stages > 1 stacks the blocks into another "
                 "parameter layout; not ported")
+        if encoder_ff_int8:
+            raise NotImplementedError(
+                "encoder_ff_int8 makes every feed-forward GEMM an int8 "
+                "matmul (ops/quant.py); not ported")
         if dtype not in _DTYPES:
             raise NotImplementedError(f"compute dtype {dtype!r}: the port "
                                       f"computes in float32 for now")

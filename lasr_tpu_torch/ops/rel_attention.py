@@ -6,8 +6,13 @@ Counterpart of ``lasr_tpu/ops/rel_attention.py``: computes
 flash-style (``csrc/rel_attention.cu``), never materializing the score
 matrix; the rel-shift is an index remap over a window of ``p`` staged in
 shared memory.  The backward (``csrc/rel_attention_bwd.cu``) recomputes the
-probabilities from the forward's ``lse`` and sums the positional-table
-gradient ``dp`` along the diagonals over the batch.
+probabilities from the forward's ``lse`` on the tensor cores (WMMA TF32
+tiles, 3xTF32 for f32 inputs): the scores are the plain products
+``q_u·k^T`` and ``q_v·Pwin^T`` over a 64-row window of ``p``, joined by an
+index remap, and ``dz`` goes back through the same remap into ``dW``, so
+``dq_v = dW·Pwin`` and ``dPwin = dW^T·q_v`` are plain products too.  A key
+pass owns dk/dv, a query pass dq_u/dq_v and a dp partial per (bh, query
+tile), and a last kernel adds the partials in a fixed order (no atomics).
 ``rel_attention_context`` pairs the two in a ``torch.autograd.Function``,
 as the JAX package's ``custom_vjp`` does.
 """
@@ -111,9 +116,9 @@ def rel_attention_forward(q_u, q_v, k, v, p, kv_len):
 
 rel_attention_forward.launches = 0
 
-# batch slices of the dp pass: each sums its share of the batch, and the
-# slices' partial sums are added in a fixed order (deterministic)
-DP_SLICES = 8
+# rows of the backward's tiles: its query pass writes a dp partial of
+# TILE * (ceil(T / TILE) + 1) rows per (bh, query tile)
+TILE = 32
 
 
 def rel_attention_backward(q_u, q_v, k, v, p, kv_len, out, lse, dout):
@@ -139,16 +144,16 @@ def rel_attention_backward(q_u, q_v, k, v, p, kv_len, out, lse, dout):
         return rel_attention_backward_reference(q_u, q_v, k, v, p, kv_len,
                                                 out, lse, dout)
     grads = [torch.empty_like(x) for x in (q_u, q_v, k, v, p)]
-    slices = min(DP_SLICES, BH // H)
+    nqt = -(-T // TILE)
     delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
-    part = torch.empty((slices, H, 2 * T - 1, dk), dtype=torch.float32,
+    part = torch.empty((BH, nqt, TILE * (nqt + 1), dk), dtype=torch.float32,
                        device=q_u.device)
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
     _launch("rel_attention_bwd",
-            _bind("rel_attention_bwd", "lasr_rel_attention_bwd", 16, 6),
+            _bind("rel_attention_bwd", "lasr_rel_attention_bwd", 16, 5),
             _ptr(q_u), _ptr(q_v), _ptr(k), _ptr(v), _ptr(p), _ptr(kv_len),
             _ptr(out), _ptr(lse), _ptr(dout), _ptr(delta), _ptr(part),
-            *[_ptr(g) for g in grads], BH, T, dk, H, slices,
+            *[_ptr(g) for g in grads], BH, T, dk, H,
             int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     rel_attention_backward.launches += 1
     return tuple(grads)

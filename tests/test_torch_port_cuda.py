@@ -189,6 +189,56 @@ def test_rot_backward_kernel_is_bitwise_repeatable(dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,dk,lens", [
+    (33, 37, [33, 0, 20]),          # odd dk: 4-byte copies / registers
+    (248, 37, [248, 0, 131, 1]),    # the served T, not a multiple of 32
+    (248, 38, [200, 0, 33]),        # bf16 pairs by 4-byte copies
+])
+def test_rel_backward_kernel_copy_routes(dtype, T, dk, lens):
+    """K4's other routes into shared memory and its edges (T not a
+    multiple of 32, window rows outside the table, an empty row), against
+    the plain backward (the forward's out and lse from the plain
+    forward)."""
+    dev = _card()
+    H = 2
+    args = _inputs("rel", len(lens) * H, H, T, dk, 0, lens, dtype, dev)
+    out, lse = rel_attention_reference(*args)
+    out = out.to(dtype)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        out.shape).astype(np.float32)).to(dev, dtype)
+    grads = rel_attention_backward(*args, out, lse, dout)
+    torch.cuda.synchronize()
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    want = rel_attention_backward_reference(*f32, out.float(), lse,
+                                            dout.float())
+    empty = torch.from_numpy(np.repeat(np.asarray(lens) == 0, H)).to(dev)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert g.dtype == dtype and bool(torch.isfinite(g.float()).all())
+        err = float((g.float() - w).abs().max()) / float(w.abs().max())
+        assert err <= TOL[dtype], (i, err)
+        if i < 4:
+            assert not bool(g[empty].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_backward_kernel_is_bitwise_repeatable(dtype):
+    """Two K4 calls on the same inputs give the same bits: each pass owns
+    what it writes, and dp's partials are added in a fixed order, with no
+    atomics."""
+    dev = _card()
+    H, lens = 2, [388, 291, 97, 1]
+    args = _inputs("rel", len(lens) * H, H, 388, 40, 0, lens, dtype, dev)
+    out, lse = rel_attention_forward(*args)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        out.shape).astype(np.float32)).to(dev, dtype)
+    first = rel_attention_backward(*args, out, lse, dout)
+    second = rel_attention_backward(*args, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("flags", [{"encoder_rot_fold_pallas": True},
                                    {"encoder_use_pallas_attention": True}])
 def test_model_kernel_path_matches_plain_path(flags):

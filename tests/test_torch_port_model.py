@@ -68,11 +68,13 @@ def test_state_dict_names_are_the_reference_names():
 
 def test_config_knobs():
     E2E_Conformer_CTC(**TINY, encoder_remat=True, encoder_remat_attend=2,
-                      encoder_scan_layers=True, encoder_ff_int8=True,
+                      encoder_scan_layers=True,
                       encoder_pos_dropout_mode="rotated",
                       encoder_pipeline_microbatches=4, device="cpu")
     with pytest.raises(NotImplementedError, match="pipeline"):
         E2E_Conformer_CTC(**TINY, encoder_pipeline_stages=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        E2E_Conformer_CTC(**TINY, encoder_ff_int8=True, device="cpu")
     pm = E2E_Conformer_CTC(**TINY, device="cpu").train()
     x, xlen, ys = data()
     # train-mode dropout draws from a caller-owned generator only
