@@ -303,8 +303,9 @@ def _kernel_specs():
     rel = "lasr_tpu/ops/rel_attention.py"
     src = "lasr_tpu_torch/csrc/"
     # name, kernel, plain, inputs, cost, library, source, replaces, shapes,
-    # design: "simt-f32" f32 FMAs on the CUDA cores, "wmma-tf32x3" WMMA
-    # tensor-core tiles (3xTF32 for f32 inputs, one TF32 product for bf16)
+    # design: "wmma-tf32x3" WMMA tensor-core tiles (3xTF32 for f32 inputs,
+    # one TF32 product for bf16), "wmma-tf32x3-warp-rows" the same with
+    # each warp owning its query rows (one block barrier per key tile)
     return [
         ("rot_attention_fwd", rot_attention_forward, rot_attention_reference,
          _rot_inputs, _rot_cost, _rot_library, src + "rot_attention.cu",
@@ -316,7 +317,7 @@ def _kernel_specs():
          rot + ":216", (TRAINING,), "wmma-tf32x3"),
         ("rel_attention_fwd", rel_attention_forward, rel_attention_reference,
          _rel_inputs, _rel_cost, None, src + "rel_attention.cu",
-         rel + ":124", (SERVED, TRAINING), "simt-f32"),
+         rel + ":124", (SERVED, TRAINING), "wmma-tf32x3-warp-rows"),
         ("rel_attention_bwd", rel_attention_backward,
          rel_attention_backward_reference,
          _with_grad_inputs(_rel_inputs, rel_attention_forward),

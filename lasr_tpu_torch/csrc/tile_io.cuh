@@ -10,8 +10,8 @@
 //    memory once it has landed;
 //  - loads through registers (bf16 of odd width), 16 in flight per thread.
 // A kernel issues a streamed tile's copies, computes on the current tile,
-// and lands the next one after cp_async_wait and a barrier.  Every block
-// that uses these has NWARPS warps.
+// and lands the next one after cp_async_wait and a barrier.  A block
+// that uses these has NWARPS warps, or the NW that each call names.
 
 #pragma once
 
@@ -90,10 +90,11 @@ struct Src {
 // every 32nd column, 4 columns of each row per round: 16 loads in flight
 // per thread (every load is issued, from a valid address, and masked
 // after it returns, so none waits behind a branch).
-template <int R, typename T>
+template <int R, typename T, int NW = NWARPS>
 __device__ __forceinline__ void load_rows(const Src<T>& src, int r0,
                                           float* __restrict__ s) {
-  constexpr int RW = R / NWARPS;
+  static_assert(R % NW == 0, "rows split evenly over the warps");
+  constexpr int RW = R / NW;
   constexpr int CB = 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = src.wa + src.wb;
@@ -101,7 +102,7 @@ __device__ __forceinline__ void load_rows(const Src<T>& src, int r0,
     float x[RW][CB];
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
-      const int row = r0 + warp + NWARPS * i;
+      const int row = r0 + warp + NW * i;
 #pragma unroll
       for (int c = 0; c < CB; ++c) {
         const int e = e0 + lane + 32 * c;
@@ -117,7 +118,7 @@ __device__ __forceinline__ void load_rows(const Src<T>& src, int r0,
 #pragma unroll
       for (int c = 0; c < CB; ++c) {
         const int e = e0 + lane + 32 * c;
-        if (e < src.width) s[(warp + NWARPS * i) * src.ld + e] = x[i][c];
+        if (e < src.width) s[(warp + NW * i) * src.ld + e] = x[i][c];
       }
     }
   }
@@ -126,16 +127,17 @@ __device__ __forceinline__ void load_rows(const Src<T>& src, int r0,
 // The tile by cp.async into s (element type T, row stride ld), `chunk`
 // elements per copy (16 or 4 bytes; wa, wb and the bases multiples of
 // it); it lands at the next cp_async_wait.
-template <int R, typename T>
+template <int R, typename T, int NW = NWARPS>
 __device__ __forceinline__ void copy_rows(const Src<T>& src, int r0, T* s,
                                           int ld, int chunk) {
-  constexpr int RW = R / NWARPS;
+  static_assert(R % NW == 0, "rows split evenly over the warps");
+  constexpr int RW = R / NW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = src.wa + src.wb;
   const bool wide = chunk * (int)sizeof(T) == 16;
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
-    const int r = warp + NWARPS * i, row = r0 + r;
+    const int r = warp + NW * i, row = r0 + r;
     for (int e = lane * chunk; e < src.width; e += 32 * chunk) {
       const bool ok = (unsigned)row < (unsigned)src.rmax && e < w;
       const T* p = e < src.wa ? src.a + (size_t)row * src.wa + e
@@ -149,14 +151,15 @@ __device__ __forceinline__ void copy_rows(const Src<T>& src, int r0, T* s,
 }
 
 // A raw bf16 tile (row stride width) widened into s (row stride ld).
-template <int R>
+template <int R, int NW = NWARPS>
 __device__ __forceinline__ void widen_rows(const __nv_bfloat16* raw,
                                            int width, float* s, int ld) {
-  constexpr int RW = R / NWARPS;
+  static_assert(R % NW == 0, "rows split evenly over the warps");
+  constexpr int RW = R / NW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
-    const int r = warp + NWARPS * i;
+    const int r = warp + NW * i;
     const __nv_bfloat162* in =
         reinterpret_cast<const __nv_bfloat162*>(raw + r * width);
     float2* out = reinterpret_cast<float2*>(s + r * ld);
@@ -165,44 +168,132 @@ __device__ __forceinline__ void widen_rows(const __nv_bfloat16* raw,
   }
 }
 
+// Narrow tiles (a row of a few copies, as at dk = 40): copy_rows and
+// widen_rows give each warp whole rows, so most lanes idle and each
+// thread issues a copy per row.  The *_spread forms deal the tile's
+// (row, piece) positions over all 32 NW threads in turn instead (the
+// same rows, zeros and routes); a thread steps its position by a fixed
+// (rows, pieces) stride, with no division per piece (K3's forward,
+// PERF.md PR 7).
+
+// A thread's position in a tile of rows `per` pieces wide, and its step
+// to the next one 32 NW pieces on.
+template <int NW>
+struct Walk {
+  int r, c, dr, dc, per;
+  __device__ __forceinline__ explicit Walk(int per_) : per(per_) {
+    r = threadIdx.x / per;
+    c = threadIdx.x - r * per;
+    dr = 32 * NW / per;
+    dc = 32 * NW - dr * per;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= per) {
+      c -= per;
+      ++r;
+    }
+  }
+};
+
+// The tile by cp.async, as copy_rows.
+template <int R, typename T, int NW>
+__device__ __forceinline__ void copy_spread(const Src<T>& src, int r0, T* s,
+                                            int ld, int chunk) {
+  const int w = src.wa + src.wb;
+  const bool wide = chunk * (int)sizeof(T) == 16;
+  for (Walk<NW> at(src.width / chunk); at.r < R; at.next()) {
+    const int e = at.c * chunk, row = r0 + at.r;
+    const bool ok = (unsigned)row < (unsigned)src.rmax && e < w;
+    const T* p = e < src.wa ? src.a + (size_t)row * src.wa + e
+                            : src.b + (size_t)row * src.wb + (e - src.wa);
+    if (wide)
+      cp_async16(s + at.r * ld + e, ok ? p : src.a, ok);
+    else
+      cp_async4(s + at.r * ld + e, ok ? p : src.a, ok);
+  }
+}
+
+// A raw bf16 tile widened, as widen_rows: each thread loads U pairs
+// before it stores any, so the loads are in flight together (a store
+// may alias the next load, so the compiler keeps them in order).
+template <int R, int NW>
+__device__ __forceinline__ void widen_spread(const __nv_bfloat16* raw,
+                                             int width, float* s, int ld) {
+  constexpr int U = 4;
+  const int half = width / 2;
+  const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(raw);
+  for (Walk<NW> at(half); at.r < R;) {
+    __nv_bfloat162 x[U];
+    int to[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool ok = at.r < R;
+      x[u] = in[ok ? at.r * half + at.c : 0];
+      to[u] = ok ? at.r * ld + 2 * at.c : -1;
+      at.next();
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (to[u] >= 0)
+        *reinterpret_cast<float2*>(s + to[u]) = __bfloat1622float2(x[u]);
+  }
+}
+
 // The route of a kernel's copies (Dims: any struct with the fields
 // `chunk`, elements per cp.async copy, 0 for registers, and `raw`, bf16
-// tiles staged raw and widened in shared memory).
+// tiles staged raw and widened in shared memory; SPREAD: the *_spread
+// forms of the copies).
 
 // A resident tile, loaded once: by cp.async for f32 (it lands with the
 // first step's wait), through registers for bf16.
-template <int R, typename T, typename Dims>
+template <int R, typename T, typename Dims, int NW = NWARPS,
+          bool SPREAD = false>
 __device__ __forceinline__ void load_resident(const Src<T>& src, int r0,
                                               float* s, const Dims& D) {
-  if constexpr (std::is_same<T, float>::value)
-    copy_rows<R>(src, r0, s, src.ld, D.chunk);
+  if constexpr (std::is_same<T, float>::value && SPREAD)
+    copy_spread<R, T, NW>(src, r0, s, src.ld, D.chunk);
+  else if constexpr (std::is_same<T, float>::value)
+    copy_rows<R, T, NW>(src, r0, s, src.ld, D.chunk);
   else
-    load_rows<R>(src, r0, s);
+    load_rows<R, T, NW>(src, r0, s);
 }
 
 // Starts the copies of a streamed tile: f32 straight into its buffer s,
 // bf16 into the raw staging tile (nothing where bf16 goes through
 // registers).
-template <int R, typename T, typename Dims>
+template <int R, typename T, typename Dims, int NW = NWARPS,
+          bool SPREAD = false>
 __device__ __forceinline__ void issue(const Src<T>& src, int r0, float* s,
                                       void* raw, const Dims& D) {
-  if constexpr (std::is_same<T, float>::value)
-    copy_rows<R>(src, r0, s, src.ld, D.chunk);
+  if constexpr (SPREAD) {
+    if constexpr (std::is_same<T, float>::value)
+      copy_spread<R, T, NW>(src, r0, s, src.ld, D.chunk);
+    else if (D.raw)
+      copy_spread<R, T, NW>(src, r0, static_cast<T*>(raw), src.width,
+                            D.chunk);
+  } else if constexpr (std::is_same<T, float>::value)
+    copy_rows<R, T, NW>(src, r0, s, src.ld, D.chunk);
   else if (D.raw)
-    copy_rows<R>(src, r0, static_cast<T*>(raw), src.width, D.chunk);
+    copy_rows<R, T, NW>(src, r0, static_cast<T*>(raw), src.width, D.chunk);
 }
 
 // After the copies landed (wait, then a barrier): bf16 is widened from the
 // staging tile, or loaded through registers; f32 is in place already.
-template <int R, typename T, typename Dims>
+template <int R, typename T, typename Dims, int NW = NWARPS,
+          bool SPREAD = false>
 __device__ __forceinline__ void land(const Src<T>& src, int r0, float* s,
                                      const void* raw, const Dims& D) {
   if constexpr (!std::is_same<T, float>::value) {
-    if (D.raw)
-      widen_rows<R>(static_cast<const __nv_bfloat16*>(raw), src.width, s,
-                    src.ld);
+    if (D.raw && SPREAD)
+      widen_spread<R, NW>(static_cast<const __nv_bfloat16*>(raw), src.width,
+                          s, src.ld);
+    else if (D.raw)
+      widen_rows<R, NW>(static_cast<const __nv_bfloat16*>(raw), src.width,
+                        s, src.ld);
     else
-      load_rows<R>(src, r0, s);
+      load_rows<R, T, NW>(src, r0, s);
   }
 }
 

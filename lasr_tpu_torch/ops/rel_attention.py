@@ -4,12 +4,14 @@ versions and the autograd Function over them.
 Counterpart of ``lasr_tpu/ops/rel_attention.py``: computes
 ``softmax_j[(q_u·k_j + q_v·p_{T-1-i+j}) / sqrt(dk) + mask] @ v``
 flash-style (``csrc/rel_attention.cu``), never materializing the score
-matrix; the rel-shift is an index remap over a window of ``p`` staged in
-shared memory.  The backward (``csrc/rel_attention_bwd.cu``) recomputes the
-probabilities from the forward's ``lse`` on the tensor cores (WMMA TF32
-tiles, 3xTF32 for f32 inputs): the scores are the plain products
-``q_u·k^T`` and ``q_v·Pwin^T`` over a 64-row window of ``p``, joined by an
-index remap, and ``dz`` goes back through the same remap into ``dW``, so
+matrix.  Both kernels run every product on the tensor cores (WMMA TF32
+tiles, 3xTF32 for f32 inputs), and the rel-shift is an index remap between
+plain products: the scores are ``q_u·k^T`` and ``q_v·Pwin^T`` over a window
+``Pwin`` of ``p``.  In the forward each warp owns 16 query rows (a 48-row
+window, one block barrier per key tile, the online softmax and ``O`` in
+registers).  The backward (``csrc/rel_attention_bwd.cu``) recomputes the
+probabilities from the forward's ``lse`` over 32-row tiles and a 64-row
+window, and ``dz`` goes back through the same remap into ``dW``, so
 ``dq_v = dW·Pwin`` and ``dPwin = dW^T·q_v`` are plain products too.  A key
 pass owns dk/dv, a query pass dq_u/dq_v and a dp partial per (bh, query
 tile), and a last kernel adds the partials in a fixed order (no atomics).

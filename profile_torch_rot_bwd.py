@@ -100,15 +100,20 @@ def card_line():
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def build_variants(tmp, kernel, edits, symbol, n_ptr):
+def build_variants(tmp, kernel, edits, symbol, n_ptr, others=None,
+                   logs=None):
     """Builds ``base`` and every variant of ``edits`` in parallel under
-    ``tmp``; returns {name: the C entry point ``symbol`` (n_ptr pointers,
-    5 ints, the stream)}, or None after printing nvcc's log of a failed
-    build."""
+    ``tmp``, and each entry of ``others`` ({name: a csrc directory}, e.g.
+    a parent commit's) unedited; returns {name: the C entry point
+    ``symbol`` (n_ptr pointers, 5 ints, the stream)}, or None after
+    printing nvcc's log of a failed build.  ``logs``, a dict, receives
+    each build's nvcc output (ptxas's registers and spills)."""
     from lasr_tpu_torch.ops import cuda_build
+    others = others or {}
     procs = {}
-    for name in ["base", *edits]:
-        src = write_variant(str(cuda_build.CSRC), tmp, name, kernel, edits)
+    for name in [*others, "base", *edits]:
+        src = write_variant(str(others.get(name, cuda_build.CSRC)), tmp,
+                            name, kernel, edits)
         lib = os.path.join(tmp, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src],
@@ -119,6 +124,8 @@ def build_variants(tmp, kernel, edits, symbol, n_ptr):
         if proc.returncode != 0:
             print(f"{name}: nvcc failed\n{log}", file=sys.stderr)
             return None
+        if logs is not None:
+            logs[name] = log
         fn = getattr(ctypes.CDLL(lib), symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]

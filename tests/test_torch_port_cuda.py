@@ -192,6 +192,49 @@ def test_rot_backward_kernel_is_bitwise_repeatable(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,dk,lens", [
     (33, 37, [33, 0, 20]),          # odd dk: 4-byte copies / registers
+    (248, 37, [248, 0, 131, 1]),    # the served T, not a multiple of 32, 64
+    (248, 38, [200, 0, 33]),        # bf16 pairs by 4-byte copies
+    (80, 40, [80, 47, 1]),          # windows below row 0 and past 2T-2
+])
+def test_rel_forward_kernel_copy_routes(dtype, T, dk, lens):
+    """K3's other routes into shared memory and its edges (T not a
+    multiple of the block's rows, window rows outside the table in the
+    first and last key tiles, an empty row), against the plain forward."""
+    dev = _card()
+    H = 2
+    args = _inputs("rel", len(lens) * H, H, T, dk, 0, lens, dtype, dev)
+    before = rel_attention_forward.launches
+    out, lse = rel_attention_forward(*args)
+    torch.cuda.synchronize()
+    assert rel_attention_forward.launches == before + 1
+    want, want_lse = rel_attention_reference(
+        *[a.float() if a.is_floating_point() else a for a in args])
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    assert float((out.float() - want).abs().max()) <= TOL[dtype]
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    assert float((lse[finite] - want_lse[finite]).abs().max()) <= TOL[dtype]
+    empty = torch.from_numpy(np.repeat(np.asarray(lens) == 0, H)).to(dev)
+    assert not bool(out[empty].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_forward_kernel_is_bitwise_repeatable(dtype):
+    """Two K3 calls on the same inputs give the same bits: each warp owns
+    its rows and sums in a fixed order."""
+    dev = _card()
+    H, lens = 2, [388, 291, 97, 1]
+    args = _inputs("rel", len(lens) * H, H, 388, 40, 0, lens, dtype, dev)
+    first = rel_attention_forward(*args)
+    second = rel_attention_forward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,dk,lens", [
+    (33, 37, [33, 0, 20]),          # odd dk: 4-byte copies / registers
     (248, 37, [248, 0, 131, 1]),    # the served T, not a multiple of 32
     (248, 38, [200, 0, 33]),        # bf16 pairs by 4-byte copies
 ])
