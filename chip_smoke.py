@@ -38,6 +38,25 @@ Phases, always all of them, in this order:
            ASRProcess.
   train_b  the same with encoder_use_pallas_attention (K3, K4), the plain
            path being the skewed-table fold.
+  fit_b    the training entry point: a seeded corpus (96 train WAVs of
+           4-15.6 s, 4 dev WAVs of 4 s, transcripts over the letters of a
+           5000-entry CharTokenizer dictionary) and the recipe's own
+           example/asr_en/conf/config_baseline.yaml with the rel kernels
+           on; ``lasr_tpu_torch.bin.train`` (-ema 1 -fp16 32
+           -log_interval 1) run (a) 2 epochs, (b) 1 epoch, (c) resumed to
+           2 in (b)'s exp_dir: finite losses, K3 12 times a step and a
+           validation batch and K4 12 times a step, (c)'s epoch-2 metric
+           lines within 1e-4 (relative) and its final weights within 1e-4
+           of their largest magnitude of (a)'s, last/ and best/ as
+           expected; the kernel path's encoder output within 1e-3 of the
+           skewed-table fold on the shortest and longest train batch and
+           the dev batch; ``lasr_tpu_torch.bin.decode`` (-choose last -avg
+           2) with ctc_att (beam 10, ctc_beam 15, ctc_weight 0.5) and
+           ctc_greedy writes 4 hypotheses, K3 12 times, and ASRProcess on
+           the same checkpoints gives row 0's hypothesis.  Prints a
+           {"fit_b": ...} line: steps, step times (also per second of
+           audio, beside train_b's), data_wait_s / dispatch_s per epoch,
+           valid losses, the resume's differences, decode RTFs.
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -444,20 +463,26 @@ def _write_recipe_configs(tmp, flags, decode_method):
                             "audio_trans": ["norm", "fbank:80"]}}}, f)
 
 
+def _wave(rng, t):
+    """One seeded wave over the times ``t``: a few harmonics under noise."""
+    f0 = rng.uniform(90, 250)
+    w = sum(rng.uniform(0.05, 0.3) * np.sin(2 * np.pi * f0 * h * t)
+            for h in range(1, 6))
+    return (w * (1 + np.sin(2 * np.pi * rng.uniform(2, 5) * t))
+            + 0.05 * rng.standard_normal(t.shape)) * 0.3
+
+
+def _pcm16(w):
+    """The PCM16 grid write_wav stores and read_wav returns."""
+    return (np.round(np.clip(w, -1, 1) * 32767.0) / 32768.0).astype(
+        np.float32)
+
+
 def make_waves(seed, n, secs=SECS):
-    """n seeded waves of ``secs`` seconds: a few harmonics under noise."""
+    """n seeded waves of ``secs`` seconds."""
     rng = np.random.default_rng(seed)
     t = np.arange(int(secs * SR)) / SR
-    out = []
-    for _ in range(n):
-        f0 = rng.uniform(90, 250)
-        w = sum(rng.uniform(0.05, 0.3) * np.sin(2 * np.pi * f0 * h * t)
-                for h in range(1, 6))
-        out.append((w * (1 + np.sin(2 * np.pi * rng.uniform(2, 5) * t))
-                    + 0.05 * rng.standard_normal(t.shape)) * 0.3)
-    # the PCM16 grid write_wav stores and read_wav returns
-    return (np.round(np.clip(np.stack(out), -1, 1) * 32767.0)
-            / 32768.0).astype(np.float32)
+    return _pcm16(np.stack([_wave(rng, t) for _ in range(n)]))
 
 
 def _slice(state, label, flags, kernel_name, counter):
@@ -701,7 +726,8 @@ def _train(state, label, flags, plain_flags, kernels):
     check(loss_err <= 1e-4, f"{label}: loss differs by {loss_err}")
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = trainer.save_checkpoint(tstate, os.path.join(tmp, "x.ckpt"))
+        ckpt = trainer.save_checkpoint(tstate,
+                                       path=os.path.join(tmp, "x.ckpt"))
         _write_recipe_configs(tmp, flags, "ctc_greedy")
         asr = ASRProcess(os.path.join(tmp, "hparams.yaml"),
                          os.path.join(tmp, "decode.yaml"), ckpt)
@@ -735,6 +761,323 @@ def phase_train_b(state):
              rel_attention_backward)])
 
 
+# the fit_b phase: a seeded corpus of FIT_TRAIN utterances of FIT_SECS
+# seconds (uniform; about 2 duration batches an epoch at the recipe's
+# batch_duration of 500 s) and FIT_DEV dev utterances of FIT_DEV_SECS
+FIT_TRAIN, FIT_SECS, FIT_DEV, FIT_DEV_SECS = 96, (4.0, 15.6), 4, 4.0
+FIT_CHARS_PER_S = 5
+RECIPE_CONFIG = os.path.join("example", "asr_en", "conf",
+                             "config_baseline.yaml")
+LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+
+def _fit_corpus(tmp, seed):
+    """wav.scp / text of the train and dev sets under ``tmp`` and a
+    CharTokenizer dictionary of the recipe's size: the letters and the
+    space first, then fillers.  Returns (train dir, dev dir, dict path)."""
+    from lasr_tpu_torch.data.reader import write_wav
+    rng = np.random.default_rng(seed)
+    dict_path = os.path.join(tmp, "dict.txt")
+    fillers = RECIPE["odim"] - 6 - len(LETTERS) - 1
+    with open(dict_path, "w") as f:
+        f.write("\n".join(list(LETTERS) + [" "]
+                          + [f"T{i}" for i in range(fillers)]) + "\n")
+    dirs = []
+    for split, n in (("train", FIT_TRAIN), ("dev", FIT_DEV)):
+        d = os.path.join(tmp, split)
+        os.makedirs(d)
+        with open(os.path.join(d, "wav.scp"), "w") as ws, \
+                open(os.path.join(d, "text"), "w") as tx:
+            for i in range(n):
+                secs = rng.uniform(*FIT_SECS) if split == "train" \
+                    else FIT_DEV_SECS
+                path = os.path.join(d, f"{split}{i:03d}.wav")
+                write_wav(path, _pcm16(_wave(
+                    rng, np.arange(int(secs * SR)) / SR)), SR)
+                words = []
+                while sum(len(w) + 1 for w in words) < secs * FIT_CHARS_PER_S:
+                    words.append("".join(rng.choice(list(LETTERS),
+                                                    rng.integers(2, 8))))
+                ws.write(f"{split}{i:03d} {path}\n")
+                tx.write(f"{split}{i:03d} {' '.join(words)}\n")
+        dirs.append(d)
+    return dirs[0], dirs[1], dict_path
+
+
+def _fit_configs(tmp, train, dev, dict_path):
+    """The recipe's YAML from the tree with the data paths pointed at the
+    corpus, the rel kernels on and the CharTokenizer dictionary; and a
+    decode.yaml for ``decode_method``."""
+    import yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, RECIPE_CONFIG)) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model_config"]["kwargs"]["encoder_use_pallas_attention"] = True
+    cfg["tokenizer_config"] = {
+        "name": "lasr_tpu.data.tokenizer:CharTokenizer",
+        "kwargs": {"dict_path": dict_path}}
+    for key, d in (("train_data_config", train), ("valid_data_config", dev)):
+        cfg[key]["kwargs"]["wav_list"] = [os.path.join(d, "wav.scp")]
+        cfg[key]["kwargs"]["text_list"] = [os.path.join(d, "text")]
+    check(cfg["train_data_config"]["kwargs"]["batch_duration"] == 500
+          and cfg["valid_data_config"]["kwargs"]["batch_duration"] == 200,
+          f"{RECIPE_CONFIG}: batch_duration is no longer 500 / 200")
+    config = os.path.join(tmp, "config.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    decode = {}
+    for method in ("ctc_att", "ctc_greedy"):
+        decode[method] = os.path.join(tmp, f"decode_{method}.yaml")
+        with open(decode[method], "w") as f:
+            yaml.safe_dump({
+                "decode_config": dict(DECODE, decode_method=method),
+                "test_data_config": {
+                    "name": "lasr_tpu.data.dataset:AudioDataSet",
+                    "kwargs": {
+                        "wav_list": [os.path.join(dev, "wav.scp")],
+                        "text_list": [os.path.join(dev, "text")],
+                        "audio_trans": ["norm", "fbank:80"]}}}, f)
+    return cfg, config, decode
+
+
+def _metrics(exp):
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _last_state_dict(exp):
+    import torch
+    from lasr_tpu_torch.utils.weights import checkpoint_steps
+    last = os.path.join(exp, "checkpoints", "last")
+    steps = checkpoint_steps(last)
+    return torch.load(os.path.join(last, steps[max(steps)]),
+                      map_location="cpu", weights_only=False)["state_dict"]
+
+
+def phase_fit_b(state):
+    """The train CLI on the recipe Conformer with K3 + K4, resumed, then
+    the decode CLI and ASRProcess on its checkpoints."""
+    import contextlib
+    import io
+    import torch
+    from lasr_tpu_torch.bin import decode, train
+    from lasr_tpu_torch.data.dataset import BatchAudioDataSet
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.data.reader import read_scp
+    from lasr_tpu_torch.data.tokenizer import CharTokenizer
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from lasr_tpu_torch.utils.weights import (checkpoint_name,
+                                              checkpoint_steps,
+                                              load_model_weights,
+                                              load_reference_checkpoint)
+    seed = state["seed"]
+    blocks = RECIPE["encoder_num_blocks"]
+    label = "fit_b"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_dir, dev_dir, dict_path = _fit_corpus(tmp, seed + 3)
+        cfg, config, decode_cfg = _fit_configs(tmp, train_dir, dev_dir,
+                                               dict_path)
+        # the groups the CLI will batch, and their audio
+        tok = CharTokenizer(dict_path)
+        sets = []
+        for key in ("train_data_config", "valid_data_config"):
+            ds = BatchAudioDataSet(**cfg[key]["kwargs"], tokenizer=tok)
+            ds.load_check_data()
+            sets.append(ds)
+        ds, dv = sets
+        groups = ds.batch_indices()
+        secs = [sum(ds.train_set[i]["wav_len"] for i in g) for g in groups]
+        shapes = [ds.batch_shape(g) for g in groups]
+        log(f"{label}: corpus of {len(ds.train_set)} + {len(dv.train_set)} "
+            f"utterances written in {time.perf_counter() - t0:.1f} s; "
+            f"{len(groups)} train batches a epoch (B, S, L) {shapes}, "
+            f"{sum(secs):.1f} s of audio; {len(dv)} dev batch(es)")
+        check(len(dv) == 1 and len(dv.train_set) == FIT_DEV,
+              f"{label}: expected one dev batch of {FIT_DEV}")
+
+        def run(exp, epochs):
+            rel_attention_forward.launches = 0
+            rel_attention_backward.launches = 0
+            before = len(_metrics(exp)) if os.path.exists(
+                os.path.join(exp, "metrics.jsonl")) else 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rc = train.main(["-config", config, "-exp_dir", exp,
+                             "-num_epochs", str(epochs), "-ema", "1",
+                             "-fp16", "32", "-log_interval", "1",
+                             "-seed", str(seed), "-num_workers", "4"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            check(rc == 0, f"{label}: train CLI exited {rc}")
+            lines = _metrics(exp)[before:]
+            steps = [x for x in lines if "loss_main" in x]
+            valids = [x for x in lines if "valid_loss_main" in x]
+            fwd = rel_attention_forward.launches
+            bwd = rel_attention_backward.launches
+            log(f"{label}: train CLI -num_epochs {epochs} in "
+                f"{os.path.basename(exp)}: {len(steps)} steps, "
+                f"{len(valids)} validations in {wall:.1f} s; K3 {fwd}, K4 "
+                f"{bwd} launches [{state['card']}]")
+            for x in steps + valids:
+                check(all(math.isfinite(v) for v in x.values()
+                          if isinstance(v, float)),
+                      f"{label}: non-finite metrics {x}")
+            check(fwd == blocks * (len(steps) + len(valids) * len(dv))
+                  and bwd == blocks * len(steps),
+                  f"{label}: K3 / K4 launched {fwd} / {bwd} times, expected "
+                  f"{blocks} per step and validation batch / per step")
+            return steps, valids, fwd, bwd, wall
+
+        exp_a, exp_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        steps_a, valids_a, fwd_a, bwd_a, wall_a = run(exp_a, 2)
+        n = len(groups)
+        check(len(steps_a) == 2 * n and len(valids_a) == 2,
+              f"{label}: run (a) took {len(steps_a)} steps")
+        run(exp_b, 1)
+        steps_c, valids_c, _, _, _ = run(exp_b, 2)
+        check([x["step"] for x in steps_c] == list(range(n + 1, 2 * n + 1)),
+              f"{label}: the resumed run did not start at step {n + 1}")
+        for exp in (exp_a, exp_b):
+            for sub in ("last", "best"):
+                got = sorted(checkpoint_steps(
+                    os.path.join(exp, "checkpoints", sub)))
+                check(got == [n, 2 * n], f"{label}: {exp}/checkpoints/"
+                      f"{sub} holds steps {got}, expected {[n, 2 * n]}")
+
+        # resume: (c)'s epoch-2 lines and final weights against (a)'s
+        worst_line = 0.0
+        for a, c in zip(steps_a[n:] + valids_a[1:], steps_c + valids_c):
+            for k in ("loss_main", "grad_norm", "lr", "valid_loss_main"):
+                if k in a:
+                    worst_line = max(worst_line, abs(c[k] - a[k])
+                                     / max(abs(a[k]), 1e-30))
+        sd_a, sd_c = _last_state_dict(exp_a), _last_state_dict(exp_b)
+        floats = [k for k, v in sd_a.items() if torch.is_floating_point(v)]
+        top = max(float(sd_a[k].abs().max()) for k in floats)
+        diffs = {k: float((sd_c[k] - sd_a[k]).abs().max()) for k in floats}
+        worst = max(diffs, key=diffs.get)
+        log(f"{label}: resumed vs unbroken: epoch-2 metrics worst relative "
+            f"difference {worst_line:.2e} (tol 1e-4); final weights worst "
+            f"{worst} {diffs[worst]:.2e} against the largest magnitude "
+            f"{top:.3e} (tol 1e-4 of it)")
+        check(worst_line <= 1e-4, f"{label}: resumed metrics differ by "
+              f"{worst_line}")
+        check(diffs[worst] <= 1e-4 * top, f"{label}: resumed weights differ "
+              f"by {diffs[worst]}")
+
+        # the kernel path against the plain path on the trained weights,
+        # on the shortest and the longest train batch and the dev batch
+        weights = load_reference_checkpoint(
+            os.path.join(exp_a, "checkpoints", "last", checkpoint_name(2 * n)))
+        models = []
+        for flags in ({"encoder_use_pallas_attention": True}, {}):
+            m = E2E_Conformer_CTC(**RECIPE, **flags)
+            load_model_weights(m, weights)
+            models.append(m)
+        frontend = DeviceFrontend(["norm", "fbank:80"])
+        dev = next(models[0].parameters()).device
+        by_len = sorted(range(n), key=lambda i: shapes[i][1])
+        checks = [("shortest", ds, groups[by_len[0]]),
+                  ("longest", ds, groups[by_len[-1]]),
+                  ("dev", dv, dv.batch_indices()[0])]
+        for what, d, g in checks:
+            b = d.merge_batch([d.train_set[i] for i in g])
+            with torch.no_grad():
+                feats, feat_len = frontend(
+                    torch.from_numpy(b["wav_array"]).to(dev),
+                    torch.from_numpy(b["wav_len"]).to(dev))
+                (hs, hs_len), (hp, hp_len) = [
+                    m.encode(feats, feat_len, solo_pad=True) for m in models]
+            err = float((hs - hp).abs().max())
+            kv = hs_len.tolist()
+            log(f"{label}: encoder kernel path vs skewed-table fold on the "
+                f"{what} batch (B={hs.shape[0]}, T={hs.shape[1]}, kv_len "
+                f"{min(kv)}-{max(kv)}): max_abs {err:.3e} (tol 1e-3)")
+            check(torch.equal(hs_len, hp_len) and err <= 1e-3,
+                  f"{label}: {what} batch: kernel path off by {err}")
+        del models
+
+        # decode the dev set with the 2 newest checkpoints of (a)
+        hparams = os.path.join(exp_a, "hparams.yaml")
+        ckpts = os.path.join(exp_a, "checkpoints")
+        outputs, rtf = {}, {}
+        for method in ("ctc_att", "ctc_greedy"):
+            out = os.path.join(tmp, f"{method}.txt")
+            rel_attention_forward.launches = 0
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = decode.main(["-train_config", hparams,
+                                  "-decode_config", decode_cfg[method],
+                                  "-model_path", ckpts, "-choose", "last",
+                                  "-avg", "2", "-output_file", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            check(rc == 0, f"{label}: decode CLI ({method}) exited {rc}")
+            text = buf.getvalue().strip().splitlines()
+            rtf[method] = json.loads(text[-1])
+            with open(out) as f:
+                outputs[method] = f.read().splitlines()
+            launches = rel_attention_forward.launches
+            log(f"{label}: decode CLI {method}: {len(outputs[method])} "
+                f"hypotheses in {wall:.1f} s, {text[-3]}, K3 {launches} "
+                f"launches, {text[-1]} [{state['card']}]")
+            check(len(outputs[method]) == FIT_DEV and launches == blocks,
+                  f"{label}: decode {method}: {len(outputs[method])} "
+                  f"hypotheses, K3 launched {launches} times, expected "
+                  f"{blocks} for one batch")
+        # the decode CLI's row 0 is the dev wav.scp's first utterance
+        uid, wav0 = read_scp(os.path.join(dev_dir, "wav.scp"))[0]
+        rel_attention_forward.launches = 0
+        asr = ASRProcess(hparams, decode_cfg["ctc_att"], ckpts,
+                         choose="last", avg=2)
+        _, hyp0 = asr(wav0)
+        check(rel_attention_forward.launches == blocks,
+              f"{label}: ASRProcess launched K3 "
+              f"{rel_attention_forward.launches} times")
+        row0 = outputs["ctc_att"][0].rsplit(" (", 1)
+        log(f"{label}: ASRProcess on {uid} gives the decode CLI's row 0: "
+            f"{hyp0 == row0[0]} ({len(hyp0)} characters)")
+        check(row0[1] == uid + ")" and hyp0 == row0[0],
+              f"{label}: ASRProcess's hypothesis differs from the CLI's")
+
+        # the summary line: step times against train_b's per second of audio
+        order = [g for e in range(2) for g in ds.batch_indices(
+            shuffle=True, seed=seed + e)]
+        step_s = [x["dispatch_s"] for x in steps_a]
+        audio_s = [sum(ds.train_set[i]["wav_len"] for i in g) for g in order]
+        per_audio = [t / a for t, a in zip(step_s, audio_s)]
+        train_b = state["timings"].get("train_b", {}).get("step_s")
+        summary = {
+            "steps": len(steps_a),
+            "step_ms": [t * 1e3 for t in step_s],
+            "step_audio_s": audio_s,
+            "step_shape": [list(ds.batch_shape(g)) for g in order],
+            "median_step_ms": float(np.median(step_s)) * 1e3,
+            "median_step_ms_per_audio_s": float(np.median(per_audio)) * 1e3,
+            "train_b_median_step_ms_per_audio_s":
+                float(np.median(train_b)) * 1e3
+                / (TRAIN_BATCH * TRAIN_SECS) if train_b else None,
+            "data_wait_s": [sum(x["data_wait_s"] for x in steps_a
+                                if x["epoch"] == e) for e in range(2)],
+            "dispatch_s": [sum(x["dispatch_s"] for x in steps_a
+                               if x["epoch"] == e) for e in range(2)],
+            "valid_loss": [x["valid_loss_main"] for x in valids_a],
+            "resume_max_rel_diff_metrics": worst_line,
+            "resume_max_abs_diff_weights": diffs[worst],
+            "decode_rtf": {m: rtf[m]["rtf"] for m in rtf},
+            "launches": {"rel_attention_fwd": fwd_a,
+                         "rel_attention_bwd": bwd_a},
+            "card": state["card"]}
+        print(json.dumps({"fit_b": summary}), flush=True)
+        state["fit_launches"] = summary["launches"]
+        state["timings"][label] = dict(run_a_s=wall_a, **summary)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -754,11 +1097,12 @@ def main(argv=None) -> int:
         return 2
 
     state = {"seed": args.seed, "kernels": {}, "launches": {},
-             "train_launches": {}, "timings": {}, "card": "not measured"}
+             "train_launches": {}, "fit_launches": {}, "timings": {},
+             "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
               ("slice_b", phase_slice_b), ("train_a", phase_train_a),
-              ("train_b", phase_train_b)]
+              ("train_b", phase_train_b), ("fit_b", phase_fit_b)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -775,6 +1119,8 @@ def main(argv=None) -> int:
         entry = dict(entry, launches=state["launches"].get(name, 0))
         if name in state["train_launches"]:
             entry["launches_training"] = state["train_launches"][name]
+        if name in state["fit_launches"]:
+            entry["launches_fit"] = state["fit_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

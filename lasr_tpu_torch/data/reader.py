@@ -3,7 +3,10 @@
 
 RIFF/WAVE parsing over numpy: PCM 8/16/24/32-bit and IEEE float 32/64,
 any channel count, returning float64 in [-1, 1] with soundfile's scaling.
-FLAC, mp3 and resampling are not ported yet (ROADMAP queue A).
+Header-only probes (``get_audio_frames``, ``get_audio_duration``,
+``get_audio_samplerate``) and the Kaldi ``read_scp`` list parser serve
+the dataset.  FLAC and mp3 are not ported yet (ROADMAP A8): a path of
+another type raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -79,12 +82,34 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     return data, rate
 
 
+def _require_wav(path: str) -> None:
+    if os.path.splitext(path)[1].lower() != ".wav":
+        raise NotImplementedError(
+            f"{path}: only WAV is ported so far (the FLAC and mp3 readers "
+            f"are ROADMAP A8)")
+
+
 def read_audio(path: str) -> Tuple[np.ndarray, int]:
-    if os.path.splitext(path)[1].lower() == ".wav":
-        return read_wav(path)
-    raise NotImplementedError(
-        f"{path}: only WAV is ported so far (FLAC/mp3 readers are queued in "
-        f"ROADMAP.md)")
+    _require_wav(path)
+    return read_wav(path)
+
+
+def get_audio_frames(path: str) -> Tuple[int, int]:
+    """Header-only (num_frames, sample_rate) probe."""
+    _require_wav(path)
+    with open(path, "rb") as f:
+        _, channels, rate, bits, size = _parse_wav_header(f)
+    bytes_per_frame = channels * (bits // 8)
+    return (size // bytes_per_frame if bytes_per_frame else 0), int(rate)
+
+
+def get_audio_duration(path: str) -> float:
+    frames, rate = get_audio_frames(path)
+    return frames / rate if rate else 0.0
+
+
+def get_audio_samplerate(path: str) -> int:
+    return get_audio_frames(path)[1]
 
 
 def write_wav(path: str, data: np.ndarray, sample_rate: int) -> None:
@@ -100,6 +125,19 @@ def write_wav(path: str, data: np.ndarray, sample_rate: int) -> None:
                                       channels * 2, 16))
         f.write(b"data" + struct.pack("<I", len(payload)))
         f.write(payload)
+
+
+def read_scp(path: str) -> List[Tuple[str, str]]:
+    """Parse ``<id> <rest-of-line>`` rows (wav.scp / text)."""
+    rows = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            key, _, rest = line.partition(" ")
+            rows.append((key, rest))
+    return rows
 
 
 def read_list(path: str) -> List[str]:

@@ -3,9 +3,11 @@
 
 Builds tokenizer and model from the training config (class names written
 for ``lasr_tpu`` or the reference resolve onto this package), loads a
-reference-format checkpoint (a ``.pt``/``.ckpt`` file or an averaged
-directory of ``.ckpt`` files, EMA shadow preferred), applies the decode
-config's ``audio_trans`` frontend on the device, decodes and detokenizes.
+reference-format checkpoint (a ``.pt``/``.ckpt`` file, the port's
+checkpoints root or a directory of ``.ckpt`` files, averaged, EMA shadow
+preferred), resamples the WAV to 16 kHz with the dataset's Kaiser
+resampler, applies the decode config's ``audio_trans`` frontend on the
+device, decodes and detokenizes.
 
 Decode methods: ``ctc_att`` (joint CTC/attention beam search) and
 ``ctc_greedy``; the others raise until they are ported.
@@ -21,6 +23,7 @@ import yaml
 
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.data import reader
+from lasr_tpu_torch.data.resample import resample_kaiser
 from lasr_tpu_torch.data.frontend import DeviceFrontend
 from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
 from lasr_tpu_torch.decode.greedy import ctc_greedy_decode
@@ -71,8 +74,7 @@ class ASRProcess:
         wav, sr = reader.read_audio(wav_path)
         wav = reader.average_channels(wav)
         if sr != 16000:
-            raise NotImplementedError(
-                f"{wav_path}: {sr} Hz; resampling is not ported yet")
+            wav = resample_kaiser(wav, sr, 16000)
         return np.asarray(wav, dtype=np.float32), len(wav)
 
     @torch.no_grad()

@@ -1,6 +1,6 @@
-"""The train step (counterpart of ``lasr_tpu/train/trainer.py``'s
-``Trainer``: ``init_state``, ``train_step``, ``valid_step``,
-``save_hparams``, ``save_checkpoint``).
+"""The trainer (counterpart of ``lasr_tpu/train/trainer.py``'s
+``Trainer``): ``init_state``, ``train_step``, ``valid_step``, ``fit``,
+``validate``, the checkpoint lifecycle and ``save_hparams``.
 
 One ``train_step`` is, as ``lasr_tpu``'s jitted ``_train_step``: the device
 frontend with SpecAugment, ``pack_s2s``, the model forward in train mode,
@@ -18,14 +18,32 @@ and SpecAugment draw from two ``torch.Generator``s made for each step from
 ``(seed, step)``, the counterpart of ``fold_in(rng, step)``; nothing draws
 from torch's global RNG.
 
-Checkpoints are the reference Lightning layout: ``{"state_dict":
-{"model.<name>": ..., "model_ema.<name without dots>": ...}}``, which the
-``ASRProcess`` of both packages reads (EMA shadow preferred).
+``fit`` runs epochs over a dataset's ``batches(shuffle=True, seed=seed +
+epoch)``, validates, writes ``metrics.jsonl`` every ``log_interval``
+steps and keeps two checkpoint directories, as ``lasr_tpu``'s orbax
+managers do: ``exp_dir/checkpoints/last/`` the newest ``checkpoint_keep``
+by step, ``exp_dir/checkpoints/best/`` the ``checkpoint_keep`` with the
+lowest ``valid_loss_main``.  ``loop_state.json`` beside them maps each
+saved step to its (epoch, batch), so ``auto_resume`` re-enters the same
+batch mid-epoch.
+
+Checkpoints are reference Lightning ``.ckpt`` files named
+``step-<step, 9 digits>.ckpt`` (names sort by step): ``state_dict`` with
+the model's weights and BatchNorm statistics under ``model.`` and the EMA
+shadow under ``model_ema.`` (the dots of each name removed, as LitEma keys
+it), which the ``ASRProcess`` of both packages reads; ``global_step``;
+``optimizer_states`` (Adam's moments and count, in ``torch.optim.Adam``'s
+state_dict layout); and the accumulated gradient with ``mini_step``.
+Restoring one gives back the whole train state.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
+import shutil
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -37,9 +55,12 @@ from lasr_tpu_torch.data.frontend import DeviceFrontend, pack_s2s
 from lasr_tpu_torch.modules.dropout import dropout_generator
 from lasr_tpu_torch.train.ema import ema_init, ema_update
 from lasr_tpu_torch.train.optimizer import clip_by_global_norm, global_norm
+from lasr_tpu_torch.utils.weights import checkpoint_name, checkpoint_steps
 
 METRICS = ("loss_main", "att_loss", "ctc_loss", "att_corr", "ctc_cer",
            "grad_norm")
+# best/'s index: {file name: valid_loss_main}
+BEST_INDEX = "valid_loss.json"
 
 
 @dataclass
@@ -65,15 +86,19 @@ class Trainer:
                  tokenizer=None, exp_dir: Optional[str] = None,
                  use_ema: bool = False, ema_decay: float = 0.9999,
                  grad_clip: float = 5.0, acc_grads: int = 1, seed: int = 0,
-                 log_interval: int = 50, device=None):
-        """``optimizer``: an ``Adam`` / ``Noam`` descriptor or the update
-        ``build_optimizer`` returns.  ``device=None`` means CUDA (raises
-        without a GPU); the model must already live there."""
+                 log_interval: int = 50, checkpoint_keep: int = 10,
+                 schedule=None, device=None):
+        """``optimizer``: an ``Adam`` / ``Noam`` descriptor (made with
+        ``schedule``) or the update ``build_optimizer`` returns;
+        ``schedule`` is also what ``metrics.jsonl``'s ``lr`` reads.
+        ``device=None`` means CUDA (raises without a GPU); the model must
+        already live there."""
         self.device = resolve_device(device)
         self.model = model
         self.criterion = criterion
-        self.optimizer = optimizer.make() if hasattr(optimizer, "make") \
-            else optimizer
+        self.optimizer = optimizer.make(schedule) \
+            if hasattr(optimizer, "make") else optimizer
+        self.schedule = schedule
         self.frontend = frontend
         self.tokenizer = tokenizer
         self.exp_dir = exp_dir
@@ -82,6 +107,8 @@ class Trainer:
         self.grad_clip = grad_clip
         self.acc_grads = acc_grads
         self.seed = seed
+        self.log_interval = log_interval
+        self.checkpoint_keep = checkpoint_keep
         self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for _, p in model.named_parameters()]
         self.sos = tokenizer.ID_VALUE_SOS if tokenizer else 1
@@ -192,17 +219,12 @@ class Trainer:
         with open(os.path.join(self.exp_dir, "hparams.yaml"), "w") as f:
             yaml.safe_dump(configs, f, sort_keys=False, allow_unicode=True)
 
-    def save_checkpoint(self, state: TrainState,
-                        path: Optional[str] = None) -> str:
-        """Write the reference Lightning ``.ckpt`` (model weights and
-        BatchNorm statistics under ``model.``, the EMA shadow under
-        ``model_ema.`` with the dots of each name removed, as LitEma keys
-        it); returns its path (default ``exp_dir/checkpoints/
-        step-<step>.ckpt``)."""
-        if path is None:
-            path = os.path.join(self.exp_dir, "checkpoints",
-                                f"step-{state.step}.ckpt")
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    def _checkpoint_root(self) -> str:
+        return os.path.join(os.path.abspath(self.exp_dir), "checkpoints")
+
+    def _checkpoint_blob(self, state: TrainState,
+                         valid_loss: Optional[float]) -> Dict:
+        cpu = lambda ts: [t.detach().cpu() for t in ts]  # noqa: E731
         sd = {f"model.{k}": v.detach().cpu()
               for k, v in self.model.state_dict().items()}
         if state.ema is not None:
@@ -212,5 +234,295 @@ class Trainer:
                                                  dtype=torch.float32)
             sd["model_ema.num_updates"] = torch.tensor(
                 state.ema["num_updates"], dtype=torch.int32)
-        torch.save({"state_dict": sd, "global_step": state.step}, path)
-        return path
+        # Adam's moments and count in torch.optim.Adam's state_dict layout
+        opt, adam = state.opt_state, self.optimizer
+        count = torch.tensor(float(opt["count"]))
+        optimizer_state = {
+            "state": {i: {"step": count, "exp_avg": mu, "exp_avg_sq": nu}
+                      for i, (mu, nu) in enumerate(zip(cpu(opt["mu"]),
+                                                       cpu(opt["nu"])))},
+            "param_groups": [{
+                "params": list(range(len(self.params))),
+                "lr": adam.learning_rate(opt["count"]),
+                "betas": (adam.b1, adam.b2), "eps": adam.eps,
+                "weight_decay": adam.weight_decay}]}
+        return {"state_dict": sd, "global_step": state.step,
+                "optimizer_states": [optimizer_state],
+                "accumulated_grads": (None if state.acc_grads is None
+                                      else cpu(state.acc_grads)),
+                "mini_step": state.mini_step,
+                "valid_loss_main": valid_loss}
+
+    def save_checkpoint(self, state: TrainState,
+                        valid_metrics: Optional[Dict] = None,
+                        path: Optional[str] = None) -> str:
+        """Write the whole train state as a reference Lightning ``.ckpt``
+        and return its path.
+
+        With ``path`` the file goes there and nothing else is touched.
+        Otherwise it becomes ``exp_dir/checkpoints/last/<checkpoint_name>``
+        and the oldest beyond ``checkpoint_keep`` are deleted; with
+        ``valid_metrics`` it also enters ``best/`` (a hard link where the
+        file system allows), which keeps the ``checkpoint_keep`` lowest
+        ``valid_metrics["loss_main"]``."""
+        valid_loss = None if not valid_metrics \
+            else float(valid_metrics["loss_main"])
+        blob = self._checkpoint_blob(state, valid_loss)
+        if path is not None:
+            _atomic_save(blob, path)
+            return path
+        root = self._checkpoint_root()
+        name = checkpoint_name(state.step)
+        last = os.path.join(root, "last", name)
+        _atomic_save(blob, last)
+        kept = checkpoint_steps(os.path.dirname(last))
+        for step in sorted(kept)[:-self.checkpoint_keep]:
+            os.remove(os.path.join(os.path.dirname(last), kept[step]))
+        if valid_loss is not None:
+            best_dir = os.path.join(root, "best")
+            os.makedirs(best_dir, exist_ok=True)
+            index_path = os.path.join(best_dir, BEST_INDEX)
+            index = _read_json(index_path)
+            best = os.path.join(best_dir, name)
+            if os.path.exists(best):
+                os.remove(best)
+            try:
+                os.link(last, best)
+            except OSError:
+                shutil.copyfile(last, best)
+            index[name] = valid_loss
+            kept = sorted(index, key=lambda n: (index[n], n))
+            for n in kept[self.checkpoint_keep:]:
+                del index[n]
+                if os.path.exists(os.path.join(best_dir, n)):
+                    os.remove(os.path.join(best_dir, n))
+            _atomic_json(index, index_path)
+        return last
+
+    def latest_step(self) -> Optional[int]:
+        """The newest step in ``exp_dir/checkpoints/last``, or None."""
+        steps = checkpoint_steps(os.path.join(self._checkpoint_root(),
+                                              "last"))
+        return max(steps) if steps else None
+
+    def restore_checkpoint(self, path: Optional[str] = None,
+                           step: Optional[int] = None) -> TrainState:
+        """Load a checkpoint of ``save_checkpoint`` back onto the trainer's
+        device: the model's weights and BatchNorm statistics in place, and
+        the returned ``TrainState`` (step, Adam moments and count, the
+        EMA, the accumulated gradient and ``mini_step``).  ``path`` names a
+        file; otherwise ``step`` (default: the newest) of
+        ``exp_dir/checkpoints/last``."""
+        if path is None:
+            step = self.latest_step() if step is None else step
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint under {self._checkpoint_root()}/last")
+            path = os.path.join(self._checkpoint_root(), "last",
+                                checkpoint_name(step))
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        sd = blob["state_dict"]
+        model_sd = {k[len("model."):]: v for k, v in sd.items()
+                    if k.startswith("model.")}
+        self.model.load_state_dict(model_sd)
+        dev = lambda ts: [t.to(self.device) for t in ts]  # noqa: E731
+        opt = blob["optimizer_states"][0]["state"]
+        order = range(len(self.params))
+        opt_state = {"count": int(opt[0]["step"]) if opt else 0,
+                     "mu": dev([opt[i]["exp_avg"] for i in order]),
+                     "nu": dev([opt[i]["exp_avg_sq"] for i in order])}
+        ema = None
+        if self.use_ema:
+            ema = {"shadow": dev([sd["model_ema." + n.replace(".", "")]
+                                  for n in self.names]),
+                   "num_updates": int(sd["model_ema.num_updates"])}
+        acc = blob.get("accumulated_grads")
+        return TrainState(step=int(blob["global_step"]), opt_state=opt_state,
+                          ema=ema, acc_grads=None if acc is None else dev(acc),
+                          mini_step=int(blob.get("mini_step", 0)))
+
+    # the loop state (epoch, batch index within it) of each saved step, so
+    # a resumed run re-enters the same deterministic batch order mid-epoch
+    def _loop_state_path(self) -> str:
+        return os.path.join(self._checkpoint_root(), "loop_state.json")
+
+    def _write_loop_state(self, step: int, epoch: int, batch_idx: int):
+        path = self._loop_state_path()
+        hist = _read_json(path)
+        hist[str(step)] = [epoch, batch_idx]
+        hist = dict(sorted(hist.items(), key=lambda kv: int(kv[0]))[-50:])
+        _atomic_json(hist, path)
+
+    def _read_loop_state(self, step: int):
+        entry = _read_json(self._loop_state_path()).get(str(step))
+        return None if entry is None else (int(entry[0]), int(entry[1]))
+
+    # ---- the loop ----
+
+    def fit(self, state: TrainState, train_dataset, valid_dataset=None,
+            num_epochs: int = 1, num_workers: int = 4,
+            save_checkpoints: bool = True,
+            checkpoint_interval_steps: int = 0,
+            auto_resume: bool = False,
+            valid_interval_epochs: int = 1,
+            checkpoint_interval_epochs: int = 1,
+            max_wall_secs: float = 0.0,
+            wall_t0: Optional[float] = None) -> TrainState:
+        """Run the training loop, as ``lasr_tpu``'s ``Trainer.fit``.
+
+        ``auto_resume`` restores the newest checkpoint of ``last/`` and
+        its loop state; ``checkpoint_interval_steps`` > 0 also checkpoints
+        every N steps mid-epoch; validation and the epoch's checkpoint run
+        every ``valid_interval_epochs`` / ``checkpoint_interval_epochs``
+        epochs and always after the last; ``max_wall_secs`` > 0
+        checkpoints and stops at the first epoch boundary past that many
+        seconds since ``wall_t0``."""
+        start_epoch, start_skip = 0, 0
+        if auto_resume and self.exp_dir:
+            latest = self.latest_step()
+            if latest is not None:
+                state = self.restore_checkpoint(step=latest)
+                loop = self._read_loop_state(latest)
+                if loop is not None:
+                    start_epoch, start_skip = loop
+                logging.info("auto-resumed from step %d (epoch %d, "
+                             "batch %d)", latest, start_epoch, start_skip)
+        metrics_path = None
+        if self.exp_dir:
+            os.makedirs(self.exp_dir, exist_ok=True)
+            metrics_path = os.path.join(self.exp_dir, "metrics.jsonl")
+        save = save_checkpoints and bool(self.exp_dir)
+        t0 = time.time()
+        wall_t0 = time.time() if wall_t0 is None else wall_t0
+        for epoch in range(start_epoch, num_epochs):
+            if max_wall_secs and time.time() - wall_t0 > max_wall_secs \
+                    and epoch > start_epoch:
+                logging.info("wall deadline (%.0fs) reached at epoch %d; "
+                             "checkpointing and exiting cleanly",
+                             max_wall_secs, epoch)
+                if save:
+                    self.save_checkpoint(state)
+                    self._write_loop_state(state.step, epoch, 0)
+                break
+            skip = start_skip if epoch == start_epoch else 0
+            batch_idx = skip
+            pending = []
+            # host time blocked on the next batch vs time in the step (the
+            # step ends in its metrics' host copy, so this includes the
+            # device's time)
+            t_data = t_disp = 0.0
+            t_mark = time.perf_counter()
+            for batch in train_dataset.batches(
+                    shuffle=True, seed=self.seed + epoch,
+                    num_workers=num_workers, skip=skip):
+                t_data += time.perf_counter() - t_mark
+                t_mark = time.perf_counter()
+                state, metrics = self.train_step(state, batch)
+                t_disp += time.perf_counter() - t_mark
+                batch_idx += 1
+                pending.append((state.step, metrics, batch["n_utts"]))
+                if len(pending) >= self.log_interval:
+                    self._flush_metrics(pending, epoch, metrics_path, t0,
+                                        t_data, t_disp)
+                    pending = []
+                    t_data = t_disp = 0.0
+                if checkpoint_interval_steps and save and \
+                        state.step % checkpoint_interval_steps == 0:
+                    self.save_checkpoint(state)
+                    self._write_loop_state(state.step, epoch, batch_idx)
+                t_mark = time.perf_counter()
+            if pending:
+                self._flush_metrics(pending, epoch, metrics_path, t0,
+                                    t_data, t_disp)
+            last_epoch = epoch == num_epochs - 1
+            valid_metrics = None
+            if valid_dataset is not None and (
+                    last_epoch or (epoch + 1) % valid_interval_epochs == 0):
+                valid_metrics = self.validate(state, valid_dataset)
+                logging.info("epoch %d valid: %s", epoch,
+                             {k: round(v, 4) for k, v in
+                              valid_metrics.items()})
+                if metrics_path:
+                    _append_line(metrics_path, {
+                        "epoch": epoch, "step": state.step,
+                        **{"valid_" + k: v
+                           for k, v in valid_metrics.items()}})
+            if save and (last_epoch
+                         or (epoch + 1) % checkpoint_interval_epochs == 0):
+                self.save_checkpoint(state, valid_metrics)
+                self._write_loop_state(state.step, epoch + 1, 0)
+        return state
+
+    def validate(self, state: TrainState, valid_dataset,
+                 num_workers: int = 2) -> Dict[str, float]:
+        """The mean of each per-batch metric over the dataset (batches
+        tagged ``order_pad`` are not scored), EMA weights when
+        ``use_ema``."""
+        totals: Dict[str, float] = {}
+        n_batches = 0
+        for batch in valid_dataset.batches(num_workers=num_workers):
+            metrics = self.valid_step(state, batch)
+            if batch.get("order_pad"):
+                continue
+            for k, v in metrics.items():
+                if k != "n_utts":
+                    totals[k] = totals.get(k, 0.0) + v
+            n_batches += 1
+        return {k: v / max(n_batches, 1) for k, v in totals.items()}
+
+    def _flush_metrics(self, pending, epoch, metrics_path, t0,
+                       t_data: float = 0.0, t_disp: float = 0.0):
+        step, host, _ = pending[-1]
+        host = dict(host)
+        utts = sum(n for _, _, n in pending)
+        # ctc_cer is computed on steps that are multiples of its interval
+        # (-1 elsewhere): a flush whose last step did not compute it reads
+        # the newest step that did, or leaves it out
+        interval = getattr(self.criterion, "ctc_cer_interval", None) or 1
+        if host.get("ctc_cer", 0.0) == -1.0 and interval > 1:
+            for s, m, _ in reversed(pending[:-1]):
+                if s % interval == 0:
+                    host["ctc_cer"] = m["ctc_cer"]
+                    break
+            else:
+                host.pop("ctc_cer", None)
+        line = {"epoch": epoch, "step": step,
+                "utts_cum": utts, "wall_s": round(time.time() - t0, 2),
+                "data_wait_s": round(t_data, 2),
+                "dispatch_s": round(t_disp, 2),
+                **{k: float(v) for k, v in host.items()}}
+        if self.schedule is not None:
+            line["lr"] = float(self.schedule(
+                max(step // max(self.acc_grads, 1) - 1, 0)))
+        logging.info("train %s", {k: (round(v, 4) if isinstance(v, float)
+                                      else v) for k, v in line.items()})
+        if metrics_path:
+            _append_line(metrics_path, line)
+
+
+def _atomic_save(blob: Dict, path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+
+
+def _read_json(path: str) -> Dict:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def _atomic_json(obj: Dict, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _append_line(path: str, line: Dict) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps(line) + "\n")

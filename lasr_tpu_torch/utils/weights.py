@@ -20,20 +20,45 @@ Layouts: Linear (in,out) → (out,in); Conv2d (kh,kw,in,out) →
 ``state_dict_to_numpy`` is the step back: a trained state_dict as numpy
 arrays, which ``lasr_tpu``'s ``torch_to_flax`` reads.
 
-``load_reference_checkpoint`` reads a lighting-asr ``.pt``/``.ckpt`` file
-or averages a directory of ``.ckpt`` files (the reference's selection
-semantics), splits the Lightning ``model.`` / ``model_ema.`` prefixes and
-prefers the EMA shadow.
+``load_reference_checkpoint`` reads a lighting-asr ``.pt``/``.ckpt`` file,
+or averages a directory of checkpoints, splits the Lightning ``model.`` /
+``model_ema.`` prefixes and prefers the EMA shadow.  A directory is a
+checkpoints root of the port's ``Trainer`` (``…/checkpoints``, whose
+``last/`` or ``best/`` the ``choose`` argument selects, or one of those
+two): its ``avg`` highest steps are averaged, as ``lasr_tpu``'s
+``average_checkpoints`` picks them; or a directory of other ``.ckpt``
+files, averaged with the reference's filename-sort rule.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import re
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+
+CHECKPOINT_NAME = re.compile(r"step-(\d+)\.ckpt")
+
+
+def checkpoint_name(step: int) -> str:
+    """The port's checkpoint file name: ``step-<step>.ckpt`` with the step
+    zero-padded to 9 digits, so the reference's filename sort is the step
+    order."""
+    return f"step-{step:09d}.ckpt"
+
+
+def checkpoint_steps(directory: str) -> Dict[int, str]:
+    """{step: file name} of the port's checkpoints in ``directory``."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return {}
+    return {int(m.group(1)): n for n in names
+            if (m := CHECKPOINT_NAME.fullmatch(n))}
 
 
 def _flatten(tree, prefix=()):
@@ -166,18 +191,57 @@ def average_reference_checkpoints(path: str, choose: str = "best",
     return total, names
 
 
+def average_port_checkpoints(path: str, avg: int = 1):
+    """Average the ``avg`` highest steps of the port's checkpoints under
+    ``path``: float entries (weights, BatchNorm statistics, the EMA) as
+    float64 means cast back to their dtype, integer entries the newest
+    checkpoint's.  Returns ``(state_dict, chosen_filenames)``."""
+    steps = checkpoint_steps(path)
+    names = [steps[s] for s in sorted(steps, reverse=True)[:avg]]
+    if not names:
+        raise FileNotFoundError(f"no checkpoints under {path}")
+    def floats(v):
+        return torch.is_tensor(v) and torch.is_floating_point(v)
+
+    total, dtypes = None, None
+    for name in names:
+        state = _read(os.path.join(path, name))
+        if total is None:
+            dtypes = {k: v.dtype for k, v in state.items() if floats(v)}
+            total = {k: v.double() if floats(v) else v
+                     for k, v in state.items()}
+        else:
+            for k in dtypes:
+                total[k] += state[k].double()
+    return {k: (v / len(names)).to(dtypes[k]) if k in dtypes else v
+            for k, v in total.items()}, names
+
+
+def load_averaged_state_dict(path: str, choose: str = "last",
+                             avg: int = 1) -> Dict:
+    """The Lightning state_dict of a checkpoint file, or the average of a
+    directory's checkpoints (see the module docstring for which)."""
+    if os.path.isfile(path):
+        return _read(path)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(path)
+    sub = os.path.join(path, choose)
+    directory = sub if os.path.isdir(sub) else path
+    ckpts = [n for n in os.listdir(directory) if n.endswith(".ckpt")]
+    if ckpts and len(checkpoint_steps(directory)) == len(ckpts):
+        state, chosen = average_port_checkpoints(directory, avg)
+    else:
+        state, chosen = average_reference_checkpoints(directory, choose, avg)
+    logging.info("averaged checkpoints of %s: %s", directory, chosen)
+    return state
+
+
 def load_reference_checkpoint(path: str, choose: str = "last", avg: int = 1,
                               prefer_ema: bool = True) -> Dict:
-    """Model state_dict from a reference ``.pt``/``.ckpt`` file, or the
-    average of a directory of ``.ckpt`` files."""
-    if os.path.isfile(path):
-        state = _read(path)
-    elif os.path.isdir(path):
-        state, chosen = average_reference_checkpoints(path, choose, avg)
-        logging.info("averaged reference checkpoints: %s", chosen)
-    else:
-        raise FileNotFoundError(path)
-    return _model_state(state, prefer_ema)
+    """Model state_dict from a checkpoint file or the average of a
+    directory's checkpoints, EMA shadow preferred."""
+    return _model_state(load_averaged_state_dict(path, choose, avg),
+                        prefer_ema)
 
 
 def load_model_weights(model: torch.nn.Module, state_dict: Dict) -> None:

@@ -26,6 +26,9 @@ from lasr_tpu_torch.ops.rot_attention import (
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# parameters whose true gradient is 0: the softmax removes q·b_k, the
+# train-mode BatchNorm removes the depthwise conv's bias
+ZERO_GRADIENT_LEAVES = ("linear_k.bias", "depthwise_conv.bias")
 
 
 def _card():
@@ -363,9 +366,75 @@ def test_model_gradients_kernel_path_match_plain_path(flags, plain):
     top = max(float(g.abs().max()) for g in grads_p)
     names = [n for n, _ in base.named_parameters()]
     for name, a, b in zip(names, grads_k, grads_p):
-        if name.endswith(("linear_k.bias", "depthwise_conv.bias")):
+        if name.endswith(ZERO_GRADIENT_LEAVES):
             assert max(float(a.abs().max()), float(b.abs().max())) \
                 <= 1e-4 * top, name
         else:
             assert float((a - b).abs().max()) <= 1e-3 * float(
                 b.abs().max()), name
+
+
+def test_fit_cli_epoch_through_rel_kernels(tmp_path):
+    """The train CLI on the card: a narrow B-train Conformer (2 blocks, 2
+    heads of 16) on a 6-utterance corpus in batches of 3 and a 2-utterance
+    dev set.  One epoch launches K3 twice per train step and validation
+    batch and K4 twice per step; a run of 1 epoch resumed to 2 ends within
+    1e-4 of an unbroken run of 2: the metric lines relative to each
+    value, the weights (EMA included) against their largest magnitude.
+    The zero-gradient leaves (a key bias; the depthwise bias before a
+    BatchNorm) are left out of the weights: no output depends on them,
+    their gradient is rounding noise that Adam turns into steps of +-lr
+    (~1e-3 here), and the card's backward is not bitwise repeatable, so
+    their signs differ between any two runs (1.05e-3 apart in a
+    depthwise bias on the card)."""
+    _card()
+    import json
+    from lasr_tpu_torch.bin import train
+    from lasr_tpu_torch.utils.weights import checkpoint_name
+    from tests.test_torch_port_cli import (TINY_CONFORMER, write_config,
+                                           write_corpus)
+    corpus = dict(n8=0, secs=(0.6, 1.4), n_words=(1, 3), word_len=(1, 4))
+    trainset = write_corpus(str(tmp_path / "train"), n16=6, seed=1, **corpus)
+    devset = write_corpus(str(tmp_path / "dev"), n16=2, seed=2, **corpus)
+    config = write_config(
+        str(tmp_path / "config.yaml"), trainset, devset,
+        dict(TINY_CONFORMER, encoder_attention_dim=32,
+             decoder_attention_dim=32, encoder_use_pallas_attention=True),
+        train_batch=3, valid_batch=2, warm_step=100)
+
+    def run(exp, epochs):
+        rel_attention_forward.launches = rel_attention_backward.launches = 0
+        assert train.main(["-config", config, "-exp_dir", str(tmp_path / exp),
+                           "-num_epochs", str(epochs), "-ema", "1",
+                           "-log_interval", "1", "-num_workers", "2"]) == 0
+        torch.cuda.synchronize()
+        with open(tmp_path / exp / "metrics.jsonl") as f:
+            lines = [json.loads(line) for line in f]
+        return (rel_attention_forward.launches,
+                rel_attention_backward.launches, lines)
+
+    fwd, bwd, lines = run("resumed", 1)
+    assert (fwd, bwd) == (2 * (2 + 1), 2 * 2)
+    assert all(np.isfinite(v) for x in lines for v in x.values()
+               if isinstance(v, float))
+    _, _, full = run("unbroken", 2)
+    fwd, bwd, resumed = run("resumed", 2)
+    assert (fwd, bwd) == (2 * (2 + 1), 2 * 2)
+    tail = [x for x in resumed if x["epoch"] == 1]
+    want = [x for x in full if x["epoch"] == 1]
+    assert len(tail) == len(want) == 3
+    for a, b in zip(tail, want):
+        for k in ("loss_main", "grad_norm", "lr", "valid_loss_main"):
+            if k in b:
+                assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), k
+    sd = [torch.load(tmp_path / exp / "checkpoints" / "last" /
+                     checkpoint_name(4), map_location="cpu",
+                     weights_only=False)["state_dict"]
+          for exp in ("resumed", "unbroken")]
+    noise = tuple(n.replace(".", "") for n in ZERO_GRADIENT_LEAVES)
+    floats = [k for k, v in sd[1].items() if torch.is_floating_point(v)
+              and not k.replace(".", "").endswith(noise)]
+    assert len(floats) < len(sd[1])
+    top = max(float(sd[1][k].abs().max()) for k in floats)
+    for k in floats:
+        assert float((sd[0][k] - sd[1][k]).abs().max()) <= 1e-4 * top, k

@@ -67,13 +67,19 @@ def test_no_source_names_jax_or_lasr_tpu_in_an_import():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model", "decoder",
-                                   "asrprocess"])
+                                   "asrprocess", "trainer", "train_cli",
+                                   "decode_cli"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from lasr_tpu_torch import resolve_device
     from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
     from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.bin import decode, train
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.models.losses import E2E_Loss
     from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from lasr_tpu_torch.train.optimizer import Adam
+    from lasr_tpu_torch.train.trainer import Trainer
     tiny = dict(idim=20, odim=9, encoder_attention_dim=16,
                 encoder_attention_heads=2, encoder_linear_units=32,
                 encoder_num_blocks=1, decoder_attention_dim=16,
@@ -87,6 +93,16 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
         "asrprocess": lambda: ASRProcess(str(tmp_path / "h.yaml"),
                                          str(tmp_path / "d.yaml"),
                                          str(tmp_path / "m.pt")),
+        "trainer": lambda: Trainer(E2E_Conformer_CTC(**tiny, device="cpu"),
+                                   E2E_Loss(9), Adam(),
+                                   DeviceFrontend(["fbank:20"])),
+        "train_cli": lambda: train.main(["-config", str(tmp_path / "c.yaml"),
+                                         "-exp_dir", str(tmp_path)]),
+        "decode_cli": lambda: decode.main([
+            "-model_path", str(tmp_path), "-train_config",
+            str(tmp_path / "h.yaml"), "-decode_config",
+            str(tmp_path / "d.yaml"), "-output_file",
+            str(tmp_path / "o.txt")]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
