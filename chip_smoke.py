@@ -57,6 +57,27 @@ Phases, always all of them, in this order:
            {"fit_b": ...} line: steps, step times (also per second of
            audio, beside train_b's), data_wait_s / dispatch_s per epoch,
            valid losses, the resume's differences, decode RTFs.
+  stream   the streaming family at full width (tools/bench_streaming.py's
+           E2E_Transformer_CTC_Online: d=320, 8 heads, 2048 units, 12
+           blocks, chunks 64/64/64, decoder 6 x 320/8/8/2048, odim 5002,
+           f32, seeded): (a) the chunked encoder on B=4 x 4 s with ragged
+           key lengths, the card against the same code on the CPU and
+           against its own encode_chunk sequence, both within 1e-3; (b)
+           one seeded 10 s stream through StreamingRecognizer in 160 ms
+           pieces (the CTC bias centred on the stream's mean logit so the
+           greedy output varies): greedy tokens equal to the batch
+           forward's, a frame whose argmax differs allowed only as a tie
+           within twice the two paths' logit difference; per-chunk
+           latency p50 / p95 (the calls that dispatch a chunk) and the
+           RTF; (c) a port checkpoint decoded by ``python -m
+           lasr_tpu_torch.bin.decode`` with ctc_att_online (beam 10,
+           ctc_beam 15, ctc_weight 0.5) on 4 seeded 4 s WAVs, and
+           ASRProcess giving row 0; the online search's ms per token step
+           and the device ops of one online decoder step (the endpoint
+           chain's share beside the untruncated step); (d) the offline
+           E2E_Transformer_CTC at the same widths decoded once (ctc_att).
+           No TPU kernel lies on this path: K1-K4's launches in the phase
+           are counted (0).  Prints a {"stream": ...} line.
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -771,37 +792,49 @@ RECIPE_CONFIG = os.path.join("example", "asr_en", "conf",
 LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
 
 
-def _fit_corpus(tmp, seed):
-    """wav.scp / text of the train and dev sets under ``tmp`` and a
-    CharTokenizer dictionary of the recipe's size: the letters and the
-    space first, then fillers.  Returns (train dir, dev dir, dict path)."""
-    from lasr_tpu_torch.data.reader import write_wav
-    rng = np.random.default_rng(seed)
+def _char_dict(tmp, odim):
+    """A CharTokenizer dictionary of ``odim`` ids: the letters and the
+    space first, then fillers."""
     dict_path = os.path.join(tmp, "dict.txt")
-    fillers = RECIPE["odim"] - 6 - len(LETTERS) - 1
+    fillers = odim - 6 - len(LETTERS) - 1
     with open(dict_path, "w") as f:
         f.write("\n".join(list(LETTERS) + [" "]
                           + [f"T{i}" for i in range(fillers)]) + "\n")
-    dirs = []
-    for split, n in (("train", FIT_TRAIN), ("dev", FIT_DEV)):
-        d = os.path.join(tmp, split)
-        os.makedirs(d)
-        with open(os.path.join(d, "wav.scp"), "w") as ws, \
-                open(os.path.join(d, "text"), "w") as tx:
-            for i in range(n):
-                secs = rng.uniform(*FIT_SECS) if split == "train" \
-                    else FIT_DEV_SECS
-                path = os.path.join(d, f"{split}{i:03d}.wav")
-                write_wav(path, _pcm16(_wave(
-                    rng, np.arange(int(secs * SR)) / SR)), SR)
-                words = []
-                while sum(len(w) + 1 for w in words) < secs * FIT_CHARS_PER_S:
-                    words.append("".join(rng.choice(list(LETTERS),
-                                                    rng.integers(2, 8))))
-                ws.write(f"{split}{i:03d} {path}\n")
-                tx.write(f"{split}{i:03d} {' '.join(words)}\n")
-        dirs.append(d)
-    return dirs[0], dirs[1], dict_path
+    return dict_path
+
+
+def _write_split(tmp, split, n, draw_secs, rng):
+    """``n`` seeded WAVs of ``draw_secs()`` seconds each, with letter
+    transcripts, as ``tmp/split/{wav.scp,text}``.  Returns the directory."""
+    from lasr_tpu_torch.data.reader import write_wav
+    d = os.path.join(tmp, split)
+    os.makedirs(d)
+    with open(os.path.join(d, "wav.scp"), "w") as ws, \
+            open(os.path.join(d, "text"), "w") as tx:
+        for i in range(n):
+            secs = draw_secs()
+            path = os.path.join(d, f"{split}{i:03d}.wav")
+            write_wav(path, _pcm16(_wave(
+                rng, np.arange(int(secs * SR)) / SR)), SR)
+            words = []
+            while sum(len(w) + 1 for w in words) < secs * FIT_CHARS_PER_S:
+                words.append("".join(rng.choice(list(LETTERS),
+                                                rng.integers(2, 8))))
+            ws.write(f"{split}{i:03d} {path}\n")
+            tx.write(f"{split}{i:03d} {' '.join(words)}\n")
+    return d
+
+
+def _fit_corpus(tmp, seed):
+    """wav.scp / text of the train and dev sets under ``tmp`` and a
+    CharTokenizer dictionary of the recipe's size.  Returns (train dir,
+    dev dir, dict path)."""
+    rng = np.random.default_rng(seed)
+    dict_path = _char_dict(tmp, RECIPE["odim"])
+    train = _write_split(tmp, "train", FIT_TRAIN,
+                         lambda: rng.uniform(*FIT_SECS), rng)
+    dev = _write_split(tmp, "dev", FIT_DEV, lambda: FIT_DEV_SECS, rng)
+    return train, dev, dict_path
 
 
 def _fit_configs(tmp, train, dev, dict_path):
@@ -1078,6 +1111,354 @@ def phase_fit_b(state):
         state["timings"][label] = dict(run_a_s=wall_a, **summary)
 
 
+# the stream phase: tools/bench_streaming.py's online model at full width
+# (f32), and the offline Transformer at the same widths
+STREAM = dict(
+    idim=80, odim=5002, encoder_attention_dim=320, encoder_attention_heads=8,
+    encoder_left_chunk=64, encoder_center_chunk=64, encoder_right_chunk=64,
+    encoder_linear_units=2048, encoder_num_blocks=12,
+    decoder_attention_dim=320, decoder_self_attention_heads=8,
+    decoder_src_attention_heads=8, decoder_linear_units=2048,
+    decoder_num_block=6)
+TRANSFORMER = dict(
+    idim=80, odim=5002, encoder_attention_dim=320, encoder_attention_heads=8,
+    encoder_linear_units=2048, encoder_num_blocks=12,
+    decoder_attention_dim=320, decoder_attention_heads=8,
+    decoder_linear_units=2048, decoder_num_block=6)
+STREAM_SECS, STREAM_PIECE_SECS = 10.0, 0.16
+STREAM_UTTS, STREAM_UTT_SECS = 4, 4.0
+# frames cut from the batch rows' key lengths in check (a): ragged masks
+STREAM_CUTS = (0, 37, 80, 151)
+
+
+def _counted(obj, name, calls):
+    """Count the calls of ``obj.name`` in ``calls[0]`` (an instance
+    attribute shadowing the method; ``del obj.name`` restores it)."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+    setattr(obj, name, wrapped)
+
+
+def _device_launches(fn):
+    """Device ops (kernels and copies) ``fn()`` launches, counted by
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation)
+
+
+def _search_timed(decoder, model, step_name, hs, hs_len, lpz):
+    """(hypotheses, seconds, token steps) of one beam search."""
+    import torch
+    steps = [0]
+    _counted(model, step_name, steps)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hyps = decoder.search(hs, hs_len, lpz, decoder.max_len(hs.shape[1]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    delattr(model, step_name)
+    return hyps, dt, steps[0]
+
+
+def phase_stream(state):
+    """The streaming family at full width: the chunked encoder on the card
+    against the CPU and against its own chunk-by-chunk serving, the
+    StreamingRecognizer on a 10 s stream, the decode CLI and ASRProcess
+    with ctc_att_online, and the offline Transformer's decode."""
+    import torch
+    import torch.nn.functional as F
+    import yaml
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.data.reader import read_scp
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    from lasr_tpu_torch.decode.greedy import ctc_greedy_decode
+    from lasr_tpu_torch.decode.online import StreamingRecognizer
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Transformer_CTC
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    from lasr_tpu_torch.modules.streaming import _chunk_grid
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
+                                                  rot_attention_forward)
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    label, seed, card = "stream", state["seed"], state["card"]
+    kernels = {"rot_attention_fwd": rot_attention_forward,
+               "rot_attention_bwd": rot_attention_backward,
+               "rel_attention_fwd": rel_attention_forward,
+               "rel_attention_bwd": rel_attention_backward}
+    for fn in kernels.values():
+        fn.launches = 0
+    summary = {"card": card}
+    torch.manual_seed(seed)
+    model = E2E_Transformer_CTC_Online(**STREAM)
+    dev = next(model.parameters()).device
+    chunk = STREAM["encoder_center_chunk"]
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+    wav = torch.from_numpy(make_waves(seed + 6, STREAM_UTTS,
+                                      STREAM_UTT_SECS)).to(dev)
+    wav_len = torch.full((STREAM_UTTS,), wav.shape[1], dtype=torch.int32,
+                         device=dev)
+
+    # (a) the batch chunked encoder: the card against the CPU, and against
+    # its own chunk-by-chunk serving
+    with torch.no_grad():
+        for _ in range(2):      # the first call warms cuBLAS / cuDNN up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            feats, feat_len = frontend(wav, wav_len)
+            x_len = feat_len - torch.tensor(STREAM_CUTS, device=dev,
+                                            dtype=feat_len.dtype)
+            hs, hs_len = model.encode_online(feats, x_len)
+            torch.cuda.synchronize()
+        summary["encode_ms"] = (time.perf_counter() - t) * 1e3
+        cpu = E2E_Transformer_CTC_Online(**STREAM, device="cpu")
+        load_model_weights(cpu, model.state_dict())
+        hs_cpu, len_cpu = cpu.encode_online(feats.cpu(), x_len.cpu())
+        del cpu
+        enc = model.encoder
+        T = feats.shape[1]
+        x_pad = F.pad(feats, (0, 0, 0, 2 * chunk + 6))
+        mems = enc.init_stream_state(STREAM_UTTS)
+        outs = []
+        for c in range(_chunk_grid(T, chunk, chunk, chunk)):
+            out, mems = enc.encode_chunk(
+                x_pad[:, c * chunk: c * chunk + 2 * chunk + 6], c, mems,
+                x_len)
+            outs.append(out)
+        inc = torch.cat(outs, dim=1)
+    err_cpu = float((hs.cpu() - hs_cpu).abs().max())
+    err_inc = max(float((inc[b, :n] - hs[b, :n]).abs().max())
+                  for b, n in enumerate(hs_len.tolist()))
+    log(f"{label}: (a) chunked encoder, B={STREAM_UTTS} x "
+        f"{STREAM_UTT_SECS:g} s (T={T}, key lengths {x_len.tolist()}, "
+        f"hs {tuple(hs.shape)}): card vs CPU max_abs {err_cpu:.3e}, batch "
+        f"vs encode_chunk sequence max_abs {err_inc:.3e} (tol 1e-3); "
+        f"frontend+encode {summary['encode_ms']:.2f} ms warm [{card}]")
+    check(torch.equal(hs_len.cpu(), len_cpu) and err_cpu <= 1e-3
+          and err_inc <= 1e-3 and bool(torch.isfinite(hs).all()),
+          f"{label}: (a) chunked encoder off by {err_cpu} (CPU) / "
+          f"{err_inc} (encode_chunk)")
+    summary.update(encoder_max_abs_cpu=err_cpu, encoder_max_abs_chunks=err_inc)
+
+    # (b) one seeded 10 s stream through StreamingRecognizer in 160 ms
+    # pieces; the CTC bias is centred on the stream's mean logit so the
+    # random head emits a varied greedy sequence
+    wave = make_waves(seed + 7, 1, STREAM_SECS)[0]
+    plain = DeviceFrontend(["fbank:80"])     # the recognizer's chain
+    with torch.no_grad():
+        f1, l1 = plain(torch.from_numpy(wave[None]).to(dev),
+                       torch.tensor([len(wave)], device=dev))
+        h1, n1 = model.encode_online(f1, l1)
+        model.ctc[1].bias -= model.ctc_logits(h1)[0, : int(n1)].mean(0)
+        logits1 = model.ctc_logits(h1)
+        want = ctc_greedy_decode(logits1, n1)[0]
+        top2 = logits1[0, : int(n1)].topk(2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+    rec = StreamingRecognizer(model)
+    # the logits of each harvested chunk's n_out frames, for the check
+    streamed = []
+    harvest = rec._harvest
+
+    def recorded(logits, hs, n_out, draining=False):
+        streamed.append(logits[0, :n_out].float())
+        return harvest(logits, hs, n_out, draining)
+    rec._harvest = recorded
+    piece = int(STREAM_PIECE_SECS * SR)
+    chunk_lat, total = [], 0.0
+    torch.cuda.synchronize()
+    for off in range(0, len(wave), piece):
+        before = rec._chunk_idx
+        t = time.perf_counter()
+        rec.accept_waveform(wave[off: off + piece])
+        dt = time.perf_counter() - t
+        total += dt
+        if rec._chunk_idx > before:
+            chunk_lat.append(dt)
+    t = time.perf_counter()
+    tokens, _ = rec.finalize()
+    torch.cuda.synchronize()
+    fin = time.perf_counter() - t
+    total += fin
+    p50, p95 = (float(np.percentile(chunk_lat, q)) * 1e3 for q in (50, 95))
+    # frames whose argmax differs between the streamed and the batch
+    # logits must be ties within the two paths' logit difference
+    streamed = torch.cat(streamed)
+    batch_logits = logits1[0, : int(n1)].float()
+    check(streamed.shape == batch_logits.shape,
+          f"{label}: (b) streamed {tuple(streamed.shape)} frames, batch "
+          f"{tuple(batch_logits.shape)}")
+    logit_err = float((streamed - batch_logits).abs().max())
+    flips = (streamed.argmax(-1) != batch_logits.argmax(-1)).nonzero()[:, 0]
+    gap = (top2[:, 0] - top2[:, 1])[flips]
+    ties = bool((gap <= 2 * logit_err).all())
+    log(f"{label}: (b) StreamingRecognizer, {STREAM_SECS:g} s in "
+        f"{STREAM_PIECE_SECS * 1e3:g} ms pieces: {len(chunk_lat)} calls "
+        f"dispatched a chunk ({chunk} frames = {chunk / 100:g} s hop), "
+        f"latency p50 {p50:.2f} ms p95 {p95:.2f} ms, finalize "
+        f"{fin * 1e3:.2f} ms, RTF {total / STREAM_SECS:.4f}; "
+        f"{len(tokens)} greedy tokens, equal to the batch forward's: "
+        f"{tokens == want}; logits streamed vs batch max_abs "
+        f"{logit_err:.3e}, {len(flips)} frames with another argmax, all "
+        f"ties within 2x that: {ties} (smallest top-2 margin of any frame "
+        f"{margin:.3e}) [{card}]")
+    check(tokens == want or (len(flips) > 0 and ties),
+          f"{label}: (b) streamed greedy tokens {tokens} differ from the "
+          f"batch forward's {want} beyond ties")
+    summary.update(chunk_latency_ms_p50=p50, chunk_latency_ms_p95=p95,
+                   finalize_ms=fin * 1e3, stream_rtf=total / STREAM_SECS,
+                   greedy_tokens=len(tokens), chunks=len(chunk_lat))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) a port checkpoint, the decode CLI with ctc_att_online on
+        # STREAM_UTTS seeded WAVs, ASRProcess on row 0
+        rng = np.random.default_rng(seed + 8)
+        dict_path = _char_dict(tmp, STREAM["odim"])
+        dev_dir = _write_split(tmp, "dev", STREAM_UTTS,
+                               lambda: STREAM_UTT_SECS, rng)
+        ckpt = os.path.join(tmp, "model.pt")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+        paths = {}
+        for name, cls, kw, method in (
+                ("online", "e2e_online:E2E_Transformer_CTC_Online", STREAM,
+                 "ctc_att_online"),
+                ("offline", "e2e_ctc_att:E2E_Transformer_CTC", TRANSFORMER,
+                 "ctc_att")):
+            paths[name] = [os.path.join(tmp, f"{name}_{x}.yaml")
+                           for x in ("hparams", "decode")]
+            with open(paths[name][0], "w") as f:
+                yaml.safe_dump({
+                    "model_config": {"name": f"lasr_tpu.models.{cls}",
+                                     "kwargs": kw},
+                    "tokenizer_config": {
+                        "name": "lasr_tpu.data.tokenizer:CharTokenizer",
+                        "kwargs": {"dict_path": dict_path}}}, f)
+            with open(paths[name][1], "w") as f:
+                yaml.safe_dump({
+                    "decode_config": dict(DECODE, decode_method=method),
+                    "test_data_config": {
+                        "name": "lasr_tpu.data.dataset:AudioDataSet",
+                        "kwargs": {
+                            "wav_list": [os.path.join(dev_dir, "wav.scp")],
+                            "text_list": [os.path.join(dev_dir, "text")],
+                            "audio_trans": ["norm", "fbank:80"]}}}, f)
+        out = os.path.join(tmp, "online.txt")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lasr_tpu_torch.bin.decode",
+             "-train_config", paths["online"][0],
+             "-decode_config", paths["online"][1], "-model_path", ckpt,
+             "-output_file", out], cwd=here, capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=here))
+        wall = time.perf_counter() - t
+        check(proc.returncode == 0, f"{label}: (c) decode CLI exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        text = proc.stdout.strip().splitlines()
+        rtf = json.loads(text[-1])
+        with open(out) as f:
+            rows = f.read().splitlines()
+        uid, wav0 = read_scp(os.path.join(dev_dir, "wav.scp"))[0]
+        asr = ASRProcess(paths["online"][0], paths["online"][1], ckpt)
+        _, hyp0 = asr(wav0)
+        row0 = rows[0].rsplit(" (", 1)
+        log(f"{label}: (c) python -m lasr_tpu_torch.bin.decode "
+            f"ctc_att_online: {len(rows)} hypotheses in {wall:.1f} s (its "
+            f"process included), {text[-3]}, {text[-1]}; "
+            f"ASRProcess on {uid} gives row 0: {hyp0 == row0[0]} "
+            f"({len(hyp0)} characters) [{card}]")
+        check(len(rows) == STREAM_UTTS and row0[1] == uid + ")"
+              and hyp0 == row0[0],
+              f"{label}: (c) {len(rows)} hypotheses, or ASRProcess's "
+              f"differs from row 0")
+        summary["decode_cli_online_rtf"] = rtf["rtf"]
+        del asr
+
+    # the online search's token steps, and the launches of one step
+    decoder = CTCAttBeamDecoder(model, beam=DECODE["beam"],
+                                ctc_beam=DECODE["ctc_beam"],
+                                ctc_weight=DECODE["ctc_weight"], online=True)
+    hs, hs_len, lpz = decoder.encode(feats, feat_len)
+    hyps, dt, steps = _search_timed(decoder, model, "decoder_step_ep", hs,
+                                    hs_len, lpz)
+    V = STREAM["odim"]
+    check(all(0 <= tk < V for b in range(STREAM_UTTS)
+              for tk in hyps.best_ids(b)) and np.isfinite(hyps.scores).all(),
+          f"{label}: online hypotheses out of range or non-finite")
+    K = DECODE["beam"]
+    B = STREAM_UTTS
+    with torch.no_grad():
+        mem_k, mem_v = (m.repeat_interleave(K, dim=1)
+                        for m in model.decoder_project_memory(hs))
+        mask = (torch.arange(hs.shape[1], device=dev)[None, :]
+                < hs_len[:, None])[:, None, :].repeat_interleave(K, dim=0)
+        y = torch.ones(B * K, dtype=torch.long, device=dev)
+        parent = torch.zeros(B, K, dtype=torch.long, device=dev)
+        alive = torch.ones(B, K, dtype=torch.bool, device=dev)
+        n_ep = _device_launches(lambda: model.decoder_step_ep(
+            y, 0, model.decoder_init_cache(B * K, 4), mem_k, mem_v, mask,
+            parent, alive))
+        n_mono = _device_launches(lambda: model.decoder_step(
+            y, 0, model.decoder_init_cache(B * K, 4), mem_k, mem_v, mask))
+    log(f"{label}: online search B={B} (T={hs.shape[1]}, beam {K}, "
+        f"ctc_beam {DECODE['ctc_beam']}): {steps} token steps in "
+        f"{dt:.2f} s, {dt / steps * 1e3:.2f} ms a step; one online decoder "
+        f"step launches {n_ep} kernels, the untruncated monotonic step "
+        f"{n_mono} (the endpoint chain's share {n_ep - n_mono}) [{card}]")
+    summary.update(online_search_ms_per_step=dt / steps * 1e3,
+                   online_search_steps=steps,
+                   decoder_step_ep_launches=n_ep,
+                   decoder_step_monotonic_launches=n_mono)
+    del model, decoder
+
+    # (d) the offline Transformer at the same widths, decoded once
+    torch.manual_seed(seed + 1)
+    offline = E2E_Transformer_CTC(**TRANSFORMER)
+    decoder = CTCAttBeamDecoder(offline, beam=DECODE["beam"],
+                                ctc_beam=DECODE["ctc_beam"],
+                                ctc_weight=DECODE["ctc_weight"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hs, hs_len, lpz = decoder.encode(feats, feat_len)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t) * 1e3
+    hyps, dt, steps = _search_timed(decoder, offline, "decoder_step", hs,
+                                    hs_len, lpz)
+    check(bool(torch.isfinite(hs).all())
+          and all(0 <= tk < V for b in range(STREAM_UTTS)
+                  for tk in hyps.best_ids(b))
+          and np.isfinite(hyps.scores).all(),
+          f"{label}: (d) offline Transformer decode not finite / in range")
+    log(f"{label}: (d) offline E2E_Transformer_CTC B={B} x "
+        f"{STREAM_UTT_SECS:g} s: encode {enc_ms:.2f} ms, search {steps} "
+        f"token steps in {dt:.2f} s, {dt / steps * 1e3:.2f} ms a step, "
+        f"tokens per utterance {[len(hyps.best_ids(b)) for b in range(B)]} "
+        f"[{card}]")
+    summary.update(offline_encode_ms=enc_ms,
+                   offline_search_ms_per_step=dt / steps * 1e3,
+                   offline_search_steps=steps)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    summary["launches"] = launches
+    log(f"{label}: kernel launches in the phase {launches} (this path "
+        f"reaches none of K1-K4)")
+    print(json.dumps({"stream": summary}), flush=True)
+    state["stream_launches"] = launches
+    state["timings"][label] = summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1097,12 +1478,14 @@ def main(argv=None) -> int:
         return 2
 
     state = {"seed": args.seed, "kernels": {}, "launches": {},
-             "train_launches": {}, "fit_launches": {}, "timings": {},
+             "train_launches": {}, "fit_launches": {},
+             "stream_launches": {}, "timings": {},
              "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
               ("slice_b", phase_slice_b), ("train_a", phase_train_a),
-              ("train_b", phase_train_b), ("fit_b", phase_fit_b)]
+              ("train_b", phase_train_b), ("fit_b", phase_fit_b),
+              ("stream", phase_stream)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -1121,6 +1504,8 @@ def main(argv=None) -> int:
             entry["launches_training"] = state["train_launches"][name]
         if name in state["fit_launches"]:
             entry["launches_fit"] = state["fit_launches"][name]
+        if name in state["stream_launches"]:
+            entry["launches_stream"] = state["stream_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

@@ -15,12 +15,15 @@ Layer map (same as lasr_tpu):
              checkpoint loader
   ops/       fbank, SpecAugment, the CTC loss, and the attention kernels
              (CUDA + plain torch, forward and backward)
-  modules/   nn.Modules (attention, embeddings, conformer, decoder,
-             generator-driven dropout, ...)
-  models/    dict-in/dict-out joint CTC/attention models, losses
+  modules/   nn.Modules (attention incl. monotonic, embeddings, conformer,
+             Transformer encoder/decoder, the streaming chunk encoder and
+             decoder, generator-driven dropout, ...)
+  models/    dict-in/dict-out joint CTC/attention models (Conformer,
+             Transformer, streaming), losses
   data/      WAV reader, tokenizers, the frontend chain, pack_s2s
   train/     Adam/Noam (optax's update written out), EMA, the Trainer step
-  decode/    greedy CTC and joint CTC/attention beam search
+  decode/    greedy CTC, the joint CTC/attention beam search (offline and
+             online), the chunk-incremental StreamingRecognizer
   process/   one-call ASRProcess user API
 """
 

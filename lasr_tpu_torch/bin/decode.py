@@ -10,7 +10,8 @@ checkpoints of a checkpoints root (EMA shadow preferred; a single
 ``.ckpt``/``.pt`` file or a directory of reference ``.ckpt`` files works
 too), reads the test set with ``AudioDataSet`` and decodes it in batches
 of ``-batch`` utterances with ``ctc_att`` (joint CTC/attention beam
-search) or ``ctc_greedy``.  Prints ``id/ref/hyp/dis`` per utterance, the
+search), ``ctc_att_online`` (its streaming form, for
+``E2E_Transformer_CTC_Online``) or ``ctc_greedy``.  Prints ``id/ref/hyp/dis`` per utterance, the
 total WER (as ``Totol WER is …``, the JAX CLI's spelling), the alignment
 summary and an RTF line of JSON; writes ``<hyp> (<id>)`` lines to
 ``-output_file``.  Other decode methods, LM fusion, long-form decoding
@@ -66,10 +67,10 @@ def main(argv=None):
         decode_config = yaml.safe_load(f)
     cfg = decode_config["decode_config"]
     method = cfg.get("decode_method", "ctc_att")
-    if method not in ("ctc_att", "ctc_greedy"):
+    if method not in ("ctc_att", "ctc_att_online", "ctc_greedy"):
         raise NotImplementedError(
-            f"decode_method {method!r} is not ported (ROADMAP A8); ctc_att "
-            f"and ctc_greedy are")
+            f"decode_method {method!r} is not ported (ROADMAP A8); ctc_att, "
+            f"ctc_att_online and ctc_greedy are")
     if float(cfg.get("lm_rate") or 0.0) > 0.0 and cfg.get("lm_path"):
         raise NotImplementedError("LM shallow fusion is not ported "
                                   "(ROADMAP A8)")
@@ -92,11 +93,12 @@ def main(argv=None):
     frontend = DeviceFrontend([t for t in test_dataset.audio_trans
                                if not t.startswith("specaug")])
     decoder = None
-    if method == "ctc_att":
+    if method in ("ctc_att", "ctc_att_online"):
         decoder = CTCAttBeamDecoder(
             model, sos=tokenizer.ID_VALUE_SOS, eos=tokenizer.ID_VALUE_EOS,
             beam=cfg["beam"], ctc_beam=cfg["ctc_beam"],
-            ctc_weight=cfg["ctc_weight"], device=device)
+            ctc_weight=cfg["ctc_weight"],
+            online=method == "ctc_att_online", device=device)
 
     acc = ErrorRateAccumulator()
     # per-batch timing; the first batch of each padded shape is left out

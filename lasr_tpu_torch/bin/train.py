@@ -17,7 +17,10 @@ the exact epoch and batch of the newest.
 ``-device cpu``.  Flags of features the port lacks raise
 ``NotImplementedError`` naming their ROADMAP item when set away from their
 defaults: ``-fp16 16`` (A5), ``-num_devices`` > 1, ``-model_parallel``,
-``-seq_parallel``, ``-pipeline_parallel`` > 1 and ``-fsdp 1`` (A6).
+``-seq_parallel``, ``-pipeline_parallel`` > 1 and ``-fsdp 1`` (A6).  A
+model whose training is not ported (``E2E_Transformer_CTC``,
+``E2E_Transformer_CTC_Online``: A8) raises when the ``Trainer`` is built,
+before anything is written.
 """
 
 import argparse

@@ -19,7 +19,7 @@ from torch import nn
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.modules.conformer import ConformerEncoder
 from lasr_tpu_torch.modules.dropout import Dropout
-from lasr_tpu_torch.modules.transformer import Decoder
+from lasr_tpu_torch.modules.transformer import Decoder, Encoder
 from lasr_tpu_torch.utils.masks import target_mask
 
 
@@ -48,7 +48,10 @@ class CTCHead(nn.Sequential):
 
 
 class E2EBase(nn.Module):
-    """Shared forward / decode-hook structure."""
+    """Shared forward / decode-hook structure.  ``training_ported``: the
+    port's ``Trainer`` trains the class (False makes it raise)."""
+
+    training_ported = True
 
     def _check_eval(self):
         if self.training:
@@ -94,6 +97,74 @@ class E2EBase(nn.Module):
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            torch.float32: torch.float32}
+
+
+def check_dtype(dtype) -> None:
+    if dtype not in _DTYPES:
+        raise NotImplementedError(f"compute dtype {dtype!r}: the port "
+                                  f"computes in float32 for now (ROADMAP A5)")
+
+
+class E2E_Transformer_CTC(E2EBase):
+    """Transformer encoder + Transformer decoder + CTC head.
+
+    Accepts every constructor kwarg of the JAX class.  The encoder's input
+    layer is conv2d or linear; ``encoder_remat`` and a sharding object
+    raise.  Training it is not ported yet (the ``Trainer`` raises).
+    ``device=None`` means CUDA (raises without a GPU); compute is
+    float32."""
+
+    training_ported = False
+
+    def __init__(self, idim: int = 13, odim: int = 26,
+                 encoder_attention_dim: int = 256,
+                 encoder_attention_heads: int = 4,
+                 encoder_linear_units: int = 2048,
+                 encoder_num_blocks: int = 12,
+                 encoder_input_layer: str = "conv2d",
+                 encoder_dropout_rate: float = 0.1,
+                 encoder_attention_dropout_rate: float = 0.0,
+                 decoder_attention_dim: int = 256,
+                 decoder_attention_heads: int = 4,
+                 decoder_linear_units: int = 2048,
+                 decoder_num_block: int = 6,
+                 decoder_input_layer: str = "embed",
+                 decoder_dropout_rate: float = 0.1,
+                 decoder_src_attention_dropout_rate: float = 0.0,
+                 decoder_self_attention_dropout_rate: float = 0.0,
+                 ctc_dropout: float = 0.1, encoder_remat: bool = False,
+                 encoder_act_sharding=None, dtype=None, device=None):
+        super().__init__()
+        if encoder_remat:
+            raise NotImplementedError(
+                "encoder_remat of the Transformer encoder is not ported "
+                "(ROADMAP A8)")
+        if encoder_act_sharding is not None:
+            raise NotImplementedError(
+                "encoder_act_sharding (sequence parallelism) is not ported "
+                "(ROADMAP A6)")
+        check_dtype(dtype)
+        device = resolve_device(device)
+        self.encoder = Encoder(
+            idim=idim, attention_dim=encoder_attention_dim,
+            attention_heads=encoder_attention_heads,
+            linear_units=encoder_linear_units,
+            num_blocks=encoder_num_blocks, dropout_rate=encoder_dropout_rate,
+            positional_dropout_rate=encoder_dropout_rate,
+            attention_dropout_rate=encoder_attention_dropout_rate,
+            input_layer=encoder_input_layer)
+        self.decoder = Decoder(
+            odim=odim, attention_dim=decoder_attention_dim,
+            attention_heads=decoder_attention_heads,
+            linear_units=decoder_linear_units, num_blocks=decoder_num_block,
+            dropout_rate=decoder_dropout_rate,
+            positional_dropout_rate=decoder_dropout_rate,
+            self_attention_dropout_rate=decoder_self_attention_dropout_rate,
+            src_attention_dropout_rate=decoder_src_attention_dropout_rate,
+            input_layer=decoder_input_layer)
+        self.ctc = CTCHead(encoder_attention_dim, odim, ctc_dropout)
+        self.to(device)
+        self.eval()
 
 
 class E2E_Conformer_CTC(E2EBase):
@@ -153,9 +224,7 @@ class E2E_Conformer_CTC(E2EBase):
             raise NotImplementedError(
                 "encoder_ff_int8 makes every feed-forward GEMM an int8 "
                 "matmul (ops/quant.py); not ported")
-        if dtype not in _DTYPES:
-            raise NotImplementedError(f"compute dtype {dtype!r}: the port "
-                                      f"computes in float32 for now")
+        check_dtype(dtype)
         device = resolve_device(device)
         self.encoder = ConformerEncoder(
             idim=idim, attention_dim=encoder_attention_dim,

@@ -1,0 +1,117 @@
+"""The streaming joint CTC/attention model (counterpart of
+``E2E_Transformer_CTC_Online`` in ``lasr_tpu/models/e2e_online.py``).
+
+``ChunkEncoder`` + ``StreamDecoder`` + CTC head, with the reference's
+constructor kwargs and state_dict names (``encoder.embed.*``,
+``encoder.encoders.N.*``, ``decoder.decoders.N.src_attn.src_att_bias``,
+...).  Decode hooks: ``encode`` / ``encode_online`` (the chunked forward;
+``ref_tail`` selects the reference decoder's length convention),
+``ctc_logits``, ``decoder_init_cache``, ``decoder_project_memory``,
+``decoder_step`` (untruncated monotonic attention), ``decoder_step_online``
+and ``decoder_step_ep`` (the online beam step).  ``forward`` is the dict
+forward ``E2E_Loss`` takes; training the model is not ported yet (the
+``Trainer`` raises, as does a train-mode forward with sigmoid noise).
+"""
+
+from __future__ import annotations
+
+from lasr_tpu_torch import resolve_device
+from lasr_tpu_torch.models.e2e_ctc_att import CTCHead, E2EBase, check_dtype
+from lasr_tpu_torch.modules.streaming import ChunkEncoder, StreamDecoder
+
+
+class E2E_Transformer_CTC_Online(E2EBase):
+    """Accepts every constructor kwarg of the JAX class.
+    ``encoder_remat``, ``encoder_conv_once`` and
+    ``encoder_layer_major_rows > 0`` raise; ``encoder_layer_major=False``
+    (the JAX module's sequential chunk scan) gives the same numbers as the
+    layer-major forward the port runs.  ``device=None`` means CUDA
+    (raises without a GPU); compute is float32."""
+
+    training_ported = False
+
+    def __init__(self, idim: int = 13, odim: int = 26,
+                 encoder_attention_dim: int = 256,
+                 encoder_attention_heads: int = 4,
+                 encoder_left_chunk: int = 64,
+                 encoder_center_chunk: int = 64,
+                 encoder_right_chunk: int = 64,
+                 encoder_linear_units: int = 2048,
+                 encoder_num_blocks: int = 12,
+                 encoder_input_layer: str = "conv2d",
+                 encoder_dropout_rate: float = 0.1,
+                 encoder_attention_dropout_rate: float = 0.0,
+                 decoder_attention_dim: int = 256,
+                 decoder_self_attention_heads: int = 4,
+                 decoder_src_attention_heads: int = 4,
+                 decoder_linear_units: int = 2048,
+                 decoder_num_block: int = 6,
+                 decoder_input_layer: str = "embed",
+                 decoder_dropout_rate: float = 0.1,
+                 decoder_src_attention_dropout_rate: float = 0.0,
+                 decoder_self_attention_dropout_rate: float = 0.0,
+                 decoder_src_attention_bias_init: float = 0.0,
+                 decoder_src_attention_sigmoid_noise: float = 1.0,
+                 ctc_dropout: float = 0.1, encoder_remat: bool = False,
+                 encoder_conv_once: bool = False,
+                 encoder_layer_major: bool = True,
+                 encoder_layer_major_rows: int = 0, dtype=None,
+                 device=None):
+        super().__init__()
+        check_dtype(dtype)
+        device = resolve_device(device)
+        self.idim = idim
+        self.encoder_center_chunk = encoder_center_chunk
+        self.encoder_right_chunk = encoder_right_chunk
+        self.encoder = ChunkEncoder(
+            idim=idim, attention_dim=encoder_attention_dim,
+            attention_heads=encoder_attention_heads,
+            linear_units=encoder_linear_units,
+            num_blocks=encoder_num_blocks,
+            dropout_rate=encoder_dropout_rate,
+            positional_dropout_rate=encoder_dropout_rate,
+            attention_dropout_rate=encoder_attention_dropout_rate,
+            input_layer=encoder_input_layer, left_len=encoder_left_chunk,
+            cur_len=encoder_center_chunk, right_len=encoder_right_chunk,
+            hop_len=encoder_center_chunk, remat=encoder_remat,
+            layer_major=encoder_layer_major,
+            layer_major_rows=encoder_layer_major_rows,
+            conv_once=encoder_conv_once)
+        self.decoder = StreamDecoder(
+            odim=odim, attention_dim=decoder_attention_dim,
+            self_attention_heads=decoder_self_attention_heads,
+            src_attention_heads=decoder_src_attention_heads,
+            linear_units=decoder_linear_units, num_blocks=decoder_num_block,
+            dropout_rate=decoder_dropout_rate,
+            positional_dropout_rate=decoder_dropout_rate,
+            self_attention_dropout_rate=decoder_self_attention_dropout_rate,
+            src_attention_dropout_rate=decoder_src_attention_dropout_rate,
+            src_attention_bias_init=decoder_src_attention_bias_init,
+            src_attention_sigmoid_noise=decoder_src_attention_sigmoid_noise,
+            input_layer=decoder_input_layer)
+        self.ctc = CTCHead(encoder_attention_dim, odim, ctc_dropout)
+        self.to(device)
+        self.eval()
+
+    def encode(self, x, xlen, solo_pad: bool = False):
+        """The chunked forward.  ``solo_pad`` has nothing to act on here:
+        every chunk is windowed and convolved alone, so a row's frames do
+        not depend on the batch's padding (``lasr_tpu``'s ``encode`` drops
+        the flag for this encoder too)."""
+        self._check_eval()
+        return self.encoder(x, xlen)
+
+    def encode_online(self, x, xlen, ref_tail: bool = False):
+        self._check_eval()
+        return self.encoder(x, xlen, ref_tail=ref_tail)
+
+    def decoder_step_online(self, y_t, pos: int, cache, memory):
+        return self.decoder.forward_one_step_online(y_t, pos, cache, memory)
+
+    def decoder_step_ep(self, y_t, pos: int, cache, mem_k, mem_v,
+                        mem_mask=None, parent=None, alive=None):
+        """The online beam step (endpoints chained across same-parent
+        siblings).  Returns (logp, cache, ep_stall)."""
+        return self.decoder.forward_one_step_ep(y_t, pos, cache, mem_k,
+                                                mem_v, mem_mask, parent,
+                                                alive)

@@ -10,6 +10,13 @@
     or through the rot kernel (``rot_fold_pallas``); the skewed-table fold
     (``pos_table``); the per-layer ``rel_shift``.  Both kernel paths run
     forward and backward kernels through autograd Functions.
+  - ``MTMultiHeadedAttention``: monotonic truncated attention of the
+    streaming decoder — sigmoid choose-probabilities times an exclusive
+    survival cumprod, with a trainable scalar score bias
+    (``src_att_bias``), and the decode-step pieces: scores, endpoint
+    advance, endpoint-truncated context.  The training-time sigmoid noise
+    is not ported: a train-mode forward with ``sigmoid_noise > 0``
+    raises.
 
 All masks are boolean with True = attendable.  (``remat_attend``, a TPU
 memory knob of the JAX module, is accepted and ignored at the model,
@@ -260,3 +267,99 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
                              device=scores.device).tril(T2 - T1)
             scores = scores.masked_fill(~tri, 0.0)
         return self._softmax_attend(scores, v, mask)
+
+
+def safe_exclusive_cumprod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Exclusive cumprod as exp∘cumsum∘log, the first element 1."""
+    tiny = torch.finfo(x.dtype).tiny
+    csum = torch.cumsum(torch.log(torch.clamp(x, tiny, 1.0)), dim=dim)
+    n = x.shape[dim]
+    return torch.cat([torch.ones_like(x.narrow(dim, 0, 1)),
+                      torch.exp(csum).narrow(dim, 0, n - 1)], dim=dim)
+
+
+class MTMultiHeadedAttention(MultiHeadedAttention):
+    """Monotonic truncated attention (state_dict adds ``src_att_bias``,
+    shape (1, 1))."""
+
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
+                 bias_init: float = 0.0, sigmoid_noise: float = 1.0):
+        super().__init__(n_head, n_feat, dropout_rate)
+        self.sigmoid_noise = sigmoid_noise
+        self.src_att_bias = nn.Parameter(torch.full((1, 1), bias_init))
+
+    def _scores(self, q, k):
+        """(B, H, T1, T2) choose-scores of projected q and k."""
+        return (torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.d_k)
+                + self.src_att_bias.to(q.dtype))
+
+    def _monotonic(self, scores, mask):
+        """Choose-probabilities (masked keys 0) times their exclusive
+        survival."""
+        if mask is not None:
+            while mask.ndim < scores.ndim:
+                mask = mask[:, None] if mask.ndim == 3 else mask[None]
+            p = torch.sigmoid(scores.masked_fill(
+                ~mask, torch.finfo(scores.dtype).min)).masked_fill(~mask, 0.0)
+        else:
+            p = torch.sigmoid(scores)
+        return p * safe_exclusive_cumprod(1.0 - p)
+
+    def _out(self, attn, v):
+        x = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        B, T1 = x.shape[:2]
+        return self.linear_out(x.reshape(B, T1, self.n_feat))
+
+    def forward(self, query, key, value, mask=None, return_attn=False):
+        if self.training and self.sigmoid_noise > 0:
+            raise NotImplementedError(
+                "the training-time sigmoid noise of monotonic attention is "
+                "not ported (ROADMAP A8: training the streaming family)")
+        q = self.project_q(query)
+        k, v = self.project_kv(key, value)
+        attn = self._monotonic(self._scores(q, k), mask)
+        out = self._out(dropout(attn, self.dropout_rate, self.training), v)
+        return (out, attn) if return_attn else out
+
+    def attend_monotonic(self, q, k, v, mask=None):
+        """Untruncated monotonic attention over precomputed K/V."""
+        return self._out(self._monotonic(self._scores(q, k), mask), v)
+
+    def decode_scores(self, q, k, mask=None):
+        """q: (B, 1, H, dk); k: (B, T2, H, dk); mask: optional (B, T2) key
+        validity.  Returns (B, H, T2) scores, masked keys at the f32
+        minimum."""
+        s = self._scores(q, k)[:, :, 0, :]
+        if mask is not None:
+            s = s.masked_fill(~mask[:, None, :], torch.finfo(s.dtype).min)
+        return s
+
+    def decode_context(self, s, v, endpoint):
+        """Sigmoid-survival weights of scores ``s`` (B, H, T2), truncated
+        past the (already advanced) ``endpoint`` (B, H), over v (B, T2, H,
+        dk).  Returns (B, 1, n_feat)."""
+        p = torch.sigmoid(s)
+        attn = p * safe_exclusive_cumprod(1.0 - p)
+        pos = torch.arange(s.shape[-1], device=s.device)
+        attn = attn.masked_fill(pos > endpoint[..., None], 0.0)
+        x = torch.einsum("bhk,bkhd->bhd", attn, v)
+        return self.linear_out(x.reshape(x.shape[0], 1, self.n_feat))
+
+    @staticmethod
+    def advance_endpoint(s, endpoint):
+        """The first position past ``endpoint`` with a positive score, else
+        ``endpoint``.  s: (..., T2); endpoint: (...).  Returns
+        (new_endpoint, advanced)."""
+        pos = torch.arange(s.shape[-1], device=s.device)
+        cand = (pos > endpoint[..., None]) & (s > 0)
+        has = cand.any(dim=-1)
+        first = cand.to(torch.uint8).argmax(dim=-1)
+        return torch.where(has, first, endpoint), has
+
+    def decode_attend(self, q, k, v, endpoint, mask=None):
+        """One decode step: advance each head's endpoint, then attend
+        truncated past it.  Returns (context (B, 1, n_feat), new endpoint
+        (B, H))."""
+        s = self.decode_scores(q, k, mask)
+        new_ep, _ = self.advance_endpoint(s, endpoint)
+        return self.decode_context(s, v, new_ep), new_ep

@@ -1,6 +1,9 @@
 """Positional encodings (counterpart of ``lasr_tpu/modules/embedding.py``).
 
-  - ``PositionalEncoding``: x·√d + sinusoid[offset : offset+T].
+  - ``PositionalEncoding``: x·√d + sinusoid[offset : offset+T]; the
+    offset is an int, or a (N,) tensor of per-row offsets (the streaming
+    encoder's chunk rows), whose rows are computed in float32 as
+    ``lasr_tpu``'s ``_sinusoid_at`` computes them.
   - ``RelPositionalEncoding``: (x·√d, pos_emb of length 2T-1) for
     Transformer-XL attention; index T-1 is distance 0, earlier entries are
     positive distances (key left of the query), later ones negative.
@@ -43,6 +46,18 @@ def sinusoid_table(length: int, d_model: int,
     return sinusoid_rows(-pos if negative else pos, d_model)
 
 
+def sinusoid_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoid rows at integer ``positions`` (...,) → (..., d_model),
+    computed in float32 on the positions' device (``lasr_tpu``'s
+    ``_sinusoid_at``; ``sinusoid_rows`` computes in float64)."""
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * -(math.log(10000.0) / d_model))
+    ang = positions[..., None].to(torch.float32) * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        *positions.shape, d_model)
+
+
 class PositionalEncoding(nn.Module):
     def __init__(self, d_model: int, dropout_rate: float = 0.1,
                  max_len: int = 5000):
@@ -50,11 +65,17 @@ class PositionalEncoding(nn.Module):
         self.d_model = d_model
         self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, offset=0) -> torch.Tensor:
         T = x.shape[1]
-        pe = torch.from_numpy(
-            sinusoid_rows(np.arange(offset, offset + T), self.d_model))
-        x = x * math.sqrt(self.d_model) + pe.to(x.device, x.dtype)[None]
+        if torch.is_tensor(offset) and offset.ndim == 1:
+            pe = sinusoid_at(offset[:, None] + torch.arange(
+                T, device=offset.device), self.d_model).to(x.device, x.dtype)
+        else:
+            offset = int(offset)
+            pe = torch.from_numpy(sinusoid_rows(
+                np.arange(offset, offset + T), self.d_model)).to(
+                    x.device, x.dtype)[None]
+        x = x * math.sqrt(self.d_model) + pe
         return dropout(x, self.dropout_rate, self.training)
 
 

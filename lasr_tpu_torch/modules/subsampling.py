@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from lasr_tpu_torch.modules.embedding import PositionalEncoding
+
 
 def conv_out_T(T: int, kernel: int, stride: int) -> int:
     """Static output length of a VALID conv along time."""
@@ -54,9 +56,11 @@ class Conv2dSubsampling(nn.Module):
         self.pos_enc = pos_enc
 
     def forward(self, x: torch.Tensor, x_len: torch.Tensor,
-                solo_len: bool = False):
+                solo_len: bool = False, offset=0):
         """x: (B, T, idim) → (out, lengths); ``out`` is (B, T', odim), or
-        the (x, pos_emb) pair of a relative encoding."""
+        the (x, pos_emb) pair of a relative encoding.  ``offset``: the
+        absolute encoding's start position, an int or a (B,) tensor of
+        per-row offsets; a relative encoding takes none."""
         h = self.conv(x[:, None])                         # (B, C, T', F')
         T, new_len = x.shape[1], x_len
         for kernel, stride in self.stages:
@@ -65,4 +69,9 @@ class Conv2dSubsampling(nn.Module):
             T = conv_out_T(T, kernel, stride)
         B, C, Tp, Fp = h.shape
         h = self.out(h.transpose(1, 2).reshape(B, Tp, C * Fp))
-        return self.pos_enc(h), new_len
+        if isinstance(offset, int) and offset == 0:
+            return self.pos_enc(h), new_len
+        if not isinstance(self.pos_enc, PositionalEncoding):
+            raise ValueError("a positional offset needs the absolute "
+                             "PositionalEncoding")
+        return self.pos_enc(h, offset), new_len

@@ -1,7 +1,13 @@
-"""Transformer decoder (counterpart of the decoder half of
+"""Transformer encoder and decoder stacks (counterpart of
 ``lasr_tpu/modules/transformer.py``).
 
-Pre-norm residual blocks (LayerNorm eps 1e-12) of self-attention,
+``Encoder``: the conv2d subsampling (or, ``input_layer="linear"``,
+Linear → LayerNorm → dropout → ReLU) with the absolute positional
+encoding, pre-norm blocks of self-attention and a ReLU feed-forward, and
+an after-norm; ``remat`` and the other input layers of the JAX module are
+not ported.
+
+Decoder: pre-norm residual blocks (LayerNorm eps 1e-12) of self-attention,
 source attention and a ReLU feed-forward, each branch dropped out before
 its residual add in training, with an after-norm and the output
 projection.  Cached decode keeps fixed-shape per-layer KV caches
@@ -22,8 +28,81 @@ from lasr_tpu_torch.modules.attention import MultiHeadedAttention
 from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
+from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 
 LAYERNORM_EPS = 1e-12  # reference layer_norm.py eps
+
+
+class EncoderLayer(nn.Module):
+    """Pre-norm self-attention + feed-forward block."""
+
+    def __init__(self, size: int, attention_heads: int, linear_units: int,
+                 dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0):
+        super().__init__()
+        self.self_attn = MultiHeadedAttention(attention_heads, size,
+                                              attention_dropout_rate)
+        self.feed_forward = PositionwiseFeedForward(size, linear_units,
+                                                    dropout_rate)
+        self.norm1 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm2 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.dropout_rate = dropout_rate
+
+    def _drop(self, x):
+        return dropout(x, self.dropout_rate, self.training)
+
+    def forward(self, x, mask):
+        y = self.norm1(x)
+        x = x + self._drop(self.self_attn(y, y, y, mask))
+        return x + self._drop(self.feed_forward(self.norm2(x)))
+
+
+class Encoder(nn.Module):
+    """x (B, T, idim), x_len (B,) → (hs (B, T', D), hs_len (B,))."""
+
+    def __init__(self, idim: int, attention_dim: int = 256,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0,
+                 input_layer: str = "conv2d"):
+        super().__init__()
+        self.input_layer = input_layer
+        pos_enc = PositionalEncoding(attention_dim, positional_dropout_rate)
+        if input_layer == "conv2d":
+            self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc,
+                                           dropout_rate)
+        elif input_layer == "linear":
+            self.embed_linear = nn.Linear(idim, attention_dim)
+            self.embed_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+            self.embed_pos = pos_enc
+        else:
+            raise NotImplementedError(
+                f"encoder input_layer {input_layer!r}: conv2d and linear are "
+                f"ported (ROADMAP A8)")
+        self.dropout_rate = dropout_rate
+        self.encoders = nn.ModuleList([
+            EncoderLayer(attention_dim, attention_heads, linear_units,
+                         dropout_rate, attention_dropout_rate)
+            for _ in range(num_blocks)])
+        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+
+    def embed_input(self, x, x_len, solo_len: bool = False):
+        if self.input_layer == "conv2d":
+            return self.embed(x, x_len, solo_len=solo_len)
+        h = dropout(self.embed_norm(self.embed_linear(x)), self.dropout_rate,
+                    self.training)
+        return self.embed_pos(torch.relu(h)), x_len
+
+    def forward(self, x, x_len, solo_pad: bool = False):
+        """``solo_pad``: per-row lengths as if each utterance were encoded
+        alone (decode time)."""
+        h, h_len = self.embed_input(x, x_len, solo_len=solo_pad)
+        mask = (torch.arange(h.shape[1], device=h.device)[None, :]
+                < h_len[:, None])[:, None, :]
+        for layer in self.encoders:
+            h = layer(h, mask)
+        return self.after_norm(h), h_len
 
 
 class DecoderLayer(nn.Module):

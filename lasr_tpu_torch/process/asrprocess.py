@@ -9,8 +9,9 @@ preferred), resamples the WAV to 16 kHz with the dataset's Kaiser
 resampler, applies the decode config's ``audio_trans`` frontend on the
 device, decodes and detokenizes.
 
-Decode methods: ``ctc_att`` (joint CTC/attention beam search) and
-``ctc_greedy``; the others raise until they are ported.
+Decode methods: ``ctc_att`` (joint CTC/attention beam search),
+``ctc_att_online`` (its streaming form, for ``E2E_Transformer_CTC_Online``)
+and ``ctc_greedy``; the others raise until they are ported.
 """
 
 from __future__ import annotations
@@ -58,17 +59,18 @@ class ASRProcess:
         if int(cfg.get("longform_segment_frames", 0)) > 0:
             raise NotImplementedError("long-form decoding is not ported yet")
         self.decoder = None
-        if self.method == "ctc_att":
+        if self.method in ("ctc_att", "ctc_att_online"):
             self.decoder = CTCAttBeamDecoder(
                 self.model, sos=self.tokenizer.ID_VALUE_SOS,
                 eos=self.tokenizer.ID_VALUE_EOS,
                 beam=cfg.get("beam", 10), ctc_beam=cfg.get("ctc_beam", 15),
                 ctc_weight=cfg.get("ctc_weight", 0.5),
-                nbest=int(cfg.get("nbest", 1)), device=self.device)
+                nbest=int(cfg.get("nbest", 1)),
+                online=self.method == "ctc_att_online", device=self.device)
         elif self.method != "ctc_greedy":
             raise NotImplementedError(
                 f"decode_method {self.method!r} is not ported yet "
-                f"(ctc_att and ctc_greedy are)")
+                f"(ctc_att, ctc_att_online and ctc_greedy are)")
 
     def frontend_wave(self, wav_path: str) -> Tuple[np.ndarray, int]:
         wav, sr = reader.read_audio(wav_path)

@@ -21,6 +21,10 @@ PACKAGE = "lasr_tpu_torch"
 
 # reference (lighting-asr) class paths → this package
 REFERENCE_NAME_ALIASES: Dict[str, str] = {
+    "lasr.model.e2e_ctc_att.e2e_transformer:E2E_Transformer_CTC":
+        "lasr_tpu_torch.models.e2e_ctc_att:E2E_Transformer_CTC",
+    "lasr.model.e2e_ctc_att.e2e_transformer_online:E2E_Transformer_CTC_Online":
+        "lasr_tpu_torch.models.e2e_online:E2E_Transformer_CTC_Online",
     "lasr.model.e2e_ctc_att.e2e_conformer:E2E_Conformer_CTC":
         "lasr_tpu_torch.models.e2e_ctc_att:E2E_Conformer_CTC",
     "lasr.data.tokenizer:CharTokenizer":

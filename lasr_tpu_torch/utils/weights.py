@@ -12,6 +12,8 @@ numpy arrays) into the reference-named torch ``state_dict``:
   feed_forward/Dense_{0,1}      → feed_forward.w_{1,2}
   ctc/Dense_0/*                 → ctc.1.*
   */scale                       → */weight (norms)
+  other leaves (pos_bias_u/v, src_att_bias, embed_linear/*, embed_norm/*)
+                                → the same names
   batch_stats */{mean,var}      → */running_{mean,var} (+ num_batches_tracked)
 
 Layouts: Linear (in,out) → (out,in); Conv2d (kh,kw,in,out) →

@@ -247,7 +247,7 @@ def test_train_cli_refuses_unported_flags(flag, value, tmp_path):
                          "-device", "cpu"])
 
 
-@pytest.mark.parametrize("method", ["ctc_att_online", "ctc_bs", "wfst",
+@pytest.mark.parametrize("method", ["ctc_kenlm_lexcoin", "ctc_bs", "wfst",
                                     "ctc_kenlm"])
 def test_decode_cli_refuses_unported_methods(run, method, tmp_path):
     cfg = write_decode_config(str(tmp_path / "decode.yaml"), run["valid"],

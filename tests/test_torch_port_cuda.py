@@ -438,3 +438,43 @@ def test_fit_cli_epoch_through_rel_kernels(tmp_path):
     top = max(float(sd[1][k].abs().max()) for k in floats)
     for k in floats:
         assert float((sd[0][k] - sd[1][k]).abs().max()) <= 1e-4 * top, k
+
+
+def test_chunk_encoder_on_the_card_matches_cpu_and_chunk_serving():
+    """The streaming encoder at full width (2 of its 12 blocks): the
+    card's batch forward against the same weights on the CPU and against
+    the card's own encode_chunk sequence, ragged key lengths, 1e-3."""
+    dev = _card()
+    import torch.nn.functional as F
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    from lasr_tpu_torch.modules.streaming import _chunk_grid
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    kw = dict(idim=80, odim=5002, encoder_attention_dim=320,
+              encoder_attention_heads=8, encoder_linear_units=2048,
+              encoder_num_blocks=2, decoder_attention_dim=320,
+              decoder_self_attention_heads=8, decoder_src_attention_heads=8,
+              decoder_linear_units=2048, decoder_num_block=1)
+    torch.manual_seed(0)
+    model = E2E_Transformer_CTC_Online(**kw, device=dev)
+    cpu = E2E_Transformer_CTC_Online(**kw, device="cpu")
+    load_model_weights(cpu, model.state_dict())
+    rng = np.random.default_rng(0)
+    T = 398
+    x = torch.from_numpy(rng.standard_normal((3, T, 80)).astype(np.float32))
+    xlen = torch.tensor([T, 301, 77])
+    with torch.no_grad():
+        hs, hs_len = model.encode_online(x.to(dev), xlen.to(dev))
+        hs_cpu, len_cpu = cpu.encode_online(x, xlen)
+        enc = model.encoder
+        x_pad = F.pad(x.to(dev), (0, 0, 0, 134))
+        mems = enc.init_stream_state(3)
+        outs = []
+        for c in range(_chunk_grid(T, 64, 64, 64)):
+            out, mems = enc.encode_chunk(x_pad[:, c * 64: c * 64 + 134], c,
+                                         mems, xlen.to(dev))
+            outs.append(out)
+        inc = torch.cat(outs, dim=1)
+    assert torch.equal(hs_len.cpu(), len_cpu)
+    assert float((hs.cpu() - hs_cpu).abs().max()) <= 1e-3
+    for b, n in enumerate(hs_len.tolist()):
+        assert float((inc[b, :n] - hs[b, :n]).abs().max()) <= 1e-3

@@ -68,12 +68,15 @@ def test_no_source_names_jax_or_lasr_tpu_in_an_import():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model", "decoder",
                                    "asrprocess", "trainer", "train_cli",
-                                   "decode_cli"])
+                                   "decode_cli", "transformer_model",
+                                   "online_model"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from lasr_tpu_torch import resolve_device
     from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
-    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.models.e2e_ctc_att import (E2E_Conformer_CTC,
+                                                   E2E_Transformer_CTC)
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
     from lasr_tpu_torch.bin import decode, train
     from lasr_tpu_torch.data.frontend import DeviceFrontend
     from lasr_tpu_torch.models.losses import E2E_Loss
@@ -103,6 +106,13 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             str(tmp_path / "h.yaml"), "-decode_config",
             str(tmp_path / "d.yaml"), "-output_file",
             str(tmp_path / "o.txt")]),
+        "transformer_model": lambda: E2E_Transformer_CTC(**tiny),
+        "online_model": lambda: E2E_Transformer_CTC_Online(
+            idim=20, odim=9, encoder_attention_dim=16,
+            encoder_attention_heads=2, encoder_linear_units=32,
+            encoder_num_blocks=1, decoder_attention_dim=16,
+            decoder_self_attention_heads=2, decoder_src_attention_heads=2,
+            decoder_linear_units=32, decoder_num_block=1),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

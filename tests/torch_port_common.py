@@ -1,6 +1,8 @@
 """Shared fixtures of the lasr_tpu_torch parity tests: one TINY Conformer
 configuration, built in both packages from one seed, with the weights
-handed across as numpy arrays through the weight bridge."""
+handed across as numpy arrays through the weight bridge; and the tiny
+Transformer and streaming configurations (test_streaming.py's widths)
+with their model-pair, batch and loss-check helpers."""
 
 import jax
 import jax.numpy as jnp
@@ -8,7 +10,9 @@ import numpy as np
 import torch
 
 import lasr_tpu.models.e2e_ctc_att as jax_models
+import lasr_tpu.models.losses as jax_losses
 from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+from lasr_tpu_torch.models.losses import E2E_Loss
 from lasr_tpu_torch.utils.weights import flax_to_state_dict, load_model_weights
 
 # tests/test_torch_parity.py's TINY, with rel-pos attention and k=7 convs
@@ -65,3 +69,98 @@ def model_pair(flags=(), seed=0, **overrides):
 
 def t(x):
     return torch.from_numpy(np.asarray(x))
+
+
+ONLINE = dict(idim=80, odim=11, encoder_attention_dim=16,
+              encoder_attention_heads=2, encoder_left_chunk=16,
+              encoder_center_chunk=16, encoder_right_chunk=16,
+              encoder_linear_units=32, encoder_num_blocks=2,
+              decoder_attention_dim=16, decoder_self_attention_heads=2,
+              decoder_src_attention_heads=2, decoder_linear_units=32,
+              decoder_num_block=2, decoder_src_attention_sigmoid_noise=0.0)
+OFFLINE = dict(idim=80, odim=11, encoder_attention_dim=16,
+               encoder_attention_heads=2, encoder_linear_units=32,
+               encoder_num_blocks=2, decoder_attention_dim=16,
+               decoder_attention_heads=2, decoder_linear_units=32,
+               decoder_num_block=2)
+TOL = 2e-4
+
+
+def batch(B=3, T=120, D=80, L=5, odim=11, seed=0):
+    """Ragged features and targets: x (B, T, D), xlen, ys (B, L) padded
+    with -1 past each row's length."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    xlen = np.asarray([T, T - 40, T - 23][:B], np.int32)
+    ys = rng.integers(3, odim, (B, L)).astype(np.int32)
+    ys[1:, L - 2:] = -1
+    return x, xlen, ys
+
+
+def pair(cls_jax, cls_port, kw, seed=0, src_bias=0.0, ctc_scale=1.0):
+    """(flax model, numpy variables, port model on the CPU with the same
+    weights).  ``src_bias`` sets every ``src_att_bias``, ``ctc_scale``
+    sharpens the CTC head (so greedy decoding emits tokens)."""
+    x, xlen, ys = batch(odim=kw["odim"], seed=seed)
+    fm = cls_jax(**kw)
+    v = numpy_tree(fm.init(jax.random.PRNGKey(seed), x, xlen,
+                           np.maximum(ys, 1)))
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: (np.full_like(a, src_bias)
+                      if jax.tree_util.keystr(p).endswith("['src_att_bias']")
+                      else a * ctc_scale
+                      if "['ctc']" in jax.tree_util.keystr(p) else a),
+        v["params"])
+    v = {"params": params}
+    pm = cls_port(**kw, device="cpu")
+    load_model_weights(pm, flax_to_state_dict(v))
+    return fm, v, pm
+
+
+def labels(ys, sos=1, eos=2):
+    """(ys_in, att_label, ctc_label) of -1-padded targets."""
+    B, L = ys.shape
+    n = (ys >= 0).sum(1)
+    ys_in = np.full((B, L + 1), eos, np.int32)
+    att = np.full((B, L + 1), -1, np.int32)
+    ys_in[:, 0] = sos
+    for b in range(B):
+        ys_in[b, 1: n[b] + 1] = ys[b, : n[b]]
+        att[b, : n[b]] = ys[b, : n[b]]
+        att[b, n[b]] = eos
+    return ys_in, att, ys
+
+
+def check_forward_and_loss(fm, v, pm, seed):
+    x, xlen, ys = batch(odim=pm.ctc[1].out_features, seed=seed + 10)
+    ys_in, att_label, ctc_label = labels(ys)
+    want = fm.apply(v, x, xlen, ys_in)
+    with torch.no_grad():
+        got = pm(t(x), t(xlen), t(ys_in).long())
+    for k in ("att_out", "ctc_out"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=TOL, err_msg=k)
+    np.testing.assert_array_equal(got["hs_len"].numpy(),
+                                  np.asarray(want["hs_len"]))
+    V = pm.ctc[1].out_features
+    lw = jax_losses.E2E_Loss(V, smoothing=0.1, rate=0.3)(
+        want["att_out"], want["ctc_out"], jnp.asarray(att_label),
+        jnp.asarray(ctc_label), want["hs_len"])
+    lp = E2E_Loss(V, smoothing=0.1, rate=0.3)(
+        got["att_out"], got["ctc_out"], t(att_label), t(ctc_label),
+        got["hs_len"])
+    for g, w in zip(lp, lw):
+        np.testing.assert_allclose(float(g), float(w), rtol=TOL, atol=TOL)
+
+
+def round_trip(v, pm):
+    """The port's state_dict back through ``torch_compat.torch_to_flax``
+    gives the variables ``v`` it was loaded from, bit for bit."""
+    from lasr_tpu.utils.torch_compat import torch_to_flax
+    back = torch_to_flax({k: x.numpy() for k, x in pm.state_dict().items()},
+                         template=v)
+    flat_v = jax.tree_util.tree_leaves_with_path(v["params"])
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back["params"]))
+    assert len(flat_b) == len(flat_v)
+    for path, a in flat_v:
+        np.testing.assert_array_equal(flat_b[path], a)
