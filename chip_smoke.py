@@ -78,6 +78,25 @@ Phases, always all of them, in this order:
            E2E_Transformer_CTC at the same widths decoded once (ctc_att).
            No TPU kernel lies on this path: K1-K4's launches in the phase
            are counted (0).  Prints a {"stream": ...} line.
+  bf16     bf16 compute (``dtype=torch.bfloat16``, float32 parameters,
+           the train CLI's ``-fp16 16``) on the main paths, each beside
+           its f32 run in this process: (a) train_b and train_a again in
+           bf16 (3 steps, K3+K4 / K1+K2 12 launches each a step, finite
+           metrics, peak memory; one step of kernel path vs plain path,
+           both bf16: the loss within 2e-2 (relative), the kernel path's
+           gradients no further than 2x the plain path's from the f32
+           kernel path's (worst parameter group, L2; the kernel-vs-plain
+           figures printed); the bf16 loss within 2e-2 of the f32 one
+           on the same weights; the checkpoint all float32); (b)
+           served B: frontend + encoder on B=8 x 10 s within 2e-2
+           (relative L2) of the f32 model's output, warm times of both,
+           and the search on B=4 x 4 s, ms per token step in both; (c)
+           ``lasr_tpu_torch.bin.train -fp16 16`` on fit_b's corpus (1
+           epoch, the rel kernels on; its checkpoint all float32), then
+           ``lasr_tpu_torch.bin.decode`` (ctc_att) on it.  Every train
+           phase profiles one extra step: device busy time against wall
+           time and each port kernel's device ms.  Prints a {"bf16": ...}
+           line.
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -143,6 +162,45 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         means.append(start.elapsed_time(end) / iters)
     return float(np.median(means))
+
+
+# the device functions of csrc/*.cu, by the kernel they make up
+PORT_KERNELS = {
+    "K1 rot_attention_fwd": ("rot_attention_fwd_kernel",),
+    "K2 rot_attention_bwd": ("rot_bwd_",),
+    "K3 rel_attention_fwd": ("rel_attention_fwd_kernel",),
+    "K4 rel_attention_bwd": ("rel_bwd_",),
+}
+
+
+def _profile(fn):
+    """``fn()`` under torch.profiler: (its result, {wall_ms, busy_ms (the
+    union of the device ops' intervals), ops (device kernels and copies),
+    kernels_ms (device ms of each port kernel)})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_us, end = 0.0, -math.inf
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        busy_us += max(e.time_range.end - max(e.time_range.start, end), 0.0)
+        end = max(end, e.time_range.end)
+    kernels = {}
+    for e in dev:
+        for label, parts in PORT_KERNELS.items():
+            if any(p in e.name for p in parts):
+                kernels[label] = kernels.get(label, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+    return out, dict(wall_ms=wall * 1e3, busy_ms=busy_us / 1e3, ops=len(dev),
+                     kernels_ms=kernels)
 
 
 # ---------------------------------------------------------------- phases
@@ -636,25 +694,61 @@ def _trainer(model, chain, seed, log_interval=1):
                    grad_clip=5.0, seed=seed, log_interval=log_interval)
 
 
-def _train(state, label, flags, plain_flags, kernels):
-    """One main-path run of training: ``flags`` select the kernel path,
-    ``plain_flags`` the plain path its gradients are held against,
-    ``kernels`` the (name, forward counter, backward counter) it runs."""
+# the gates of a kernel-path step against the plain path (see _train)
+TRAIN_TOL = {
+    # loss (relative), encoder gradients entrywise, decoder/CTC gradients
+    # in L2, zero-gradient leaves against the largest gradient
+    "float32": dict(loss=1e-4, entry=1e-3, l2=1e-2, noise=1e-4),
+    # loss (relative, also against the f32 step); the kernel path's
+    # gradients at most `accuracy` times as far from the f32 kernel path's
+    # as the plain path's (worst parameter group, L2); zero-gradient
+    # leaves against the largest gradient
+    "bfloat16": dict(loss=2e-2, accuracy=2.0, noise=2e-2),
+}
+
+
+def _group(name):
+    """A parameter's group: the input layer, each block, a norm or head."""
+    p = name.split(".")
+    return ".".join(p[:3] if p[1] in ("encoders", "decoders") else p[:2])
+
+
+def _group_l2(names, got, want):
+    """{parameter group: relative L2 of got - want}, the zero-gradient
+    leaves left out."""
+    sums = {}
+    for n, a, b in zip(names, got, want):
+        if n.endswith(ZERO_GRADIENT_LEAVES):
+            continue
+        num, den = sums.get(_group(n), (0.0, 0.0))
+        sums[_group(n)] = (num + float((a - b).double().norm()) ** 2,
+                           den + float(b.double().norm()) ** 2)
+    return {g: (num / max(den, 1e-60)) ** 0.5
+            for g, (num, den) in sums.items()}
+
+
+def _train(state, label, flags, plain_flags, kernels, dtype="float32"):
+    """One main-path run of training in ``dtype`` compute: ``flags``
+    select the kernel path, ``plain_flags`` the plain path its gradients
+    are held against, ``kernels`` the (name, forward counter, backward
+    counter) it runs."""
     import torch
     from lasr_tpu_torch.data.reader import write_wav
     from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
     from lasr_tpu_torch.process.asrprocess import ASRProcess
     from lasr_tpu_torch.utils.weights import load_model_weights
 
-    seed = state["seed"]
+    seed, tol = state["seed"], TRAIN_TOL[dtype]
+    compute = getattr(torch, dtype)
     torch.manual_seed(seed)
-    model = E2E_Conformer_CTC(**RECIPE, **flags)
+    model = E2E_Conformer_CTC(**RECIPE, **flags, dtype=compute)
     trainer = _trainer(model, ["norm", "fbank:80", "specaug"], seed)
     batch = _train_batch(seed + 2)
     tstate = trainer.init_state()
     counters = [c for _, fwd, bwd in kernels for c in (fwd, bwd)]
     for c in counters:
         c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -664,9 +758,11 @@ def _train(state, label, flags, plain_flags, kernels):
         times.append(time.perf_counter() - t0)
         metrics.append(m)
     launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"{label}: {TRAIN_STEPS} train steps of B={TRAIN_BATCH} x "
-        f"{TRAIN_SECS:g} s, {trainer.param_count()} parameters: step times "
-        f"{', '.join(f'{t:.3f}' for t in times)} s [{state['card']}]")
+        f"{TRAIN_SECS:g} s, {trainer.param_count()} parameters, {dtype} "
+        f"compute: step times {', '.join(f'{t:.3f}' for t in times)} s, "
+        f"peak memory {peak_gb:.2f} GB [{state['card']}]")
     for i, m in enumerate(metrics):
         log(f"{label}: step {i} " + ", ".join(f"{k} {v:.4f}"
                                               for k, v in m.items()))
@@ -680,17 +776,34 @@ def _train(state, label, flags, plain_flags, kernels):
               f"{label}: {fwd.__name__} / {bwd.__name__} launched "
               f"{fwd.launches} / {bwd.launches} times, expected "
               f"{RECIPE['encoder_num_blocks']} each per step")
-        state["launches"][name] = bwd.launches
-        state["train_launches"][name.replace("_bwd", "_fwd")] = fwd.launches
-    state["timings"][label] = dict(step_s=times)
+        fwd_name = name.replace("_bwd", "_fwd")
+        if dtype == "float32":
+            state["launches"][name] = bwd.launches
+            state["train_launches"][fwd_name] = fwd.launches
+        else:
+            state["bf16_launches"][name] = bwd.launches
+            state["bf16_launches"][fwd_name] = fwd.launches
+    # one more step under the profiler: device busy time against wall time
+    (tstate, _), prof = _profile(lambda: trainer.train_step(tstate, batch))
+    log(f"{label}: profiled step {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms ({prof['busy_ms'] / prof['wall_ms']:.1%}),"
+        f" {prof['ops']} device ops; port kernels, device ms "
+        f"{ {k: round(v, 2) for k, v in prof['kernels_ms'].items()} } "
+        f"[{state['card']}]")
+    state["timings"][label] = dict(step_s=times, peak_gb=peak_gb,
+                                   profiled=prof)
 
     # the same weights, dropout 0 and no SpecAugment: kernel path vs plain
+    # (and, in bf16, the kernel path's loss against its f32 step)
     weights = model.state_dict()
     nodrop = dict(RECIPE, encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
                   ctc_dropout=0.0)
+    variants = [(flags, compute), (plain_flags, compute)]
+    if dtype != "float32":
+        variants.append((flags, torch.float32))
     results = []
-    for f in (flags, plain_flags):
-        m = E2E_Conformer_CTC(**nodrop, **f)
+    for f, d in variants:
+        m = E2E_Conformer_CTC(**nodrop, **f, dtype=d)
         load_model_weights(m, weights)
         # the decoder's ReLU masks, to count the units that flip
         relu = []
@@ -704,7 +817,8 @@ def _train(state, label, flags, plain_flags, kernels):
         results.append((float(metrics0["loss_main"].detach()), grads,
                         [n for n, _ in m.named_parameters()], relu))
         del m
-    (loss_k, grads_k, names, relu_k), (loss_p, grads_p, _, relu_p) = results
+    (loss_k, grads_k, names, relu_k), (loss_p, grads_p, _, relu_p) = \
+        results[:2]
     flips = [int((a != b).sum()) for a, b in zip(relu_k, relu_p)]
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     # each encoder gradient (where the kernels act) entrywise against its
@@ -715,7 +829,14 @@ def _train(state, label, flags, plain_flags, kernels):
     # few units whose pre-activation is within rounding of 0 when its
     # input moves by ~1e-7 (counted below), and each flip moves single
     # entries of the decoder's gradients by up to ~1e-2 of their largest:
-    # decoder and CTC gradients are held in the L2 norm at 1e-2.
+    # decoder and CTC gradients are held in the L2 norm at 1e-2.  In bf16
+    # every gradient of the attention scores' path (q, k, the position
+    # biases and projection) is a sum whose terms cancel, the two paths
+    # round differently before the sums, and the distance between them
+    # moves between runs of one seed (non-deterministic reductions, seen
+    # through bf16): both paths are held against the f32 kernel path's
+    # gradients instead, the kernel path no less accurate than `accuracy`
+    # times the plain path; the kernel-vs-plain figures are printed.
     top = max(float(g.abs().max()) for g in grads_p)
     entry, l2, noise = {}, {}, {}
     for n, a, b in zip(names, grads_k, grads_p):
@@ -726,25 +847,58 @@ def _train(state, label, flags, plain_flags, kernels):
                 float(b.abs().max()), 1e-30)
         else:
             l2[n] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    groups = _group_l2(names, grads_k, grads_p)
     worst_entry = max(entry, key=entry.get)
     worst_l2 = max(l2, key=l2.get)
+    worst_group = max(groups, key=groups.get)
     loudest = max(noise, key=noise.get)
+    if dtype == "float32":
+        grads_line = (
+            f"{len(entry)} encoder gradients, worst entrywise {worst_entry} "
+            f"{entry[worst_entry]:.2e} (tol {tol['entry']:g}); {len(l2)} "
+            f"decoder/CTC gradients, worst L2 {worst_l2} "
+            f"{l2[worst_l2]:.2e} (tol {tol['l2']:g}; ")
+    else:
+        grads_line = (
+            f"{len(groups)} parameter groups, worst L2 {worst_group} "
+            f"{groups[worst_group]:.2e} (encoder entrywise worst "
+            f"{worst_entry} {entry[worst_entry]:.2e}, decoder/CTC L2 worst "
+            f"{worst_l2} {l2[worst_l2]:.2e}; ")
     log(f"{label}: dropout 0, no SpecAugment, kernel path vs plain path: "
-        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.2e}, tol 1e-4); "
-        f"{len(entry)} encoder gradients, worst entrywise {worst_entry} "
-        f"{entry[worst_entry]:.2e} (tol 1e-3); {len(l2)} decoder/CTC "
-        f"gradients, worst L2 {worst_l2} {l2[worst_l2]:.2e} (tol 1e-2; "
-        f"decoder ReLU units flipped per layer {flips} of "
-        f"{relu_k[0].numel()}); {len(noise)} zero-gradient leaves at most "
-        f"{noise[loudest]:.2e} of the largest gradient ({loudest}, tol "
-        f"1e-4) [{state['card']}]")
-    check(entry[worst_entry] <= 1e-3, f"{label}: gradient of {worst_entry} "
-          f"differs by {entry[worst_entry]}")
-    check(l2[worst_l2] <= 1e-2, f"{label}: gradient of {worst_l2} differs "
-          f"by {l2[worst_l2]} (L2)")
-    check(noise[loudest] <= 1e-4, f"{label}: gradient of {loudest} is not "
-          f"~0: {noise[loudest]} of the largest")
-    check(loss_err <= 1e-4, f"{label}: loss differs by {loss_err}")
+        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.2e}, tol "
+        f"{tol['loss']:g}); {grads_line}decoder ReLU units flipped per "
+        f"layer {flips} of {relu_k[0].numel()}); {len(noise)} zero-gradient "
+        f"leaves at most {noise[loudest]:.2e} of the largest gradient "
+        f"({loudest}, tol {tol['noise']:g}) [{state['card']}]")
+    if dtype == "float32":
+        check(entry[worst_entry] <= tol["entry"], f"{label}: gradient of "
+              f"{worst_entry} differs by {entry[worst_entry]}")
+        check(l2[worst_l2] <= tol["l2"], f"{label}: gradient of {worst_l2} "
+              f"differs by {l2[worst_l2]} (L2)")
+    else:
+        loss_32, grads_32 = results[2][:2]
+        loss_32_err = abs(loss_k - loss_32) / abs(loss_32)
+        # how far each bf16 path lies from the f32 kernel path
+        far = {path: max(_group_l2(names, grads, grads_32).values())
+               for path, grads in (("kernel", grads_k), ("plain", grads_p))}
+        log(f"{label}: the kernel path's loss in {dtype} {loss_k:.6f} vs "
+            f"float32 {loss_32:.6f} on the same weights and batch (rel "
+            f"{loss_32_err:.2e}, tol {tol['loss']:g}); worst parameter "
+            f"group's gradients against the float32 kernel path's: kernel "
+            f"path {far['kernel']:.2e}, plain path {far['plain']:.2e} (L2; "
+            f"tol {tol['accuracy']:g}x the plain path's)")
+        check(far["kernel"] <= tol["accuracy"] * far["plain"],
+              f"{label}: the kernel path's {dtype} gradients lie "
+              f"{far['kernel']} from the float32 ones, the plain path's "
+              f"{far['plain']}")
+        check(loss_32_err <= tol["loss"], f"{label}: {dtype} loss differs "
+              f"from the float32 one by {loss_32_err}")
+        state["timings"][label].update(loss_vs_f32=loss_32_err,
+                                       worst_group_l2=groups[worst_group],
+                                       grads_vs_f32=far)
+    check(noise[loudest] <= tol["noise"], f"{label}: gradient of {loudest} "
+          f"is not ~0: {noise[loudest]} of the largest")
+    check(loss_err <= tol["loss"], f"{label}: loss differs by {loss_err}")
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = trainer.save_checkpoint(tstate,
@@ -762,6 +916,23 @@ def _train(state, label, flags, plain_flags, kernels):
             f"into ASRProcess (EMA shadow: {same}), greedy decode of batch "
             f"row 0 -> {len(tokens)} tokens")
         check(same, f"{label}: ASRProcess did not load the EMA shadow")
+        if dtype != "float32":
+            _check_float32_checkpoint(label, ckpt)
+
+
+def _check_float32_checkpoint(label, path):
+    """Every floating tensor of the checkpoint at ``path`` is float32."""
+    import torch
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    tensors = list(blob["state_dict"].values()) + [
+        t for s in blob["optimizer_states"][0]["state"].values()
+        for t in (s["exp_avg"], s["exp_avg_sq"])]
+    other = {str(t.dtype) for t in tensors
+             if t.is_floating_point() and t.dtype != torch.float32}
+    log(f"{label}: checkpoint {os.path.basename(path)}: {len(tensors)} "
+        f"tensors (weights, BatchNorm statistics, EMA, Adam moments), "
+        f"dtypes other than float32: {sorted(other) or 'none'}")
+    check(not other, f"{label}: checkpoint holds {other} tensors")
 
 
 def phase_train_a(state):
@@ -1145,17 +1316,7 @@ def _counted(obj, name, calls):
 def _device_launches(fn):
     """Device ops (kernels and copies) ``fn()`` launches, counted by
     torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation)
+    return _profile(fn)[1]["ops"]
 
 
 def _search_timed(decoder, model, step_name, hs, hs_len, lpz):
@@ -1459,6 +1620,196 @@ def phase_stream(state):
     state["timings"][label] = summary
 
 
+# the bf16 phase's served search: B=4 x 4 s keeps it short
+BF16_SEARCH_UTTS, BF16_SEARCH_SECS = 4, 4.0
+
+
+def phase_bf16(state):
+    """bf16 compute (``-fp16 16``, ``dtype=torch.bfloat16``) on the main
+    paths: B-train and A-train, served B (encoder and search), and the
+    train CLI then the decode CLI, each beside its float32 run."""
+    import contextlib
+    import io
+    import torch
+    from lasr_tpu_torch.bin import decode, train
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
+                                                  rot_attention_forward)
+    from lasr_tpu_torch.utils.weights import (checkpoint_name,
+                                              load_model_weights)
+    label, seed, card = "bf16", state["seed"], state["card"]
+    blocks = RECIPE["encoder_num_blocks"]
+    timings = state["timings"]
+    summary = {"card": card}
+
+    # (a) the two training paths in bf16, against their f32 phases
+    _train(state, "bf16 train_b", {"encoder_use_pallas_attention": True}, {},
+           [("rel_attention_bwd", rel_attention_forward,
+             rel_attention_backward)], dtype="bfloat16")
+    _train(state, "bf16 train_a", {"encoder_rot_fold_pallas": True,
+                                   "encoder_pos_dropout_mode": "rotated"},
+           {"encoder_pos_dropout_mode": "rotated"},
+           [("rot_attention_bwd", rot_attention_forward,
+             rot_attention_backward)], dtype="bfloat16")
+    for path in ("train_b", "train_a"):
+        f32, bf16 = timings[path], timings[f"bf16 {path}"]
+        row = {}
+        for key, t in (("float32", f32), ("bfloat16", bf16)):
+            p = t["profiled"]
+            row[key] = dict(step_s=t["step_s"], peak_gb=t["peak_gb"],
+                            profiled_wall_ms=p["wall_ms"],
+                            device_busy_ms=p["busy_ms"], device_ops=p["ops"],
+                            kernels_ms=p["kernels_ms"])
+        row.update(loss_vs_f32=bf16["loss_vs_f32"],
+                   worst_group_l2=bf16["worst_group_l2"],
+                   grads_vs_f32=bf16["grads_vs_f32"])
+        log(f"{label}: {path} per step bf16 / f32: wall "
+            f"{np.median(bf16['step_s']) * 1e3:.1f} / "
+            f"{np.median(f32['step_s']) * 1e3:.1f} ms (median of "
+            f"{TRAIN_STEPS}), profiled step device busy "
+            f"{bf16['profiled']['busy_ms']:.1f} of "
+            f"{bf16['profiled']['wall_ms']:.1f} ms / "
+            f"{f32['profiled']['busy_ms']:.1f} of "
+            f"{f32['profiled']['wall_ms']:.1f} ms, peak memory "
+            f"{bf16['peak_gb']:.2f} / {f32['peak_gb']:.2f} GB [{card}]")
+        summary[path] = row
+
+    # (b) served B in bf16: frontend + encoder on B=8 x 10 s against the
+    # f32 model on the same weights, then the search on B=4 x 4 s
+    flags = {"encoder_use_pallas_attention": True}
+    torch.manual_seed(seed)
+    models = {"float32": E2E_Conformer_CTC(**RECIPE, **flags)}
+    models["bfloat16"] = E2E_Conformer_CTC(**RECIPE, **flags,
+                                           dtype=torch.bfloat16)
+    load_model_weights(models["bfloat16"], models["float32"].state_dict())
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+    wav = torch.from_numpy(make_waves(seed + 1, BATCH)).cuda()
+    wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
+                         device=wav.device)
+
+    def encode(model):
+        with torch.no_grad():
+            return model.encode(*frontend(wav, wav_len), solo_pad=True)
+    rel_attention_forward.launches = 0
+    hs, hs_len = encode(models["bfloat16"])
+    torch.cuda.synchronize()
+    served_launches = rel_attention_forward.launches
+    hs32, len32 = encode(models["float32"])
+    # held in L2: the largest of 635k entries' bf16 roundings is a tail
+    # (its max-abs share is printed beside)
+    err = float((hs.float() - hs32).norm() / hs32.norm())
+    err_max = float((hs.float() - hs32).abs().max() / hs32.abs().max())
+    enc_ms = {k: time_ms(lambda m=m: encode(m), iters=3, warmup=1)
+              for k, m in models.items()}
+    log(f"{label}: served B frontend+encoder B={BATCH} x {SECS:g} s "
+        f"(T={hs.shape[1]}): bf16 {enc_ms['bfloat16']:.2f} ms, f32 "
+        f"{enc_ms['float32']:.2f} ms warm; K3 {served_launches} launches; "
+        f"bf16 output vs f32: relative L2 {err:.2e} (tol 2e-2), max_abs "
+        f"{err_max:.2e} of the largest magnitude [{card}]")
+    check(hs.dtype == torch.bfloat16 and torch.equal(hs_len, len32)
+          and bool(torch.isfinite(hs).all()),
+          f"{label}: bf16 encoder output not finite / not bf16")
+    check(served_launches == blocks, f"{label}: K3 launched "
+          f"{served_launches} times for one encoder forward")
+    check(err <= 2e-2, f"{label}: bf16 encoder output off by {err}")
+    state["bf16_launches"]["rel_attention_fwd_served"] = served_launches
+    waves = torch.from_numpy(make_waves(seed + 4, BF16_SEARCH_UTTS,
+                                        BF16_SEARCH_SECS)).cuda()
+    lens = torch.full((BF16_SEARCH_UTTS,), waves.shape[1], dtype=torch.int32,
+                      device=waves.device)
+    search = {}
+    for key, model in models.items():
+        decoder = CTCAttBeamDecoder(model, beam=10, ctc_beam=15,
+                                    ctc_weight=0.5)
+        hs4, hs4_len, lpz = decoder.encode(*frontend(waves, lens))
+        hyps, dt, steps = _search_timed(decoder, model, "decoder_step", hs4,
+                                        hs4_len, lpz)
+        V = RECIPE["odim"]
+        check(lpz.dtype == torch.float32
+              and all(0 <= tk < V for b in range(BF16_SEARCH_UTTS)
+                      for tk in hyps.best_ids(b))
+              and np.isfinite(hyps.scores).all(),
+              f"{label}: {key} search not finite / out of range")
+        search[key] = dt / steps * 1e3
+        log(f"{label}: served B search {key} B={BF16_SEARCH_UTTS} x "
+            f"{BF16_SEARCH_SECS:g} s (T={hs4.shape[1]}): {steps} token steps "
+            f"in {dt:.2f} s, {search[key]:.2f} ms a step [{card}]")
+    summary["served_b"] = dict(encode_ms=enc_ms, encoder_rel_l2=err,
+                               encoder_max_abs_share=err_max,
+                               search_ms_per_step=search)
+    del models
+
+    # (c) the train CLI with -fp16 16 on fit_b's corpus (1 epoch, the rel
+    # kernels on), then the decode CLI on its checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, dev_dir, dict_path = _fit_corpus(tmp, seed + 3)
+        _, config, decode_cfg = _fit_configs(tmp, train_dir, dev_dir,
+                                             dict_path)
+        exp = os.path.join(tmp, "exp")
+        rel_attention_forward.launches = 0
+        rel_attention_backward.launches = 0
+        t = time.perf_counter()
+        rc = train.main(["-config", config, "-exp_dir", exp, "-num_epochs",
+                         "1", "-ema", "1", "-fp16", "16", "-log_interval",
+                         "1", "-seed", str(seed), "-num_workers", "4"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(rc == 0, f"{label}: train CLI -fp16 16 exited {rc}")
+        fwd, bwd = (rel_attention_forward.launches,
+                    rel_attention_backward.launches)
+        lines = _metrics(exp)
+        steps = [x for x in lines if "loss_main" in x]
+        valids = [x for x in lines if "valid_loss_main" in x]
+        for x in lines:
+            check(all(math.isfinite(v) for v in x.values()
+                      if isinstance(v, float)),
+                  f"{label}: non-finite metrics {x}")
+        check(fwd == blocks * (len(steps) + len(valids))
+              and bwd == blocks * len(steps) and len(valids) == 1,
+              f"{label}: train CLI: K3 / K4 launched {fwd} / {bwd} times "
+              f"over {len(steps)} steps and {len(valids)} validations")
+        state["bf16_launches"]["rel_attention_fwd_fit"] = fwd
+        state["bf16_launches"]["rel_attention_bwd_fit"] = bwd
+        step = steps[-1]["step"]
+        _check_float32_checkpoint(label, os.path.join(
+            exp, "checkpoints", "last", checkpoint_name(step)))
+        out = os.path.join(tmp, "ctc_att.txt")
+        rel_attention_forward.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = decode.main(["-train_config",
+                              os.path.join(exp, "hparams.yaml"),
+                              "-decode_config", decode_cfg["ctc_att"],
+                              "-model_path",
+                              os.path.join(exp, "checkpoints"), "-choose",
+                              "last", "-avg", "1", "-output_file", out])
+        check(rc == 0, f"{label}: decode CLI exited {rc}")
+        with open(out) as f:
+            hyps = f.read().splitlines()
+        rtf = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(len(hyps) == FIT_DEV
+              and rel_attention_forward.launches == blocks,
+              f"{label}: decode CLI: {len(hyps)} hypotheses, K3 "
+              f"{rel_attention_forward.launches} launches")
+        f32_fit = timings.get("fit_b", {})
+        step_ms = [x["dispatch_s"] * 1e3 for x in steps]
+        log(f"{label}: train CLI -fp16 16, 1 epoch: {len(steps)} steps in "
+            f"{wall:.1f} s, dispatch_s per step {', '.join(f'{v:.0f}' for v in step_ms)} ms "
+            f"(fit_b f32 median {f32_fit.get('median_step_ms', float('nan')):.0f}"
+            f" ms), valid loss {valids[0]['valid_loss_main']:.4f}; K3 {fwd},"
+            f" K4 {bwd} launches; decode CLI (f32 model) on its checkpoint: "
+            f"{len(hyps)} hypotheses, RTF {rtf['rtf']:.4f} [{card}]")
+        summary["fit_cli"] = dict(steps=len(steps), step_ms=step_ms,
+                                  valid_loss=valids[0]["valid_loss_main"],
+                                  decode_rtf=rtf["rtf"])
+    summary["launches"] = dict(state["bf16_launches"])
+    print(json.dumps({"bf16": summary}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1479,13 +1830,13 @@ def main(argv=None) -> int:
 
     state = {"seed": args.seed, "kernels": {}, "launches": {},
              "train_launches": {}, "fit_launches": {},
-             "stream_launches": {}, "timings": {},
+             "stream_launches": {}, "bf16_launches": {}, "timings": {},
              "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
               ("slice_b", phase_slice_b), ("train_a", phase_train_a),
               ("train_b", phase_train_b), ("fit_b", phase_fit_b),
-              ("stream", phase_stream)]
+              ("stream", phase_stream), ("bf16", phase_bf16)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -1506,6 +1857,11 @@ def main(argv=None) -> int:
             entry["launches_fit"] = state["fit_launches"][name]
         if name in state["stream_launches"]:
             entry["launches_stream"] = state["stream_launches"][name]
+        bf16 = {k[len(name):].lstrip("_") or "training": v
+                for k, v in state["bf16_launches"].items()
+                if k.startswith(name)}
+        if bf16:
+            entry["launches_bf16"] = bf16
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

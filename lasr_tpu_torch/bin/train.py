@@ -13,14 +13,16 @@ train_data_config / valid_data_config, each a ``{name, kwargs}`` block
 (the default) a run in an ``exp_dir`` that holds checkpoints continues at
 the exact epoch and batch of the newest.
 
+``-fp16 16`` builds the model with ``dtype=torch.bfloat16`` (bf16
+compute, float32 parameters, optimizer state and checkpoints), as the JAX
+CLI builds it with ``jnp.bfloat16``; ``hparams.yaml`` does not record it.
 ``-device`` (default ``cuda``) picks the device; without a GPU pass
 ``-device cpu``.  Flags of features the port lacks raise
 ``NotImplementedError`` naming their ROADMAP item when set away from their
-defaults: ``-fp16 16`` (A5), ``-num_devices`` > 1, ``-model_parallel``,
-``-seq_parallel``, ``-pipeline_parallel`` > 1 and ``-fsdp 1`` (A6).  A
-model whose training is not ported (``E2E_Transformer_CTC``,
-``E2E_Transformer_CTC_Online``: A8) raises when the ``Trainer`` is built,
-before anything is written.
+defaults: ``-num_devices`` > 1, ``-model_parallel``, ``-seq_parallel``,
+``-pipeline_parallel`` > 1 and ``-fsdp 1`` (A6).  A model whose training
+is not ported (``E2E_Transformer_CTC``, ``E2E_Transformer_CTC_Online``:
+A8) raises when the ``Trainer`` is built, before anything is written.
 """
 
 import argparse
@@ -34,8 +36,7 @@ _PROC_T0 = time.time()
 
 # flag -> (its default, the ROADMAP item of the feature it selects)
 _UNPORTED = {"model_parallel": (1, "A6"), "seq_parallel": (1, "A6"),
-             "pipeline_parallel": (1, "A6"), "fsdp": (0, "A6"),
-             "fp16": (32, "A5")}
+             "pipeline_parallel": (1, "A6"), "fsdp": (0, "A6")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,8 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="1 = FSDP/ZeRO sharding (not ported)")
     parser.add_argument("-num_epochs", default=50, type=int)
     parser.add_argument("-fp16", default=32, type=int,
-                        help="32 = float32 compute (16, bfloat16, is not "
-                             "ported)")
+                        help="32 = float32 compute; 16 = bfloat16 "
+                             "compute (float32 parameters)")
     parser.add_argument("-ema", default=0, type=int,
                         help="1 = keep an EMA shadow of the params")
     parser.add_argument("-acc_grads", default=1, type=int)
@@ -97,7 +98,7 @@ def refuse_unported(args) -> None:
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"-{flag} {getattr(args, flag)}: not ported (ROADMAP "
-                f"{item}); the port trains f32 on one device")
+                f"{item}); the port trains on one device")
     if args.num_devices > 1:
         raise NotImplementedError(
             f"-num_devices {args.num_devices}: data parallelism is not "
@@ -148,7 +149,9 @@ def main(argv=None):
 
     # the initial weights come from -seed
     torch.manual_seed(args.seed)
-    model = BaseConfig(**model_config).generateExample(device=device)
+    dtype = torch.bfloat16 if args.fp16 == 16 else torch.float32
+    model = BaseConfig(**model_config).generateExample(dtype=dtype,
+                                                       device=device)
     criterion = BaseConfig(**criterion_config).generateExample()
     optimizer, schedule = build_optimizer(opt_config)
     frontend = DeviceFrontend(train_dataset.audio_trans)

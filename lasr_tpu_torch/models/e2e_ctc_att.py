@@ -19,6 +19,7 @@ from torch import nn
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.modules.conformer import ConformerEncoder
 from lasr_tpu_torch.modules.dropout import Dropout
+from lasr_tpu_torch.modules.layers import Linear, set_compute_dtype
 from lasr_tpu_torch.modules.transformer import Decoder, Encoder
 from lasr_tpu_torch.utils.masks import target_mask
 
@@ -32,7 +33,7 @@ class CTCHead(nn.Sequential):
     def __init__(self, idim: int, odim: int, dropout: float = 0.1,
                  domain_dim: int = 0):
         super().__init__(Dropout(dropout),
-                         nn.Linear(idim + domain_dim, odim))
+                         Linear(idim + domain_dim, odim))
         self.domain_dim = domain_dim
 
     def forward(self, hs, domain=None):
@@ -95,14 +96,31 @@ class E2EBase(nn.Module):
                                              mem_mask)
 
 
-_DTYPES = {None: torch.float32, "float32": torch.float32,
-           torch.float32: torch.float32}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_dtype(dtype) -> None:
-    if dtype not in _DTYPES:
-        raise NotImplementedError(f"compute dtype {dtype!r}: the port "
-                                  f"computes in float32 for now (ROADMAP A5)")
+def check_dtype(dtype, bf16: bool = True) -> torch.dtype:
+    """The torch compute dtype a model's ``dtype`` argument names: ``None``
+    (float32), a torch dtype, or a name such as ``"bfloat16"``,
+    ``"jnp.bfloat16"`` or ``jnp.bfloat16`` itself (what the JAX package's
+    configs and CLI pass).  ``bf16=False`` (a model whose bfloat16 path is
+    not ported) accepts float32 only."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype)
+    elif isinstance(dtype, str):
+        name = dtype
+    else:
+        name = getattr(dtype, "__name__", None) or getattr(dtype, "name", "")
+    name = name.rsplit(".", 1)[-1]
+    if name not in _DTYPES or (name == "bfloat16" and not bf16):
+        raise NotImplementedError(
+            f"compute dtype {dtype!r}: the port computes in float32"
+            + (" or bfloat16" if bf16 else
+               "; bfloat16 of the streaming family is not ported (ROADMAP "
+               "A8, streaming bf16)"))
+    return _DTYPES[name]
 
 
 class E2E_Transformer_CTC(E2EBase):
@@ -111,8 +129,9 @@ class E2E_Transformer_CTC(E2EBase):
     Accepts every constructor kwarg of the JAX class.  The encoder's input
     layer is conv2d or linear; ``encoder_remat`` and a sharding object
     raise.  Training it is not ported yet (the ``Trainer`` raises).
-    ``device=None`` means CUDA (raises without a GPU); compute is
-    float32."""
+    ``device=None`` means CUDA (raises without a GPU); ``dtype`` is the
+    compute dtype (float32, or bfloat16 with float32 parameters: the
+    casts of ``modules.layers``)."""
 
     training_ported = False
 
@@ -143,7 +162,7 @@ class E2E_Transformer_CTC(E2EBase):
             raise NotImplementedError(
                 "encoder_act_sharding (sequence parallelism) is not ported "
                 "(ROADMAP A6)")
-        check_dtype(dtype)
+        dtype = check_dtype(dtype)
         device = resolve_device(device)
         self.encoder = Encoder(
             idim=idim, attention_dim=encoder_attention_dim,
@@ -163,6 +182,7 @@ class E2E_Transformer_CTC(E2EBase):
             src_attention_dropout_rate=decoder_src_attention_dropout_rate,
             input_layer=decoder_input_layer)
         self.ctc = CTCHead(encoder_attention_dim, odim, ctc_dropout)
+        set_compute_dtype(self, dtype)
         self.to(device)
         self.eval()
 
@@ -182,7 +202,9 @@ class E2E_Conformer_CTC(E2EBase):
     ``encoder_pipeline_stages > 1`` changes the parameter layout and
     ``encoder_ff_int8`` the feed-forward's numbers (int8 GEMMs, at eval
     too), and both raise.  ``device=None`` means CUDA (raises without a
-    GPU); compute is float32."""
+    GPU); ``dtype`` is the compute dtype (float32, or bfloat16 with
+    float32 parameters, gradients and BatchNorm statistics: the casts of
+    ``modules.layers``, as ``lasr_tpu``'s ``dtype=jnp.bfloat16``)."""
 
     def __init__(self, idim: int = 13, odim: int = 26,
                  encoder_attention_dim: int = 256,
@@ -224,7 +246,7 @@ class E2E_Conformer_CTC(E2EBase):
             raise NotImplementedError(
                 "encoder_ff_int8 makes every feed-forward GEMM an int8 "
                 "matmul (ops/quant.py); not ported")
-        check_dtype(dtype)
+        dtype = check_dtype(dtype)
         device = resolve_device(device)
         self.encoder = ConformerEncoder(
             idim=idim, attention_dim=encoder_attention_dim,
@@ -252,5 +274,6 @@ class E2E_Conformer_CTC(E2EBase):
             input_layer=decoder_input_layer)
         self.ctc = CTCHead(encoder_attention_dim, odim, ctc_dropout,
                            domain_dim)
+        set_compute_dtype(self, dtype)
         self.to(device)
         self.eval()

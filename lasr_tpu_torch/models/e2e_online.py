@@ -58,7 +58,7 @@ class E2E_Transformer_CTC_Online(E2EBase):
                  encoder_layer_major_rows: int = 0, dtype=None,
                  device=None):
         super().__init__()
-        check_dtype(dtype)
+        check_dtype(dtype, bf16=False)
         device = resolve_device(device)
         self.idim = idim
         self.encoder_center_chunk = encoder_center_chunk

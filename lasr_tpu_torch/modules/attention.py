@@ -35,6 +35,7 @@ from torch import nn
 
 from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import sinusoid_table
+from lasr_tpu_torch.modules.layers import Linear
 from lasr_tpu_torch.ops.rel_attention import rel_attention_context
 from lasr_tpu_torch.ops.rot_attention import rot_attention_context
 
@@ -96,10 +97,10 @@ class MultiHeadedAttention(nn.Module):
         self.n_head, self.n_feat = n_head, n_feat
         self.d_k = n_feat // n_head
         self.dropout_rate = dropout_rate
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
 
     def _split(self, x):
         B, T, _ = x.shape
@@ -161,7 +162,7 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         self.rot_fold_pallas = rot_fold_pallas
         self.rot_fold_train = rot_fold_train
         self.pos_dropout_rate = pos_dropout_rate
-        self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
+        self.linear_pos = Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.empty(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.empty(n_head, self.d_k))
         nn.init.xavier_uniform_(self.pos_bias_u)

@@ -22,41 +22,47 @@ from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import (PositionalEncoding,
                                               RelPositionalEncoding)
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
+from lasr_tpu_torch.modules.layers import Computes, Conv1d, LayerNorm
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
 
 
-class FlaxBatchNorm1d(nn.BatchNorm1d):
+class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
     """BatchNorm over (B, C, T) with the reference state_dict names and
     Flax's training semantics (``lasr_tpu`` ``nn.BatchNorm(momentum=0.9)``):
     the statistics are taken over every B×T frame, padding included, the
     variance is the biased E[x²] - E[x]² (clamped at 0), and the running
     statistics move as ``ra = 0.9·ra + 0.1·batch_stat``, the running
     variance with the biased batch variance (torch's BatchNorm keeps the
-    unbiased one).  Eval mode normalizes with the running statistics."""
+    unbiased one).  Eval mode normalizes with the running statistics.
+    Statistics, running averages and the affine map are float32 whatever
+    the compute dtype; the result is cast to it (Flax's policy)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(self.dtype)
         mean = x.mean(dim=(0, 2))
         var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        return ((x - mean[:, None]) * mul[:, None]
+                + self.bias[:, None]).to(self.dtype)
 
 
 class ConvolutionModule(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 31):
         super().__init__()
-        self.pointwise_conv1 = nn.Conv1d(channels, 2 * channels, 1)
-        self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
-                                        padding=(kernel_size - 1) // 2,
-                                        groups=channels)
+        self.pointwise_conv1 = Conv1d(channels, 2 * channels, 1)
+        self.depthwise_conv = Conv1d(channels, channels, kernel_size,
+                                     padding=(kernel_size - 1) // 2,
+                                     groups=channels)
         self.norm = FlaxBatchNorm1d(channels, eps=1e-5)
-        self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
+        self.pointwise_conv2 = Conv1d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, zero_mask=None) -> torch.Tensor:
         """x: (B, T, C) → (B, T, C).  ``zero_mask`` (B, T) bool, True =
@@ -82,7 +88,7 @@ class ConformerEncoderLayer(nn.Module):
         super().__init__()
         self.rel = selfattention_layer_type == "rel_selfattn"
         self.dropout_rate = dropout_rate
-        self.norm_mha = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm_mha = LayerNorm(size, eps=LAYERNORM_EPS)
         if self.rel:
             self.self_attn = RelPositionMultiHeadedAttention(
                 attention_heads, size, attention_dropout_rate,
@@ -98,10 +104,10 @@ class ConformerEncoderLayer(nn.Module):
                 f"unknown selfattention_layer_type {selfattention_layer_type}")
         self.use_cnn_module = use_cnn_module
         if use_cnn_module:
-            self.norm_conv = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+            self.norm_conv = LayerNorm(size, eps=LAYERNORM_EPS)
             self.conv_module = ConvolutionModule(size, cnn_module_kernel)
-            self.norm_final = nn.LayerNorm(size, eps=LAYERNORM_EPS)
-        self.norm_ff = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+            self.norm_final = LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm_ff = LayerNorm(size, eps=LAYERNORM_EPS)
         self.feed_forward = PositionwiseFeedForward(
             size, linear_units, dropout_rate, activation=F.silu)
 
@@ -186,7 +192,7 @@ class ConformerEncoder(nn.Module):
                 rot_fold_train=rotated,
                 pos_dropout_rate=positional_dropout_rate if rotated else 0.0)
             for _ in range(num_blocks)])
-        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+        self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
     def forward(self, x, x_len, solo_pad: bool = False):
         """x: (B, T, idim), x_len: (B,) → (hs (B, T', D), hs_len (B,)).

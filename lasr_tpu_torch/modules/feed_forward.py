@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from lasr_tpu_torch.modules.dropout import dropout
+from lasr_tpu_torch.modules.layers import Linear
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -17,8 +18,8 @@ class PositionwiseFeedForward(nn.Module):
                  dropout_rate: float = 0.1,
                  activation: Callable = torch.relu):
         super().__init__()
-        self.w_1 = nn.Linear(idim, hidden_units)
-        self.w_2 = nn.Linear(hidden_units, idim)
+        self.w_1 = Linear(idim, hidden_units)
+        self.w_2 = Linear(hidden_units, idim)
         self.activation = activation
         self.dropout_rate = dropout_rate
 

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from lasr_tpu_torch.modules.embedding import PositionalEncoding
+from lasr_tpu_torch.modules.layers import Conv2d, Linear
 
 
 def conv_out_T(T: int, kernel: int, stride: int) -> int:
@@ -47,12 +48,12 @@ class Conv2dSubsampling(nn.Module):
                  dropout_rate: float = 0.1):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(1, odim, 3, 2), nn.ReLU(),
-            nn.Conv2d(odim, odim, 3, 2), nn.ReLU())
+            Conv2d(1, odim, 3, 2), nn.ReLU(),
+            Conv2d(odim, odim, 3, 2), nn.ReLU())
         freq = idim
         for kernel, stride in self.stages:
             freq = conv_out_T(freq, kernel, stride)
-        self.out = nn.Sequential(nn.Linear(odim * freq, odim))
+        self.out = nn.Sequential(Linear(odim * freq, odim))
         self.pos_enc = pos_enc
 
     def forward(self, x: torch.Tensor, x_len: torch.Tensor,

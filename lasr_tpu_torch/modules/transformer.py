@@ -28,6 +28,7 @@ from lasr_tpu_torch.modules.attention import MultiHeadedAttention
 from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
+from lasr_tpu_torch.modules.layers import Embedding, LayerNorm, Linear
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 
 LAYERNORM_EPS = 1e-12  # reference layer_norm.py eps
@@ -44,8 +45,8 @@ class EncoderLayer(nn.Module):
                                               attention_dropout_rate)
         self.feed_forward = PositionwiseFeedForward(size, linear_units,
                                                     dropout_rate)
-        self.norm1 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
-        self.norm2 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm1 = LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm2 = LayerNorm(size, eps=LAYERNORM_EPS)
         self.dropout_rate = dropout_rate
 
     def _drop(self, x):
@@ -73,8 +74,8 @@ class Encoder(nn.Module):
             self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc,
                                            dropout_rate)
         elif input_layer == "linear":
-            self.embed_linear = nn.Linear(idim, attention_dim)
-            self.embed_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+            self.embed_linear = Linear(idim, attention_dim)
+            self.embed_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
             self.embed_pos = pos_enc
         else:
             raise NotImplementedError(
@@ -85,7 +86,7 @@ class Encoder(nn.Module):
             EncoderLayer(attention_dim, attention_heads, linear_units,
                          dropout_rate, attention_dropout_rate)
             for _ in range(num_blocks)])
-        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+        self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
     def embed_input(self, x, x_len, solo_len: bool = False):
         if self.input_layer == "conv2d":
@@ -117,9 +118,9 @@ class DecoderLayer(nn.Module):
                                              src_attention_dropout_rate)
         self.feed_forward = PositionwiseFeedForward(size, linear_units,
                                                     dropout_rate)
-        self.norm1 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
-        self.norm2 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
-        self.norm3 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm1 = LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm2 = LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm3 = LayerNorm(size, eps=LAYERNORM_EPS)
         self.dropout_rate = dropout_rate
 
     def _drop(self, x):
@@ -165,15 +166,15 @@ class Decoder(nn.Module):
         self.attention_dim = attention_dim
         self.attention_heads = attention_heads
         self.embed = nn.Sequential(
-            nn.Embedding(odim, attention_dim),
+            Embedding(odim, attention_dim),
             PositionalEncoding(attention_dim, positional_dropout_rate))
         self.decoders = nn.ModuleList([
             DecoderLayer(attention_dim, attention_heads, linear_units,
                          dropout_rate, self_attention_dropout_rate,
                          src_attention_dropout_rate)
             for _ in range(num_blocks)])
-        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
-        self.output_layer = nn.Linear(attention_dim, odim)
+        self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+        self.output_layer = Linear(attention_dim, odim)
 
     def forward(self, tgt, tgt_mask, memory, memory_mask):
         """tgt: (B, L) ids; tgt_mask: (B, L, L); memory: (B, T, D);
@@ -187,9 +188,10 @@ class Decoder(nn.Module):
         H = self.attention_heads
         shape = (len(self.decoders), batch, max_len, H,
                  self.attention_dim // H)
-        w = self.output_layer.weight
-        return {"k": torch.zeros(shape, dtype=w.dtype, device=w.device),
-                "v": torch.zeros(shape, dtype=w.dtype, device=w.device)}
+        # projected keys and values: the compute dtype
+        out = self.output_layer
+        return {k: out.weight.new_zeros(shape, dtype=out.dtype)
+                for k in ("k", "v")}
 
     def project_memory(self, memory) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-layer source-attention K/V, once per utterance: stacked

@@ -48,7 +48,8 @@ def _rel_scores(q_u, q_v, k, p):
 
 def rel_attention_reference(q_u, q_v, k, v, p, kv_len):
     """Plain PyTorch version of the kernel (the blockless math of
-    ``lasr_tpu/ops/rel_attention.py:_xla_reference``), in f32.
+    ``lasr_tpu/ops/rel_attention.py:_xla_reference``), in f32; on bf16
+    inputs P is rounded to bf16 before P·v, as the kernels round it.
 
     q_u/q_v/k/v: (BH, T, dk) with bh = b*H + h; p: (H, 2T-1, dk) shared
     across the batch; kv_len: (BH,).  Returns (out (BH, T, dk), lse
@@ -63,7 +64,8 @@ def rel_attention_backward_reference(q_u, q_v, k, v, p, kv_len, out, lse,
                                      dout):
     """Plain PyTorch version of the backward kernel (the math of
     ``lasr_tpu/ops/rel_attention.py:_bwd_kernel``), in f32, from the
-    forward's ``out`` and ``lse``.
+    forward's ``out`` and ``lse``; as in that kernel nothing is rounded
+    before the gradients themselves, bf16 inputs included.
 
     Returns (dq_u, dq_v, dk, dv, dp) in the dtypes of q_u, q_v, k, v, p;
     dp[h, r] sums the inverse rel-shift of dz over the batch."""

@@ -24,7 +24,8 @@ from lasr_tpu_torch.ops import cuda_build
 
 def rot_attention_reference(q_u, u, k, v, vt, kv_len):
     """Plain PyTorch version of the kernel (the blockless math of
-    ``lasr_tpu/ops/rot_attention.py:_xla_reference``), in f32.
+    ``lasr_tpu/ops/rot_attention.py:_xla_reference``), in f32; on bf16
+    inputs P is rounded to bf16 before P·v, as the kernels round it.
 
     q_u/k/v: (BH, T, dk); u: (BH, T, M); vt: (T, M); kv_len: (BH,).
     Returns (out (BH, T, dk) in q_u's dtype, lse (BH, T) f32).  Rows with
@@ -42,12 +43,24 @@ def _key_mask(kv_len, T, device):
 
 
 def _masked_softmax_context(s, mask, v, dtype):
+    """softmax(s) @ v over the valid keys, and the rows' lse.  In bf16 the
+    forward kernels (the Pallas ones and the port's) round P = exp(s - m),
+    m the row's running maximum, to bf16 before P·v and divide by the sum
+    of the unrounded P; here m is the row maximum (the kernels' value when
+    one key tile covers the row)."""
     s = s.masked_fill(~mask, -math.inf)
     lse = torch.logsumexp(s, dim=-1)
-    a = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    out = (a @ v.float()).to(dtype)
+    if dtype == torch.float32:
+        a = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        out = a @ v.float()
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.where(mask, torch.exp(s - torch.where(
+            torch.isfinite(m), m, 0.0)), 0.0)
+        out = (e.to(dtype).float() @ v.float()) \
+            / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
     lse = torch.where(mask.any(dim=-1), lse, math.inf)
-    return out, lse
+    return out.to(dtype), lse
 
 
 def _probs_and_score_grad(s, mask, lse, v, out, dout, dk):
@@ -66,7 +79,9 @@ def rot_attention_backward_reference(q_u, u, k, v, vt, kv_len, out, lse,
                                      dout):
     """Plain PyTorch version of the backward kernel (the math of
     ``lasr_tpu/ops/rot_attention.py:_bwd_kernel``), in f32, from the
-    forward's ``out`` and ``lse``.
+    forward's ``out`` and ``lse``.  On bf16 inputs dz is rounded to bf16
+    before its three products, as the Pallas kernel rounds it (P stays
+    f32 in P^T·dout there too).
 
     Returns (dq_u, du, dk, dv) in the dtypes of q_u, u, k, v; vt (the
     static table) gets no gradient."""
@@ -75,6 +90,7 @@ def rot_attention_backward_reference(q_u, u, k, v, vt, kv_len, out, lse,
          + u.float() @ vt.float().t()) / math.sqrt(dk)
     p, dz = _probs_and_score_grad(s, _key_mask(kv_len, T, s.device), lse,
                                   v, out, dout, dk)
+    dz = dz.to(q_u.dtype).float()
     return ((dz @ k.float()).to(q_u.dtype), (dz @ vt.float()).to(u.dtype),
             (dz.transpose(1, 2) @ q_u.float()).to(k.dtype),
             (p.transpose(1, 2) @ dout.float()).to(v.dtype))

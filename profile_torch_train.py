@@ -43,13 +43,6 @@ CONFIGS = {
           "encoder_pos_dropout_mode": "rotated"},
     "B": {"encoder_use_pallas_attention": True},
 }
-# the device functions of csrc/*.cu, by the kernel they make up
-PORT_KERNELS = {
-    "K1 rot_attention_fwd": ("rot_attention_fwd_kernel",),
-    "K2 rot_attention_bwd": ("rot_bwd_",),
-    "K3 rel_attention_fwd": ("rel_attention_fwd_kernel",),
-    "K4 rel_attention_bwd": ("rel_bwd_",),
-}
 
 
 def main(argv=None) -> int:
@@ -83,7 +76,7 @@ def main(argv=None) -> int:
     batch = chip_smoke._train_batch(args.seed + 2)
 
     def owner(kernel_name):
-        for label, parts in PORT_KERNELS.items():
+        for label, parts in chip_smoke.PORT_KERNELS.items():
             if any(p in kernel_name for p in parts):
                 return label
         return None

@@ -238,7 +238,7 @@ def test_decode_cli_matches_the_jax_cli(run, method, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("-fp16", "16"), ("-num_devices", "2"), ("-model_parallel", "2"),
+    ("-num_devices", "2"), ("-model_parallel", "2"),
     ("-seq_parallel", "2"), ("-pipeline_parallel", "2"), ("-fsdp", "1")])
 def test_train_cli_refuses_unported_flags(flag, value, tmp_path):
     with pytest.raises(NotImplementedError, match=flag.lstrip("-")):

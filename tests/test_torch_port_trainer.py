@@ -26,7 +26,6 @@ ASRProcess and the port's, to the same tokens.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -47,10 +46,9 @@ from lasr_tpu_torch.models.losses import E2E_Loss
 from lasr_tpu_torch.process.asrprocess import ASRProcess
 from lasr_tpu_torch.train.optimizer import Adam
 from lasr_tpu_torch.train.trainer import METRICS, Trainer
-from lasr_tpu_torch.utils.weights import (flax_to_state_dict,
-                                          load_model_weights,
+from lasr_tpu_torch.utils.weights import (load_model_weights,
                                           state_dict_to_numpy)
-from tests.torch_port_common import TINY, numpy_tree
+from tests.torch_port_common import TINY, flax_state_dict, jax_grad
 
 TOL = 1e-4
 KW = dict(TINY, encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
@@ -76,28 +74,6 @@ def _batch(seed=0):
             "token_len": np.asarray([6, 4, 5], np.int32)}
 
 
-def _flax_state_dict(params, batch_stats=None):
-    tree = {"params": numpy_tree(params)}
-    if batch_stats is not None:
-        tree["batch_stats"] = numpy_tree(batch_stats)
-    return flax_to_state_dict(tree)
-
-
-def _jax_grad(jt, state, batch):
-    """lasr_tpu's train-step gradient at ``state`` (no update)."""
-    feats, feat_len = jt.frontend(jnp.asarray(batch["wav_array"]),
-                                  jnp.asarray(batch["wav_len"]))
-    ys_in, att_label, ctc_label = jt._pack(jnp.asarray(batch["token_id"]),
-                                           jnp.asarray(batch["token_len"]))
-
-    def loss(params):
-        out, _ = jt._apply_model(params, state.batch_stats, feats, feat_len,
-                                 ys_in, jax.random.PRNGKey(0), train=True)
-        data = dict(out, att_label=att_label, ctc_label=ctc_label)
-        return jt.criterion.train_forward(data)["loss_main"]
-    return jax.jit(jax.grad(loss))(state.params)
-
-
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_three_steps_match_jax_trainer(config):
     kw = dict(KW, **CONFIGS[config])
@@ -109,8 +85,8 @@ def test_three_steps_match_jax_trainer(config):
                     seed=0, log_interval=1)
     jstate = jt.init_state(batch)
     model = E2E_Conformer_CTC(**kw, device="cpu")
-    load_model_weights(model, _flax_state_dict(jstate.params,
-                                               jstate.batch_stats))
+    load_model_weights(model, flax_state_dict(jstate.params,
+                                              jstate.batch_stats))
     pt = Trainer(model, E2E_Loss(TINY["odim"], smoothing=0.1, rate=0.3),
                  Adam(**ADAM), DeviceFrontend(CHAIN), use_ema=True, seed=0,
                  log_interval=1, device="cpu")
@@ -123,7 +99,7 @@ def test_three_steps_match_jax_trainer(config):
     noisy = [n for n in pt.names if n.endswith(NOISE_LEAVES)]
     assert len(noisy) == 2 * TINY["encoder_num_blocks"] \
         + 2 * TINY["decoder_num_block"]
-    jgrads = _flax_state_dict(_jax_grad(jt, jstate, batch)) \
+    jgrads = flax_state_dict(jax_grad(jt, jstate, batch)) \
         if config == "table" else {}
     for name, g in zip(pt.names, grads):
         if name in noisy:
@@ -140,9 +116,9 @@ def test_three_steps_match_jax_trainer(config):
             np.testing.assert_allclose(pm[k], float(jm[k]), rtol=TOL,
                                        atol=TOL, err_msg=f"{k} step {step}")
 
-    want = _flax_state_dict(jstate.params, jstate.batch_stats)
+    want = flax_state_dict(jstate.params, jstate.batch_stats)
     got = model.state_dict()
-    want_ema = _flax_state_dict(jstate.ema["shadow"])
+    want_ema = flax_state_dict(jstate.ema["shadow"])
     shadow = dict(zip(pt.names, pstate.ema["shadow"]))
     assert int(jstate.ema["num_updates"]) == pstate.ema["num_updates"] == 3
     for k, v in want.items():

@@ -164,3 +164,82 @@ def round_trip(v, pm):
     assert len(flat_b) == len(flat_v)
     for path, a in flat_v:
         np.testing.assert_array_equal(flat_b[path], a)
+
+
+# the bf16 tests' Conformer: 2 blocks of d=64, 4 heads, 256 units, 2
+# decoder blocks, rel-pos attention (the recipe's), fbank:80 input
+BF16 = dict(idim=80, odim=32, encoder_attention_dim=64,
+            encoder_attention_heads=4, encoder_linear_units=256,
+            encoder_num_blocks=2, decoder_attention_dim=64,
+            decoder_attention_heads=4, decoder_linear_units=256,
+            decoder_num_block=2, encoder_pos_enc_layer_type="rel_pos",
+            encoder_selfattention_layer_type="rel_selfattn",
+            encoder_cnn_kernel=15)
+# served (table = the recipe's own flags; eval takes the plain rotated
+# fold) and trained configurations
+SERVED = {"table": {}, "A": {"encoder_rot_fold_pallas": True},
+          "B": {"encoder_use_pallas_attention": True}}
+TRAINED = {"A-train": {"encoder_rot_fold_pallas": True,
+                       "encoder_pos_dropout_mode": "rotated"},
+           "B-train": {"encoder_use_pallas_attention": True}}
+
+
+def bf16_batch(B=3, T=120, D=80, L=6, odim=32, seed=0):
+    """Ragged features (B, T, D), lengths and targets (B, L) in 3..odim."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    xlen = np.asarray([T, T - 23, T - 56][:B], np.int32)
+    ys = rng.integers(3, odim, (B, L)).astype(np.int32)
+    return x, xlen, ys
+
+
+def bf16_pair(flags, seed=0, **overrides):
+    """(flax f32 model, flax bf16 model, numpy variables with perturbed
+    BatchNorm statistics, the port's bf16 model on the CPU with the same
+    weights) of ``BF16`` with ``flags``."""
+    kw = dict(BF16, **dict(flags), **overrides)
+    x, xlen, ys = bf16_batch(D=kw["idim"], odim=kw["odim"], seed=seed)
+    f32 = jax_models.E2E_Conformer_CTC(**kw)
+    variables = numpy_tree(f32.init(jax.random.PRNGKey(seed), x, xlen, ys))
+    variables = perturb_batch_stats(variables, seed)
+    pm = E2E_Conformer_CTC(**kw, dtype=torch.bfloat16, device="cpu")
+    load_model_weights(pm, flax_to_state_dict(variables))
+    return (f32, jax_models.E2E_Conformer_CTC(**kw, dtype=jnp.bfloat16),
+            variables, pm)
+
+
+def rel_max_err(got, want):
+    """max |got - want| over max |want| (tensors or arrays of any float
+    dtype)."""
+    got, want = f32(got), f32(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def f32(x):
+    """A torch tensor or JAX/numpy array of any float dtype as float32
+    numpy."""
+    if torch.is_tensor(x):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def flax_state_dict(params, batch_stats=None):
+    tree = {"params": numpy_tree(params)}
+    if batch_stats is not None:
+        tree["batch_stats"] = numpy_tree(batch_stats)
+    return flax_to_state_dict(tree)
+
+
+def jax_grad(jt, state, batch):
+    """lasr_tpu's train-step gradient at ``state`` (no update)."""
+    feats, feat_len = jt.frontend(jnp.asarray(batch["wav_array"]),
+                                  jnp.asarray(batch["wav_len"]))
+    ys_in, att_label, ctc_label = jt._pack(jnp.asarray(batch["token_id"]),
+                                           jnp.asarray(batch["token_len"]))
+
+    def loss(params):
+        out, _ = jt._apply_model(params, state.batch_stats, feats, feat_len,
+                                 ys_in, jax.random.PRNGKey(0), train=True)
+        data = dict(out, att_label=att_label, ctc_label=ctc_label)
+        return jt.criterion.train_forward(data)["loss_main"]
+    return jax.jit(jax.grad(loss))(state.params)
