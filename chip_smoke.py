@@ -75,9 +75,14 @@ Phases, always all of them, in this order:
            ASRProcess giving row 0; the online search's ms per token step
            and the device ops of one online decoder step (the endpoint
            chain's share beside the untruncated step); (d) the offline
-           E2E_Transformer_CTC at the same widths decoded once (ctc_att).
-           No TPU kernel lies on this path: K1-K4's launches in the phase
-           are counted (0).  Prints a {"stream": ...} line.
+           E2E_Transformer_CTC at the same widths decoded once (ctc_att);
+           (e) the online model in bf16 on the same weights (the JAX
+           bench's dtype): its chunked encoder within 2e-2 (relative L2)
+           of the f32 one and its encode_chunk sequence within 2e-2 of its
+           largest magnitude, the 10 s stream as in (b), the online
+           search's ms per token step.  No TPU kernel lies on this path:
+           K1-K4's launches in the phase are counted (0).  Prints a
+           {"stream": ...} line.
   bf16     bf16 compute (``dtype=torch.bfloat16``, float32 parameters,
            the train CLI's ``-fp16 16``) on the main paths, each beside
            its f32 run in this process: (a) train_b and train_a again in
@@ -97,6 +102,33 @@ Phases, always all of them, in this order:
            phase profiles one extra step: device busy time against wall
            time and each port kernel's device ms.  Prints a {"bf16": ...}
            line.
+  train_tf the offline E2E_Transformer_CTC at the stream phase's widths
+           (d=320, 8 heads, 2048 units, 12 + 6 blocks, odim 5002) trained
+           by the port's Trainer as train_b is (B=32 x 15.6 s, SpecAugment,
+           dropout, Noam, clip 5, EMA): 3 timed steps and one profiled
+           step in f32, then in bf16 (step times, peak memory, device busy
+           time, device ops); one step at dropout 0 on B=4 x 4 s on the
+           card against the same step on the CPU: f32 loss within 1e-4
+           (relative) and every parameter group's gradients within 1e-2
+           (L2); bf16 loss within 2e-2 of the CPU's bf16 step, and the
+           card's bf16 gradients no further than 2x the CPU's bf16
+           gradients from the card's f32 ones (worst group, L2).  K1-K4
+           are counted and must not launch.  Prints a {"train_tf": ...}
+           line.
+  train_stream the same for E2E_Transformer_CTC_Online (chunks 64/64/64,
+           the layer-major chunked encoder; the sigmoid noise on in the
+           timed steps, off in the card-vs-CPU step).
+  fit_toy  the toy recipe's example/asr_toy/conf/config.yaml
+           (E2E_Transformer_CTC) and config_online.yaml
+           (E2E_Transformer_CTC_Online) as they stand, their data pointed
+           at fit_b's corpus, through ``python -m
+           lasr_tpu_torch.bin.train`` with -fp16 32 and -fp16 16 (four
+           processes at once, 2 epochs, -ema 1): finite metrics, a
+           validation each epoch, float32 checkpoints; then
+           ``lasr_tpu_torch.bin.decode`` on each run's checkpoints (-choose
+           last -avg 2, the recipe's decode.yaml: ctc_att, online
+           ctc_att_online) writes the 4 dev hypotheses.  Prints a
+           {"fit_toy": ...} line.
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -681,17 +713,18 @@ def _train_batch(seed):
             "token_len": np.full((TRAIN_BATCH,), TRAIN_TOKENS, np.int32)}
 
 
-def _trainer(model, chain, seed, log_interval=1):
+def _trainer(model, chain, seed, log_interval=1, odim=RECIPE["odim"],
+             device=None):
     """The Trainer of the training phases; ``log_interval=1`` computes the
     greedy-CTC CER on every step."""
     from lasr_tpu_torch.data.frontend import DeviceFrontend
     from lasr_tpu_torch.models.losses import E2E_Loss
     from lasr_tpu_torch.train.optimizer import Noam
     from lasr_tpu_torch.train.trainer import Trainer
-    return Trainer(model, E2E_Loss(size=RECIPE["odim"], smoothing=0.1,
-                                   rate=0.3),
+    return Trainer(model, E2E_Loss(size=odim, smoothing=0.1, rate=0.3),
                    Noam(320, 3, 25000), DeviceFrontend(chain), use_ema=True,
-                   grad_clip=5.0, seed=seed, log_interval=log_interval)
+                   grad_clip=5.0, seed=seed, log_interval=log_interval,
+                   device=device)
 
 
 # the gates of a kernel-path step against the plain path (see _train)
@@ -1333,100 +1366,42 @@ def _search_timed(decoder, model, step_name, hs, hs_len, lpz):
     return hyps, dt, steps[0]
 
 
-def phase_stream(state):
-    """The streaming family at full width: the chunked encoder on the card
-    against the CPU and against its own chunk-by-chunk serving, the
-    StreamingRecognizer on a 10 s stream, the decode CLI and ASRProcess
-    with ctc_att_online, and the offline Transformer's decode."""
-    import torch
-    import torch.nn.functional as F
-    import yaml
-    from lasr_tpu_torch.data.frontend import DeviceFrontend
-    from lasr_tpu_torch.data.reader import read_scp
-    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
-    from lasr_tpu_torch.decode.greedy import ctc_greedy_decode
-    from lasr_tpu_torch.decode.online import StreamingRecognizer
-    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Transformer_CTC
-    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
-    from lasr_tpu_torch.modules.streaming import _chunk_grid
+def _kernel_counters():
+    """K1-K4's wrappers, their launch counts set to 0."""
     from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
                                                   rel_attention_forward)
     from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
                                                   rot_attention_forward)
-    from lasr_tpu_torch.process.asrprocess import ASRProcess
-    from lasr_tpu_torch.utils.weights import load_model_weights
-    label, seed, card = "stream", state["seed"], state["card"]
-    kernels = {"rot_attention_fwd": rot_attention_forward,
-               "rot_attention_bwd": rot_attention_backward,
-               "rel_attention_fwd": rel_attention_forward,
-               "rel_attention_bwd": rel_attention_backward}
-    for fn in kernels.values():
+    fns = {"rot_attention_fwd": rot_attention_forward,
+           "rot_attention_bwd": rot_attention_backward,
+           "rel_attention_fwd": rel_attention_forward,
+           "rel_attention_bwd": rel_attention_backward}
+    for fn in fns.values():
         fn.launches = 0
-    summary = {"card": card}
-    torch.manual_seed(seed)
-    model = E2E_Transformer_CTC_Online(**STREAM)
+    return fns
+
+
+def _recognize(label, model, wave, card):
+    """``wave`` through a StreamingRecognizer over ``model`` in
+    STREAM_PIECE_SECS pieces: per-chunk latency (the calls that dispatch
+    a chunk), finalize time, RTF; the greedy tokens must equal the batch
+    forward's, a frame whose argmax differs allowed only as a tie within
+    twice the two paths' logit difference.  Returns the summary's
+    numbers."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.decode.greedy import ctc_greedy_decode
+    from lasr_tpu_torch.decode.online import StreamingRecognizer
     dev = next(model.parameters()).device
-    chunk = STREAM["encoder_center_chunk"]
-    frontend = DeviceFrontend(["norm", "fbank:80"])
-    wav = torch.from_numpy(make_waves(seed + 6, STREAM_UTTS,
-                                      STREAM_UTT_SECS)).to(dev)
-    wav_len = torch.full((STREAM_UTTS,), wav.shape[1], dtype=torch.int32,
-                         device=dev)
-
-    # (a) the batch chunked encoder: the card against the CPU, and against
-    # its own chunk-by-chunk serving
-    with torch.no_grad():
-        for _ in range(2):      # the first call warms cuBLAS / cuDNN up
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            feats, feat_len = frontend(wav, wav_len)
-            x_len = feat_len - torch.tensor(STREAM_CUTS, device=dev,
-                                            dtype=feat_len.dtype)
-            hs, hs_len = model.encode_online(feats, x_len)
-            torch.cuda.synchronize()
-        summary["encode_ms"] = (time.perf_counter() - t) * 1e3
-        cpu = E2E_Transformer_CTC_Online(**STREAM, device="cpu")
-        load_model_weights(cpu, model.state_dict())
-        hs_cpu, len_cpu = cpu.encode_online(feats.cpu(), x_len.cpu())
-        del cpu
-        enc = model.encoder
-        T = feats.shape[1]
-        x_pad = F.pad(feats, (0, 0, 0, 2 * chunk + 6))
-        mems = enc.init_stream_state(STREAM_UTTS)
-        outs = []
-        for c in range(_chunk_grid(T, chunk, chunk, chunk)):
-            out, mems = enc.encode_chunk(
-                x_pad[:, c * chunk: c * chunk + 2 * chunk + 6], c, mems,
-                x_len)
-            outs.append(out)
-        inc = torch.cat(outs, dim=1)
-    err_cpu = float((hs.cpu() - hs_cpu).abs().max())
-    err_inc = max(float((inc[b, :n] - hs[b, :n]).abs().max())
-                  for b, n in enumerate(hs_len.tolist()))
-    log(f"{label}: (a) chunked encoder, B={STREAM_UTTS} x "
-        f"{STREAM_UTT_SECS:g} s (T={T}, key lengths {x_len.tolist()}, "
-        f"hs {tuple(hs.shape)}): card vs CPU max_abs {err_cpu:.3e}, batch "
-        f"vs encode_chunk sequence max_abs {err_inc:.3e} (tol 1e-3); "
-        f"frontend+encode {summary['encode_ms']:.2f} ms warm [{card}]")
-    check(torch.equal(hs_len.cpu(), len_cpu) and err_cpu <= 1e-3
-          and err_inc <= 1e-3 and bool(torch.isfinite(hs).all()),
-          f"{label}: (a) chunked encoder off by {err_cpu} (CPU) / "
-          f"{err_inc} (encode_chunk)")
-    summary.update(encoder_max_abs_cpu=err_cpu, encoder_max_abs_chunks=err_inc)
-
-    # (b) one seeded 10 s stream through StreamingRecognizer in 160 ms
-    # pieces; the CTC bias is centred on the stream's mean logit so the
-    # random head emits a varied greedy sequence
-    wave = make_waves(seed + 7, 1, STREAM_SECS)[0]
+    chunk = model.encoder_center_chunk
     plain = DeviceFrontend(["fbank:80"])     # the recognizer's chain
     with torch.no_grad():
         f1, l1 = plain(torch.from_numpy(wave[None]).to(dev),
                        torch.tensor([len(wave)], device=dev))
         h1, n1 = model.encode_online(f1, l1)
-        model.ctc[1].bias -= model.ctc_logits(h1)[0, : int(n1)].mean(0)
         logits1 = model.ctc_logits(h1)
         want = ctc_greedy_decode(logits1, n1)[0]
-        top2 = logits1[0, : int(n1)].topk(2, dim=-1).values
+        top2 = logits1[0, : int(n1)].float().topk(2, dim=-1).values
         margin = float((top2[:, 0] - top2[:, 1]).min())
     rec = StreamingRecognizer(model)
     # the logits of each harvested chunk's n_out frames, for the check
@@ -1454,34 +1429,123 @@ def phase_stream(state):
     fin = time.perf_counter() - t
     total += fin
     p50, p95 = (float(np.percentile(chunk_lat, q)) * 1e3 for q in (50, 95))
-    # frames whose argmax differs between the streamed and the batch
-    # logits must be ties within the two paths' logit difference
     streamed = torch.cat(streamed)
     batch_logits = logits1[0, : int(n1)].float()
     check(streamed.shape == batch_logits.shape,
-          f"{label}: (b) streamed {tuple(streamed.shape)} frames, batch "
+          f"{label}: streamed {tuple(streamed.shape)} frames, batch "
           f"{tuple(batch_logits.shape)}")
     logit_err = float((streamed - batch_logits).abs().max())
     flips = (streamed.argmax(-1) != batch_logits.argmax(-1)).nonzero()[:, 0]
     gap = (top2[:, 0] - top2[:, 1])[flips]
     ties = bool((gap <= 2 * logit_err).all())
-    log(f"{label}: (b) StreamingRecognizer, {STREAM_SECS:g} s in "
-        f"{STREAM_PIECE_SECS * 1e3:g} ms pieces: {len(chunk_lat)} calls "
-        f"dispatched a chunk ({chunk} frames = {chunk / 100:g} s hop), "
-        f"latency p50 {p50:.2f} ms p95 {p95:.2f} ms, finalize "
-        f"{fin * 1e3:.2f} ms, RTF {total / STREAM_SECS:.4f}; "
+    log(f"{label}: StreamingRecognizer ({model.ctc[1].dtype}), "
+        f"{len(wave) / SR:g} s in {STREAM_PIECE_SECS * 1e3:g} ms pieces: "
+        f"{len(chunk_lat)} calls dispatched a chunk ({chunk} frames = "
+        f"{chunk / 100:g} s hop), latency p50 {p50:.2f} ms p95 {p95:.2f} "
+        f"ms, finalize {fin * 1e3:.2f} ms, RTF {total * SR / len(wave):.4f}; "
         f"{len(tokens)} greedy tokens, equal to the batch forward's: "
         f"{tokens == want}; logits streamed vs batch max_abs "
         f"{logit_err:.3e}, {len(flips)} frames with another argmax, all "
         f"ties within 2x that: {ties} (smallest top-2 margin of any frame "
         f"{margin:.3e}) [{card}]")
     check(tokens == want or (len(flips) > 0 and ties),
-          f"{label}: (b) streamed greedy tokens {tokens} differ from the "
+          f"{label}: streamed greedy tokens {tokens} differ from the "
           f"batch forward's {want} beyond ties")
-    summary.update(chunk_latency_ms_p50=p50, chunk_latency_ms_p95=p95,
-                   finalize_ms=fin * 1e3, stream_rtf=total / STREAM_SECS,
-                   greedy_tokens=len(tokens), chunks=len(chunk_lat))
+    return dict(chunk_latency_ms_p50=p50, chunk_latency_ms_p95=p95,
+                finalize_ms=fin * 1e3, stream_rtf=total * SR / len(wave),
+                greedy_tokens=len(tokens), chunks=len(chunk_lat))
 
+
+def _chunk_sequence(model, feats, x_len):
+    """The chunked encoder's output served chunk by chunk
+    (``encode_chunk`` against carried memories), concatenated."""
+    import torch
+    import torch.nn.functional as F
+    from lasr_tpu_torch.modules.streaming import _chunk_grid
+    enc, chunk = model.encoder, model.encoder_center_chunk
+    T = feats.shape[1]
+    x_pad = F.pad(feats, (0, 0, 0, 2 * chunk + 6))
+    mems = enc.init_stream_state(feats.shape[0])
+    outs = []
+    with torch.no_grad():
+        for c in range(_chunk_grid(T, chunk, chunk, chunk)):
+            out, mems = enc.encode_chunk(
+                x_pad[:, c * chunk: c * chunk + 2 * chunk + 6], c, mems,
+                x_len)
+            outs.append(out)
+    return torch.cat(outs, dim=1)
+
+
+def phase_stream(state):
+    """The streaming family at full width: the chunked encoder on the card
+    against the CPU and against its own chunk-by-chunk serving, the
+    StreamingRecognizer on a 10 s stream, the decode CLI and ASRProcess
+    with ctc_att_online, the offline Transformer's decode, and the online
+    model again in bf16."""
+    import torch
+    import yaml
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.data.reader import read_scp
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Transformer_CTC
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    label, seed, card = "stream", state["seed"], state["card"]
+    kernels = _kernel_counters()
+    summary = {"card": card}
+    torch.manual_seed(seed)
+    model = E2E_Transformer_CTC_Online(**STREAM)
+    dev = next(model.parameters()).device
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+    wav = torch.from_numpy(make_waves(seed + 6, STREAM_UTTS,
+                                      STREAM_UTT_SECS)).to(dev)
+    wav_len = torch.full((STREAM_UTTS,), wav.shape[1], dtype=torch.int32,
+                         device=dev)
+
+    # (a) the batch chunked encoder: the card against the CPU, and against
+    # its own chunk-by-chunk serving
+    with torch.no_grad():
+        for _ in range(2):      # the first call warms cuBLAS / cuDNN up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            feats, feat_len = frontend(wav, wav_len)
+            x_len = feat_len - torch.tensor(STREAM_CUTS, device=dev,
+                                            dtype=feat_len.dtype)
+            hs, hs_len = model.encode_online(feats, x_len)
+            torch.cuda.synchronize()
+        summary["encode_ms"] = (time.perf_counter() - t) * 1e3
+        cpu = E2E_Transformer_CTC_Online(**STREAM, device="cpu")
+        load_model_weights(cpu, model.state_dict())
+        hs_cpu, len_cpu = cpu.encode_online(feats.cpu(), x_len.cpu())
+        del cpu
+        T = feats.shape[1]
+        inc = _chunk_sequence(model, feats, x_len)
+    err_cpu = float((hs.cpu() - hs_cpu).abs().max())
+    err_inc = max(float((inc[b, :n] - hs[b, :n]).abs().max())
+                  for b, n in enumerate(hs_len.tolist()))
+    log(f"{label}: (a) chunked encoder, B={STREAM_UTTS} x "
+        f"{STREAM_UTT_SECS:g} s (T={T}, key lengths {x_len.tolist()}, "
+        f"hs {tuple(hs.shape)}): card vs CPU max_abs {err_cpu:.3e}, batch "
+        f"vs encode_chunk sequence max_abs {err_inc:.3e} (tol 1e-3); "
+        f"frontend+encode {summary['encode_ms']:.2f} ms warm [{card}]")
+    check(torch.equal(hs_len.cpu(), len_cpu) and err_cpu <= 1e-3
+          and err_inc <= 1e-3 and bool(torch.isfinite(hs).all()),
+          f"{label}: (a) chunked encoder off by {err_cpu} (CPU) / "
+          f"{err_inc} (encode_chunk)")
+    summary.update(encoder_max_abs_cpu=err_cpu, encoder_max_abs_chunks=err_inc)
+
+    # (b) one seeded 10 s stream through StreamingRecognizer in 160 ms
+    # pieces; the CTC bias is centred on the stream's mean logit so the
+    # random head emits a varied greedy sequence
+    wave = make_waves(seed + 7, 1, STREAM_SECS)[0]
+    with torch.no_grad():
+        f1, l1 = DeviceFrontend(["fbank:80"])(
+            torch.from_numpy(wave[None]).to(dev),
+            torch.tensor([len(wave)], device=dev))
+        h1, n1 = model.encode_online(f1, l1)
+        model.ctc[1].bias -= model.ctc_logits(h1)[0, : int(n1)].mean(0)
+    summary.update(_recognize(label, model, wave, card))
     with tempfile.TemporaryDirectory() as tmp:
         # (c) a port checkpoint, the decode CLI with ctc_att_online on
         # STREAM_UTTS seeded WAVs, ASRProcess on row 0
@@ -1583,7 +1647,59 @@ def phase_stream(state):
                    online_search_steps=steps,
                    decoder_step_ep_launches=n_ep,
                    decoder_step_monotonic_launches=n_mono)
-    del model, decoder
+
+    # (e) the same model in bf16 (tools/bench_streaming.py's dtype), on
+    # the same weights: the chunked encoder against the f32 one and
+    # against its own chunk-by-chunk serving, the 10 s stream, the online
+    # search
+    model16 = E2E_Transformer_CTC_Online(**STREAM, dtype=torch.bfloat16)
+    load_model_weights(model16, model.state_dict())
+    with torch.no_grad():
+        hs32, len32 = model.encode_online(feats, x_len)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            f16, _ = frontend(wav, wav_len)
+            hs16, len16 = model16.encode_online(f16, x_len)
+            torch.cuda.synchronize()
+        enc16_ms = (time.perf_counter() - t) * 1e3
+        inc16 = _chunk_sequence(model16, feats, x_len)
+    err16 = float((hs16.float() - hs32).norm() / hs32.norm())
+    err16_inc = max(float((inc16[b, :n] - hs16[b, :n]).abs().max())
+                    for b, n in enumerate(len16.tolist())) \
+        / float(hs16.abs().max())
+    log(f"{label}: (e) bf16 chunked encoder B={STREAM_UTTS} x "
+        f"{STREAM_UTT_SECS:g} s: vs f32 relative L2 {err16:.2e} (tol 2e-2), "
+        f"batch vs encode_chunk sequence max_abs {err16_inc:.2e} of the "
+        f"largest magnitude (tol 2e-2); frontend+encode {enc16_ms:.2f} ms "
+        f"warm (f32 {summary['encode_ms']:.2f}) [{card}]")
+    check(hs16.dtype == torch.bfloat16 and torch.equal(len16, len32)
+          and bool(torch.isfinite(hs16.float()).all()) and err16 <= 2e-2
+          and err16_inc <= 2e-2,
+          f"{label}: (e) bf16 chunked encoder off by {err16} (f32) / "
+          f"{err16_inc} (encode_chunk)")
+    bf16 = dict(encode_ms=enc16_ms, encoder_rel_l2_vs_f32=err16,
+                encoder_max_abs_chunks=err16_inc)
+    bf16.update(_recognize(f"{label} (e)", model16, wave, card))
+    decoder16 = CTCAttBeamDecoder(model16, beam=DECODE["beam"],
+                                  ctc_beam=DECODE["ctc_beam"],
+                                  ctc_weight=DECODE["ctc_weight"],
+                                  online=True)
+    hs, hs_len, lpz = decoder16.encode(feats, feat_len)
+    hyps, dt16, steps16 = _search_timed(decoder16, model16,
+                                        "decoder_step_ep", hs, hs_len, lpz)
+    check(lpz.dtype == torch.float32
+          and all(0 <= tk < V for b in range(STREAM_UTTS)
+                  for tk in hyps.best_ids(b))
+          and np.isfinite(hyps.scores).all(),
+          f"{label}: (e) bf16 online hypotheses out of range / non-finite")
+    log(f"{label}: (e) bf16 online search B={B}: {steps16} token steps in "
+        f"{dt16:.2f} s, {dt16 / steps16 * 1e3:.2f} ms a step (f32 "
+        f"{summary['online_search_ms_per_step']:.2f}) [{card}]")
+    bf16.update(online_search_ms_per_step=dt16 / steps16 * 1e3,
+                online_search_steps=steps16)
+    summary["bf16"] = bf16
+    del model, decoder, model16, decoder16
 
     # (d) the offline Transformer at the same widths, decoded once
     torch.manual_seed(seed + 1)
@@ -1810,6 +1926,293 @@ def phase_bf16(state):
     print(json.dumps({"bf16": summary}), flush=True)
 
 
+# train_tf / train_stream: the card-vs-CPU step's batch (B x secs, L
+# tokens) and gates: f32 loss (relative) and worst parameter group's
+# gradients (L2); bf16 loss against the CPU's bf16 step, and the card's
+# bf16 gradients no further from the card's f32 ones than `accuracy`
+# times the CPU's bf16 gradients
+SMALL_BATCH, SMALL_SECS, SMALL_TOKENS = 4, 4.0, 16
+FAMILY_TOL = {"float32": dict(loss=1e-4, l2=1e-2),
+              "bfloat16": dict(loss=2e-2, accuracy=2.0)}
+
+
+def _small_batch(seed):
+    rng = np.random.default_rng(seed)
+    wav = make_waves(seed, SMALL_BATCH, SMALL_SECS)
+    n = np.asarray([wav.shape[1] - int(0.4 * SR) * i
+                    for i in range(SMALL_BATCH)], np.int32)
+    wav *= np.arange(wav.shape[1])[None, :] < n[:, None]
+    return {"wav_array": wav, "wav_len": n,
+            "token_id": rng.integers(6, RECIPE["odim"],
+                                     (SMALL_BATCH, SMALL_TOKENS)).astype(
+                                         np.int32),
+            "token_len": np.asarray([SMALL_TOKENS - 2 * i
+                                     for i in range(SMALL_BATCH)], np.int32)}
+
+
+def _train_family(state, label, cls, kw):
+    """A model family the recipe Conformer's phases do not reach, trained
+    by the port's Trainer at full width: ``TRAIN_STEPS`` timed steps on
+    B=32 x 15.6 s in f32 and in bf16 (dropout, SpecAugment and, online,
+    the sigmoid noise on), one more under the profiler; then one step at
+    dropout 0 (no noise, no SpecAugment) on a B=4 x 4 s batch on the card
+    against the same step on the CPU, in both dtypes.  No TPU kernel lies
+    on the path: K1-K4's launches are counted and must stay 0."""
+    import torch
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    seed, card = state["seed"], state["card"]
+    odim = kw["odim"]
+    chain = ["norm", "fbank:80", "specaug"]
+    batch = _train_batch(seed + 2)
+    counters = _kernel_counters()
+    summary = {"card": card}
+    for dtype in ("float32", "bfloat16"):
+        torch.manual_seed(seed)
+        model = cls(**kw, dtype=getattr(torch, dtype))
+        trainer = _trainer(model, chain, seed, odim=odim)
+        tstate = trainer.init_state()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tstate, m = trainer.train_step(tstate, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append(m)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        (tstate, _), prof = _profile(
+            lambda: trainer.train_step(tstate, batch))
+        log(f"{label}: {dtype}, {TRAIN_STEPS} train steps of "
+            f"B={TRAIN_BATCH} x {TRAIN_SECS:g} s, {trainer.param_count()} "
+            f"parameters: step times {', '.join(f'{t:.3f}' for t in times)}"
+            f" s, peak memory {peak_gb:.2f} GB; profiled step "
+            f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
+            f"({prof['busy_ms'] / prof['wall_ms']:.1%}), {prof['ops']} "
+            f"device ops [{card}]")
+        for i, m in enumerate(metrics):
+            log(f"{label}: {dtype} step {i} " + ", ".join(
+                f"{k} {v:.4f}" for k, v in m.items()))
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"{label}: {dtype} step {i} has a non-finite metric {m}")
+        summary[dtype] = dict(step_s=times, peak_gb=peak_gb,
+                              profiled_wall_ms=prof["wall_ms"],
+                              device_busy_ms=prof["busy_ms"],
+                              device_ops=prof["ops"])
+        del model, trainer, tstate
+        torch.cuda.empty_cache()
+
+    # one step at dropout 0 on the card against the CPU, both dtypes
+    nodrop = dict(kw, encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+                  ctc_dropout=0.0)
+    if "decoder_src_attention_heads" in kw:
+        nodrop["decoder_src_attention_sigmoid_noise"] = 0.0
+    small = _small_batch(seed + 9)
+    torch.manual_seed(seed)
+    weights = {k: v.cpu() for k, v in cls(**nodrop).state_dict().items()}
+    steps = {}
+    for device in ("cuda", "cpu"):
+        for dtype in ("float32", "bfloat16"):
+            m = cls(**nodrop, dtype=getattr(torch, dtype), device=device)
+            load_model_weights(m, weights)
+            tr = _trainer(m, ["norm", "fbank:80"], seed, odim=odim,
+                          device=device)
+            t0 = time.perf_counter()
+            met, grads = tr.loss_and_grads(small, 0)
+            steps[device, dtype] = (float(met["loss_main"].detach()),
+                                    [g.detach().cpu() for g in grads],
+                                    time.perf_counter() - t0)
+            names = tr.names
+            del m, tr
+    launches = {name: fn.launches for name, fn in counters.items()}
+    (l32, g32, _), (lc32, gc32, cpu_s) = (steps["cuda", "float32"],
+                                          steps["cpu", "float32"])
+    (l16, g16, _), (lc16, gc16, _) = (steps["cuda", "bfloat16"],
+                                      steps["cpu", "bfloat16"])
+    tol32, tol16 = FAMILY_TOL["float32"], FAMILY_TOL["bfloat16"]
+    loss32 = abs(l32 - lc32) / abs(lc32)
+    groups32 = _group_l2(names, g32, gc32)
+    worst32 = max(groups32, key=groups32.get)
+    loss16 = abs(l16 - lc16) / abs(lc16)
+    far = {"card": max(_group_l2(names, g16, g32).values()),
+           "cpu": max(_group_l2(names, gc16, g32).values())}
+    card_cpu16 = max(_group_l2(names, g16, gc16).values())
+    log(f"{label}: dropout 0, B={SMALL_BATCH} x {SMALL_SECS:g} s, card vs "
+        f"CPU ({cpu_s:.1f} s on the CPU in f32): f32 loss {l32:.6f} vs "
+        f"{lc32:.6f} (rel {loss32:.2e}, tol {tol32['loss']:g}), "
+        f"{len(groups32)} parameter groups, worst L2 {worst32} "
+        f"{groups32[worst32]:.2e} (tol {tol32['l2']:g}); bf16 loss "
+        f"{l16:.6f} vs {lc16:.6f} (rel {loss16:.2e}, tol "
+        f"{tol16['loss']:g}; f32 {l32:.6f}), bf16 gradients' worst group "
+        f"against the card's f32: card {far['card']:.2e}, CPU "
+        f"{far['cpu']:.2e} (tol {tol16['accuracy']:g}x the CPU's; card vs "
+        f"CPU bf16 {card_cpu16:.2e}); K1-K4 launches {launches} [{card}]")
+    check(loss32 <= tol32["loss"] and groups32[worst32] <= tol32["l2"],
+          f"{label}: f32 card vs CPU: loss {loss32}, gradients "
+          f"{groups32[worst32]} ({worst32})")
+    check(loss16 <= tol16["loss"]
+          and far["card"] <= tol16["accuracy"] * far["cpu"],
+          f"{label}: bf16 card vs CPU: loss {loss16}, gradients {far}")
+    check(not any(launches.values()), f"{label}: K1-K4 launched {launches} "
+          f"on a path that has none of them")
+    summary.update(card_vs_cpu=dict(
+        loss_f32=loss32, worst_group_l2_f32=groups32[worst32],
+        loss_bf16=loss16, grads_bf16_vs_f32=far,
+        grads_bf16_card_vs_cpu=card_cpu16), launches=launches)
+    print(json.dumps({label: summary}), flush=True)
+    state["family_launches"][label] = launches
+    state["timings"][label] = summary
+
+
+def phase_train_tf(state):
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Transformer_CTC
+    _train_family(state, "train_tf", E2E_Transformer_CTC, TRANSFORMER)
+
+
+def phase_train_stream(state):
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    _train_family(state, "train_stream", E2E_Transformer_CTC_Online, STREAM)
+
+
+# fit_toy: the toy recipe's two configs, each trained by the train CLI in
+# f32 and bf16 for FIT_TOY_EPOCHS epochs on fit_b's corpus
+TOY_CONFIGS = {"config": "ctc_att", "config_online": "ctc_att_online"}
+FIT_TOY_EPOCHS = 2
+
+
+def phase_fit_toy(state):
+    """The toy recipe's ``config.yaml`` and ``config_online.yaml`` as they
+    stand (model, optimizer, SpecAugment, dropout and the sigmoid noise),
+    their data pointed at fit_b's corpus, through ``python -m
+    lasr_tpu_torch.bin.train`` with ``-fp16 32`` and ``-fp16 16`` (four
+    processes at once), then ``lasr_tpu_torch.bin.decode`` on each run's
+    checkpoints with the recipe's decode.yaml settings."""
+    import contextlib
+    import io
+    import yaml
+    import torch
+    from lasr_tpu_torch.bin import decode
+    label, seed, card = "fit_toy", state["seed"], state["card"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    toy = os.path.join(here, "example", "asr_toy", "conf")
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, dev_dir, dict_path = _fit_corpus(tmp, seed + 3)
+        with open(os.path.join(toy, "decode.yaml")) as f:
+            decode_cfg = yaml.safe_load(f)
+        runs = {}
+        for name in TOY_CONFIGS:
+            with open(os.path.join(toy, f"{name}.yaml")) as f:
+                cfg = yaml.safe_load(f)
+            cfg["tokenizer_config"]["kwargs"]["dict_path"] = dict_path
+            for key, d in (("train_data_config", train_dir),
+                           ("valid_data_config", dev_dir)):
+                cfg[key]["kwargs"]["wav_list"] = [os.path.join(d, "wav.scp")]
+                cfg[key]["kwargs"]["text_list"] = [os.path.join(d, "text")]
+            config = os.path.join(tmp, f"{name}.yaml")
+            with open(config, "w") as f:
+                yaml.safe_dump(cfg, f, sort_keys=False)
+            for fp16 in (32, 16):
+                exp = os.path.join(tmp, f"{name}_{fp16}")
+                logf = open(exp + ".log", "w")
+                runs[name, fp16] = (exp, logf, subprocess.Popen(
+                    [sys.executable, "-m", "lasr_tpu_torch.bin.train",
+                     "-config", config, "-exp_dir", exp, "-num_epochs",
+                     str(FIT_TOY_EPOCHS), "-ema", "1", "-fp16", str(fp16),
+                     "-log_interval", "1", "-seed", str(seed),
+                     "-num_workers", "2"], cwd=here, stdout=logf,
+                    stderr=subprocess.STDOUT,
+                    env=dict(os.environ, PYTHONPATH=here)))
+        t0 = time.perf_counter()
+        try:
+            for (name, fp16), (exp, logf, proc) in runs.items():
+                rc = proc.wait(timeout=600)
+                logf.close()
+                with open(exp + ".log") as f:
+                    tail = f.read()[-2000:]
+                check(rc == 0, f"{label}: train CLI {name} -fp16 {fp16} "
+                      f"exited {rc}: {tail}")
+        finally:
+            for _, logf, proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                logf.close()
+        wall = time.perf_counter() - t0
+        counters = _kernel_counters()
+        for (name, fp16), (exp, _, _) in runs.items():
+            lines = _metrics(exp)
+            steps = [x for x in lines if "loss_main" in x]
+            valids = [x for x in lines if "valid_loss_main" in x]
+            for x in lines:
+                check(all(math.isfinite(v) for v in x.values()
+                          if isinstance(v, float)),
+                      f"{label}: {name} -fp16 {fp16}: non-finite {x}")
+            per_epoch = sum(x["epoch"] == 0 for x in steps)
+            check(len(valids) == FIT_TOY_EPOCHS
+                  and len(steps) == FIT_TOY_EPOCHS * per_epoch > 0,
+                  f"{label}: {name} -fp16 {fp16}: {len(steps)} steps, "
+                  f"{len(valids)} validations")
+            last = os.path.join(exp, "checkpoints", "last")
+            newest = sorted(os.listdir(last))[-1]
+            _check_float32_checkpoint(f"{label} {name} -fp16 {fp16}",
+                                      os.path.join(last, newest))
+            dcfg = os.path.join(tmp, f"decode_{name}.yaml")
+            with open(dcfg, "w") as f:
+                yaml.safe_dump({
+                    "decode_config": dict(decode_cfg["decode_config"],
+                                          decode_method=TOY_CONFIGS[name]),
+                    "test_data_config": {
+                        "name": "lasr_tpu.data.dataset:AudioDataSet",
+                        "kwargs": {
+                            "wav_list": [os.path.join(dev_dir, "wav.scp")],
+                            "text_list": [os.path.join(dev_dir, "text")],
+                            "audio_trans": ["norm", "fbank:80"]}}}, f)
+            out = os.path.join(exp, "decode.txt")
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = decode.main(["-train_config",
+                                  os.path.join(exp, "hparams.yaml"),
+                                  "-decode_config", dcfg, "-model_path",
+                                  os.path.join(exp, "checkpoints"),
+                                  "-choose", "last", "-avg", "2",
+                                  "-output_file", out])
+            torch.cuda.synchronize()
+            dwall = time.perf_counter() - t
+            check(rc == 0, f"{label}: decode CLI on {name} -fp16 {fp16} "
+                  f"exited {rc}")
+            text = buf.getvalue().strip().splitlines()
+            with open(out) as f:
+                hyps = f.read().splitlines()
+            check(len(hyps) == FIT_DEV, f"{label}: {name} -fp16 {fp16}: "
+                  f"{len(hyps)} hypotheses")
+            step_ms = [x["dispatch_s"] * 1e3 for x in steps]
+            valid_loss = [round(x["valid_loss_main"], 3) for x in valids]
+            log(f"{label}: {name} -fp16 {fp16}: {len(steps)} steps "
+                f"({per_epoch} an epoch), train loss "
+                f"{steps[0]['loss_main']:.3f} -> {steps[-1]['loss_main']:.3f}"
+                f", valid loss {valid_loss}, median dispatch_s "
+                f"{np.median(step_ms):.1f} ms a step; "
+                f"decode CLI {TOY_CONFIGS[name]} (-avg 2): {len(hyps)} "
+                f"hypotheses in {dwall:.1f} s, {text[-3]}, {text[-1]} "
+                f"[{card}]")
+            summary[f"{name}_{fp16}"] = dict(
+                steps=len(steps), median_step_ms=float(np.median(step_ms)),
+                train_loss=[steps[0]["loss_main"], steps[-1]["loss_main"]],
+                valid_loss=[x["valid_loss_main"] for x in valids],
+                decode_rtf=json.loads(text[-1])["rtf"])
+        launches = {n: fn.launches for n, fn in counters.items()}
+        log(f"{label}: four train CLI processes in {wall:.1f} s (at once); "
+            f"K1-K4 launches in the decodes {launches}")
+        check(not any(launches.values()),
+              f"{label}: K1-K4 launched {launches}")
+    summary["launches"] = launches
+    print(json.dumps({label: summary}), flush=True)
+    state["family_launches"][label] = launches
+    state["timings"][label] = summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1830,13 +2233,16 @@ def main(argv=None) -> int:
 
     state = {"seed": args.seed, "kernels": {}, "launches": {},
              "train_launches": {}, "fit_launches": {},
-             "stream_launches": {}, "bf16_launches": {}, "timings": {},
-             "card": "not measured"}
+             "stream_launches": {}, "bf16_launches": {},
+             "family_launches": {}, "timings": {}, "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
               ("slice_b", phase_slice_b), ("train_a", phase_train_a),
               ("train_b", phase_train_b), ("fit_b", phase_fit_b),
-              ("stream", phase_stream), ("bf16", phase_bf16)]
+              ("stream", phase_stream), ("bf16", phase_bf16),
+              ("train_tf", phase_train_tf),
+              ("train_stream", phase_train_stream),
+              ("fit_toy", phase_fit_toy)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -1862,6 +2268,8 @@ def main(argv=None) -> int:
                 if k.startswith(name)}
         if bf16:
             entry["launches_bf16"] = bf16
+        for phase, counts in state["family_launches"].items():
+            entry[f"launches_{phase}"] = counts.get(name, 0)
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

@@ -20,9 +20,10 @@ CLI builds it with ``jnp.bfloat16``; ``hparams.yaml`` does not record it.
 ``-device cpu``.  Flags of features the port lacks raise
 ``NotImplementedError`` naming their ROADMAP item when set away from their
 defaults: ``-num_devices`` > 1, ``-model_parallel``, ``-seq_parallel``,
-``-pipeline_parallel`` > 1 and ``-fsdp 1`` (A6).  A model whose training
-is not ported (``E2E_Transformer_CTC``, ``E2E_Transformer_CTC_Online``:
-A8) raises when the ``Trainer`` is built, before anything is written.
+``-pipeline_parallel`` > 1 and ``-fsdp 1`` (A6).  The model classes the
+recipes name train, in either dtype: ``E2E_Conformer_CTC``,
+``E2E_Transformer_CTC`` and ``E2E_Transformer_CTC_Online`` (the toy
+recipe's ``config.yaml`` and ``config_online.yaml``).
 """
 
 import argparse

@@ -49,10 +49,7 @@ class CTCHead(nn.Sequential):
 
 
 class E2EBase(nn.Module):
-    """Shared forward / decode-hook structure.  ``training_ported``: the
-    port's ``Trainer`` trains the class (False makes it raise)."""
-
-    training_ported = True
+    """Shared forward / decode-hook structure."""
 
     def _check_eval(self):
         if self.training:
@@ -99,12 +96,11 @@ class E2EBase(nn.Module):
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_dtype(dtype, bf16: bool = True) -> torch.dtype:
+def check_dtype(dtype) -> torch.dtype:
     """The torch compute dtype a model's ``dtype`` argument names: ``None``
     (float32), a torch dtype, or a name such as ``"bfloat16"``,
     ``"jnp.bfloat16"`` or ``jnp.bfloat16`` itself (what the JAX package's
-    configs and CLI pass).  ``bf16=False`` (a model whose bfloat16 path is
-    not ported) accepts float32 only."""
+    configs and CLI pass); float32 and bfloat16 only."""
     if dtype is None:
         return torch.float32
     if isinstance(dtype, torch.dtype):
@@ -114,12 +110,10 @@ def check_dtype(dtype, bf16: bool = True) -> torch.dtype:
     else:
         name = getattr(dtype, "__name__", None) or getattr(dtype, "name", "")
     name = name.rsplit(".", 1)[-1]
-    if name not in _DTYPES or (name == "bfloat16" and not bf16):
+    if name not in _DTYPES:
         raise NotImplementedError(
-            f"compute dtype {dtype!r}: the port computes in float32"
-            + (" or bfloat16" if bf16 else
-               "; bfloat16 of the streaming family is not ported (ROADMAP "
-               "A8, streaming bf16)"))
+            f"compute dtype {dtype!r}: the port computes in float32 or "
+            f"bfloat16")
     return _DTYPES[name]
 
 
@@ -127,13 +121,11 @@ class E2E_Transformer_CTC(E2EBase):
     """Transformer encoder + Transformer decoder + CTC head.
 
     Accepts every constructor kwarg of the JAX class.  The encoder's input
-    layer is conv2d or linear; ``encoder_remat`` and a sharding object
-    raise.  Training it is not ported yet (the ``Trainer`` raises).
-    ``device=None`` means CUDA (raises without a GPU); ``dtype`` is the
-    compute dtype (float32, or bfloat16 with float32 parameters: the
-    casts of ``modules.layers``)."""
-
-    training_ported = False
+    layer is conv2d or linear; ``encoder_remat`` (a TPU memory knob) and a
+    sharding object raise.  ``device=None`` means CUDA (raises without a
+    GPU); ``dtype`` is the compute dtype (float32, or bfloat16 with
+    float32 parameters, gradients and optimizer state: the casts of
+    ``modules.layers``, as ``lasr_tpu``'s ``dtype=jnp.bfloat16``)."""
 
     def __init__(self, idim: int = 13, odim: int = 26,
                  encoder_attention_dim: int = 256,

@@ -9,14 +9,16 @@ constructor kwargs and state_dict names (``encoder.embed.*``,
 ``ctc_logits``, ``decoder_init_cache``, ``decoder_project_memory``,
 ``decoder_step`` (untruncated monotonic attention), ``decoder_step_online``
 and ``decoder_step_ep`` (the online beam step).  ``forward`` is the dict
-forward ``E2E_Loss`` takes; training the model is not ported yet (the
-``Trainer`` raises, as does a train-mode forward with sigmoid noise).
+forward ``E2E_Loss`` takes, in train mode too (the chunked encoder's
+layer-major forward, dropout and the source attention's sigmoid noise
+drawn from ``modules.dropout``'s generator): the ``Trainer`` trains it.
 """
 
 from __future__ import annotations
 
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.models.e2e_ctc_att import CTCHead, E2EBase, check_dtype
+from lasr_tpu_torch.modules.layers import set_compute_dtype
 from lasr_tpu_torch.modules.streaming import ChunkEncoder, StreamDecoder
 
 
@@ -26,9 +28,8 @@ class E2E_Transformer_CTC_Online(E2EBase):
     ``encoder_layer_major_rows > 0`` raise; ``encoder_layer_major=False``
     (the JAX module's sequential chunk scan) gives the same numbers as the
     layer-major forward the port runs.  ``device=None`` means CUDA
-    (raises without a GPU); compute is float32."""
-
-    training_ported = False
+    (raises without a GPU); ``dtype`` is the compute dtype (float32, or
+    bfloat16 with float32 parameters, as ``E2E_Transformer_CTC``)."""
 
     def __init__(self, idim: int = 13, odim: int = 26,
                  encoder_attention_dim: int = 256,
@@ -58,7 +59,7 @@ class E2E_Transformer_CTC_Online(E2EBase):
                  encoder_layer_major_rows: int = 0, dtype=None,
                  device=None):
         super().__init__()
-        check_dtype(dtype, bf16=False)
+        dtype = check_dtype(dtype)
         device = resolve_device(device)
         self.idim = idim
         self.encoder_center_chunk = encoder_center_chunk
@@ -90,6 +91,7 @@ class E2E_Transformer_CTC_Online(E2EBase):
             src_attention_sigmoid_noise=decoder_src_attention_sigmoid_noise,
             input_layer=decoder_input_layer)
         self.ctc = CTCHead(encoder_attention_dim, odim, ctc_dropout)
+        set_compute_dtype(self, dtype)
         self.to(device)
         self.eval()
 

@@ -13,10 +13,11 @@
   - ``MTMultiHeadedAttention``: monotonic truncated attention of the
     streaming decoder — sigmoid choose-probabilities times an exclusive
     survival cumprod, with a trainable scalar score bias
-    (``src_att_bias``), and the decode-step pieces: scores, endpoint
-    advance, endpoint-truncated context.  The training-time sigmoid noise
-    is not ported: a train-mode forward with ``sigmoid_noise > 0``
-    raises.
+    (``src_att_bias``), training-time sigmoid noise (``sigmoid_noise`` ·
+    N(0, 1) added to the scores, drawn by ``modules.dropout``'s
+    generator), and the decode-step pieces: scores, endpoint advance,
+    endpoint-truncated context.  It computes in the dtype of its inputs'
+    projections, as ``lasr_tpu``'s does (bf16 scores, cumprod and all).
 
 All masks are boolean with True = attendable.  (``remat_attend``, a TPU
 memory knob of the JAX module, is accepted and ignored at the model,
@@ -33,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lasr_tpu_torch.modules.dropout import dropout
+from lasr_tpu_torch.modules.dropout import dropout, standard_normal
 from lasr_tpu_torch.modules.embedding import sinusoid_table
 from lasr_tpu_torch.modules.layers import Linear
 from lasr_tpu_torch.ops.rel_attention import rel_attention_context
@@ -271,9 +272,14 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
 
 def safe_exclusive_cumprod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Exclusive cumprod as exp∘cumsum∘log, the first element 1."""
-    tiny = torch.finfo(x.dtype).tiny
-    csum = torch.cumsum(torch.log(torch.clamp(x, tiny, 1.0)), dim=dim)
+    """Exclusive cumprod as exp∘cumsum∘log, the first element 1.  The
+    clip is ``minimum(maximum(x, tiny), 1)``, not ``clamp``: at x == 1 (a
+    choose-probability that rounds to 0) the gradient splits the tie in
+    half, as ``jnp.clip``'s does; ``clamp`` would pass all of it."""
+    lo = x.new_full((), torch.finfo(x.dtype).tiny)
+    csum = torch.cumsum(torch.log(torch.minimum(torch.maximum(x, lo),
+                                                torch.ones_like(lo))),
+                        dim=dim)
     n = x.shape[dim]
     return torch.cat([torch.ones_like(x.narrow(dim, 0, 1)),
                       torch.exp(csum).narrow(dim, 0, n - 1)], dim=dim)
@@ -294,9 +300,12 @@ class MTMultiHeadedAttention(MultiHeadedAttention):
         return (torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.d_k)
                 + self.src_att_bias.to(q.dtype))
 
-    def _monotonic(self, scores, mask):
+    def _monotonic(self, scores, mask, noise=None):
         """Choose-probabilities (masked keys 0) times their exclusive
-        survival."""
+        survival.  ``noise``: N(0, 1) draws of the scores' shape, added
+        times ``sigmoid_noise`` before the sigmoid (training)."""
+        if noise is not None and self.sigmoid_noise > 0:
+            scores = scores + self.sigmoid_noise * noise
         if mask is not None:
             while mask.ndim < scores.ndim:
                 mask = mask[:, None] if mask.ndim == 3 else mask[None]
@@ -312,13 +321,14 @@ class MTMultiHeadedAttention(MultiHeadedAttention):
         return self.linear_out(x.reshape(B, T1, self.n_feat))
 
     def forward(self, query, key, value, mask=None, return_attn=False):
-        if self.training and self.sigmoid_noise > 0:
-            raise NotImplementedError(
-                "the training-time sigmoid noise of monotonic attention is "
-                "not ported (ROADMAP A8: training the streaming family)")
+        """In train mode with ``sigmoid_noise > 0`` the scores take
+        ``sigmoid_noise`` · N(0, 1) drawn from the dropout generator."""
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
-        attn = self._monotonic(self._scores(q, k), mask)
+        scores = self._scores(q, k)
+        noise = standard_normal(scores) \
+            if self.training and self.sigmoid_noise > 0 else None
+        attn = self._monotonic(scores, mask, noise)
         out = self._out(dropout(attn, self.dropout_rate, self.training), v)
         return (out, attn) if return_attn else out
 

@@ -6,7 +6,9 @@ keep with probability ``1 - rate``, scale the kept entries by
 ``dropout_generator(...)`` block installs (the ``Trainer`` owns one per
 step), never from torch's global RNG; a train-mode forward with a nonzero
 rate outside such a block raises.  A rate of 0, or eval mode, is the
-identity and draws nothing.
+identity and draws nothing.  ``standard_normal`` draws the train-time
+Gaussian noise of the same stream (the monotonic attention's sigmoid
+noise) from the same generator, under the same rule.
 """
 
 from __future__ import annotations
@@ -31,16 +33,29 @@ def dropout_generator(generator: torch.Generator):
         _GENERATOR.reset(token)
 
 
+def _generator() -> torch.Generator:
+    gen = _GENERATOR.get()
+    if gen is None:
+        raise RuntimeError("train-mode dropout and noise draw from a "
+                           "generator: run the forward inside "
+                           "dropout_generator(...)")
+    return gen
+
+
+def standard_normal(like: torch.Tensor) -> torch.Tensor:
+    """N(0, 1) draws of ``like``'s shape, dtype and device from the
+    block's generator."""
+    return torch.randn(like.shape, generator=_generator(),
+                       device=like.device, dtype=like.dtype)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     if not training or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    gen = _GENERATOR.get()
-    if gen is None:
-        raise RuntimeError("train-mode dropout draws from a generator: run "
-                           "the forward inside dropout_generator(...)")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    keep = torch.rand(x.shape, generator=_generator(),
+                      device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

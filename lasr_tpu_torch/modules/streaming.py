@@ -1,5 +1,5 @@
-"""Streaming encoder and decoder (counterpart of the served part of
-``lasr_tpu/modules/streaming.py``).
+"""Streaming encoder and decoder (counterpart of ``ChunkEncoder``,
+``StreamDecoder`` and their layers in ``lasr_tpu/modules/streaming.py``).
 
   - ``StreamEncoderLayer``: pre-norm self-attention over [memory ‖ chunk]
     keys, where the memory is the stream's last ``mem_len_sub`` normed
@@ -25,6 +25,15 @@
     search's online step whose endpoints chain across same-parent
     siblings in beam order (``forward_one_step_ep``).
 
+The full forwards train: dropout where ``lasr_tpu`` drops out (after
+each attention and feed-forward branch, inside the feed-forward, on the
+attention probabilities, after the positional encodings), drawn from
+``modules.dropout``'s generator, and the source attention's sigmoid
+noise.  Norms, projections and the embedding are ``modules.layers``'
+casting layers, so a model computes in its compute dtype (bf16 as
+``lasr_tpu``'s ``dtype=jnp.bfloat16``); the memories and the decode
+caches are kept in it.
+
 Not ported: ``remat``, ``layer_major_rows > 0`` and ``conv_once`` of the
 ``ChunkEncoder`` (they raise), its ``row_cap`` grouping, and the dual
 encoders of the Univ model.  Cached steps are eval-only and write the
@@ -45,6 +54,7 @@ from lasr_tpu_torch.modules.attention import (MTMultiHeadedAttention,
 from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
+from lasr_tpu_torch.modules.layers import Embedding, LayerNorm, Linear
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
 
@@ -59,8 +69,8 @@ class StreamEncoderLayer(nn.Module):
                                               attention_dropout_rate)
         self.feed_forward = PositionwiseFeedForward(size, linear_units,
                                                     dropout_rate)
-        self.norm1 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
-        self.norm2 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm1 = LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm2 = LayerNorm(size, eps=LAYERNORM_EPS)
         self.dropout_rate = dropout_rate
         self.hop_sub, self.mem_len_sub = hop_sub, mem_len_sub
 
@@ -110,7 +120,12 @@ def _chunk_grid(T_raw: int, cur: int, right: int, hop: int) -> int:
 
 class ChunkEncoder(nn.Module):
     """Streaming chunked encoder: x (B, T, idim), x_len (B,) → (hs (B,
-    n·cur/4, D), hs_len (B,))."""
+    n·cur/4, D), hs_len (B,)).
+
+    ``remat`` is a TPU memory knob: training the full-width model (d=320,
+    12 blocks) on 32 × 15.6 s batches without it peaks at ~19 GB in f32
+    on an 80 GB H100 (``chip_smoke.py``'s ``train_stream``), so it is not
+    ported and raises, as do ``conv_once`` and ``layer_major_rows > 0``."""
 
     def __init__(self, idim: int, attention_dim: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -155,7 +170,7 @@ class ChunkEncoder(nn.Module):
                                dropout_rate, attention_dropout_rate,
                                self.hop_sub, self.mem_len_sub)
             for _ in range(num_blocks)])
-        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+        self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
     def _mem_mask(self, valid_mem):
         """(..., M) validity of the memory rows: the last ``valid_mem``."""
@@ -169,7 +184,8 @@ class ChunkEncoder(nn.Module):
         n, B, chunk_raw, idim = chunks.shape
         h, _ = self.embed(
             chunks.reshape(n * B, chunk_raw, idim),
-            torch.full((n * B,), chunk_raw, device=chunks.device),
+            torch.full((n * B,), chunk_raw, dtype=torch.int32,
+                       device=chunks.device),
             offset=offsets.repeat_interleave(B))
         Tc, M = h.shape[1], self.mem_len_sub
         kmask = torch.cat([self._mem_mask(valid_mem)[:, None, :].expand(
@@ -204,17 +220,21 @@ class ChunkEncoder(nn.Module):
         hs = outs.transpose(0, 1).reshape(B, -1, self.attention_dim)
         if ref_tail:
             n_solo = torch.clamp((x_len + hop - cur - 1) // hop + 1, min=0)
-            return hs, torch.clamp(n_solo, max=n) * self.cur_sub
+            return hs, (torch.clamp(n_solo, max=n) * self.cur_sub).to(
+                torch.int32)
         g = torch.arange(hs.shape[1], device=dev)
         valid = ((g // self.cur_sub) * hop + self.sub * (g % self.cur_sub)
                  )[None, :] < x_len[:, None]
-        return torch.where(valid[..., None], hs, 0.0), valid.sum(dim=1)
+        return (torch.where(valid[..., None], hs, 0.0),
+                valid.sum(dim=1, dtype=torch.int32))
 
     def init_stream_state(self, batch: int):
-        """Fresh per-layer memories for chunk-incremental serving."""
-        w = self.after_norm.weight
-        return tuple(w.new_zeros(batch, self.mem_len_sub, self.attention_dim)
-                     for _ in range(self.num_blocks))
+        """Fresh per-layer memories for chunk-incremental serving, in the
+        compute dtype."""
+        norm = self.after_norm
+        return tuple(norm.weight.new_zeros(
+            batch, self.mem_len_sub, self.attention_dim, dtype=norm.dtype)
+            for _ in range(self.num_blocks))
 
     def encode_chunk(self, chunk_x, chunk_idx: int, mems, n_valid=None):
         """Serve one chunk: chunk_x (B, cur+right+6, idim), the stream's
@@ -232,7 +252,8 @@ class ChunkEncoder(nn.Module):
             key_valid = key_valid & ((chunk_idx * self.hop_len
                                       + self.sub * j)[None, :]
                                      < n_valid[:, None])
-        h, _ = self.embed(chunk_x, torch.full((B,), chunk_raw, device=dev),
+        h, _ = self.embed(chunk_x, torch.full((B,), chunk_raw,
+                                              dtype=torch.int32, device=dev),
                           offset=offset)
         M = self.mem_len_sub
         valid_mem = torch.tensor(min(offset, M), device=dev)
@@ -262,9 +283,9 @@ class StreamDecoderLayer(nn.Module):
             sigmoid_noise=src_attention_sigmoid_noise)
         self.feed_forward = PositionwiseFeedForward(size, linear_units,
                                                     dropout_rate)
-        self.norm1 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
-        self.norm2 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
-        self.norm3 = nn.LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm1 = LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm2 = LayerNorm(size, eps=LAYERNORM_EPS)
+        self.norm3 = LayerNorm(size, eps=LAYERNORM_EPS)
         self.dropout_rate = dropout_rate
 
     def _drop(self, x):
@@ -274,8 +295,9 @@ class StreamDecoderLayer(nn.Module):
                 return_attn: bool = False):
         y = self.norm1(tgt)
         x = tgt + self._drop(self.self_attn(y, y, y, tgt_mask))
-        att, attn = self.src_attn(self.norm2(x), memory, memory, memory_mask,
-                                  return_attn=True)
+        out = self.src_attn(self.norm2(x), memory, memory, memory_mask,
+                            return_attn=return_attn)
+        att, attn = out if return_attn else (out, None)
         x = x + self._drop(att)
         x = x + self._drop(self.feed_forward(self.norm3(x)))
         return (x, attn) if return_attn else x
@@ -364,7 +386,7 @@ class StreamDecoder(nn.Module):
         self.self_attention_heads = self_attention_heads
         self.src_attention_heads = src_attention_heads
         self.embed = nn.Sequential(
-            nn.Embedding(odim, attention_dim),
+            Embedding(odim, attention_dim),
             PositionalEncoding(attention_dim, positional_dropout_rate))
         self.decoders = nn.ModuleList([
             StreamDecoderLayer(attention_dim, self_attention_heads,
@@ -374,8 +396,8 @@ class StreamDecoder(nn.Module):
                                src_attention_bias_init,
                                src_attention_sigmoid_noise)
             for _ in range(num_blocks)])
-        self.after_norm = nn.LayerNorm(attention_dim, eps=LAYERNORM_EPS)
-        self.output_layer = nn.Linear(attention_dim, odim)
+        self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+        self.output_layer = Linear(attention_dim, odim)
 
     def forward(self, tgt, tgt_mask, memory, memory_mask,
                 collect_attn: bool = False):
@@ -384,20 +406,25 @@ class StreamDecoder(nn.Module):
         x = self.embed(tgt)
         attns = []
         for layer in self.decoders:
-            x, attn = layer(x, tgt_mask, memory, memory_mask,
-                            return_attn=True)
-            attns.append(attn)
+            x = layer(x, tgt_mask, memory, memory_mask,
+                      return_attn=collect_attn)
+            if collect_attn:
+                x, attn = x
+                attns.append(attn)
         logits = self.output_layer(self.after_norm(x))
         return (logits, torch.cat(attns, dim=1)) if collect_attn else logits
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        """Self-attention K/V caches (layers, B, Lmax, H, dk) and the
-        source-attention endpoints (layers, B, H_src), -1 at the start."""
+        """Self-attention K/V caches (layers, B, Lmax, H, dk) in the
+        compute dtype and the source-attention endpoints (layers, B,
+        H_src), -1 at the start."""
         H = self.self_attention_heads
         shape = (len(self.decoders), batch, max_len, H,
                  self.attention_dim // H)
-        w = self.output_layer.weight
-        return {"k": w.new_zeros(shape), "v": w.new_zeros(shape),
+        out = self.output_layer
+        w = out.weight
+        return {"k": w.new_zeros(shape, dtype=out.dtype),
+                "v": w.new_zeros(shape, dtype=out.dtype),
                 "ep": torch.full((len(self.decoders), batch,
                                   self.src_attention_heads), -1,
                                  dtype=torch.long, device=w.device)}

@@ -93,12 +93,6 @@ class Trainer:
         ``schedule`` is also what ``metrics.jsonl``'s ``lr`` reads.
         ``device=None`` means CUDA (raises without a GPU); the model must
         already live there."""
-        if not getattr(model, "training_ported", True):
-            raise NotImplementedError(
-                f"training {type(model).__name__} is not ported (ROADMAP "
-                f"A8: the Transformer and streaming families' train-mode "
-                f"forward, the sigmoid noise and dropout draws matched to "
-                f"lasr_tpu)")
         self.device = resolve_device(device)
         self.model = model
         self.criterion = criterion

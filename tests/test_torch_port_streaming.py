@@ -10,8 +10,10 @@ test_streaming.py's widths (d=16, chunks 16/16/16):
   - ``StreamDecoder``: full forward with the attention maps and every
     step form within 2e-4, the chained endpoints exact;
   - the state_dict round-trips through ``torch_compat.torch_to_flax``;
-  - unported options raise (of both new models), the Trainer refuses
-    both, and the registry resolves their reference names.
+  - unported options raise (of both new models), a train-mode forward
+    with sigmoid noise outside ``dropout_generator`` raises, the Trainer
+    takes both models (one step each), and the registry resolves their
+    reference names.
 """
 
 import jax.numpy as jnp
@@ -194,9 +196,10 @@ def test_unported_options_raise():
     # layer_major=False is the same math as the layer-major forward
     E2E_Transformer_CTC_Online(**kw, encoder_layer_major=False)
 
+    # train-mode sigmoid noise draws from the dropout generator only
     pm = E2E_Transformer_CTC_Online(
         **dict(kw, decoder_src_attention_sigmoid_noise=1.0))
-    with pytest.raises(NotImplementedError, match="sigmoid noise"):
+    with pytest.raises(RuntimeError, match="dropout_generator"):
         x, xlen, ys = batch()
         pm.train()
         pm.decoder.decoders[0].src_attn(t(x[:, :4, :16]), t(x[:, :9, :16]),
@@ -216,15 +219,33 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize("which", ["transformer", "online"])
 def test_trainer_refuses_the_new_models(which):
+    """The Trainer takes both models: one step with dropout, SpecAugment
+    and (online) the sigmoid noise on gives finite metrics and moves
+    every parameter that the loss reaches."""
     from lasr_tpu_torch.data.frontend import DeviceFrontend
     from lasr_tpu_torch.train.optimizer import Adam
-    from lasr_tpu_torch.train.trainer import Trainer
+    from lasr_tpu_torch.train.trainer import METRICS, Trainer
+    torch.manual_seed(0)
     model = (E2E_Transformer_CTC(**OFFLINE, device="cpu")
              if which == "transformer"
-             else E2E_Transformer_CTC_Online(**ONLINE, device="cpu"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(model, E2E_Loss(11), Adam(), DeviceFrontend(["fbank:80"]),
-                device="cpu")
+             else E2E_Transformer_CTC_Online(
+                 **dict(ONLINE, decoder_src_attention_sigmoid_noise=1.0),
+                 device="cpu"))
+    trainer = Trainer(model, E2E_Loss(11), Adam(lr=1e-3),
+                      DeviceFrontend(["norm", "fbank:80", "specaug"]),
+                      device="cpu")
+    rng = np.random.default_rng(1)
+    wav = (0.2 * rng.standard_normal((2, 12800))).astype(np.float32)
+    batch_ = {"wav_array": wav, "wav_len": np.asarray([12800, 9000],
+                                                       np.int32),
+              "token_id": rng.integers(3, 11, (2, 5)).astype(np.int32),
+              "token_len": np.asarray([5, 3], np.int32)}
+    before = [p.detach().clone() for p in trainer.params]
+    state, metrics = trainer.train_step(trainer.init_state(), batch_)
+    assert state.step == 1 and set(metrics) == set(METRICS)
+    assert all(np.isfinite(v) for v in metrics.values())
+    moved = [not torch.equal(a, p) for a, p in zip(before, trainer.params)]
+    assert sum(moved) >= len(moved) - 2
 
 
 def test_registry_resolves_the_reference_names():

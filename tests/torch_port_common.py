@@ -230,8 +230,9 @@ def flax_state_dict(params, batch_stats=None):
     return flax_to_state_dict(tree)
 
 
-def jax_grad(jt, state, batch):
-    """lasr_tpu's train-step gradient at ``state`` (no update)."""
+def jax_grad(jt, state, batch, with_loss=False):
+    """lasr_tpu's train-step gradient at ``state`` (no update); with
+    ``with_loss``, (loss_main, gradient)."""
     feats, feat_len = jt.frontend(jnp.asarray(batch["wav_array"]),
                                   jnp.asarray(batch["wav_len"]))
     ys_in, att_label, ctc_label = jt._pack(jnp.asarray(batch["token_id"]),
@@ -242,4 +243,6 @@ def jax_grad(jt, state, batch):
                                  ys_in, jax.random.PRNGKey(0), train=True)
         data = dict(out, att_label=att_label, ctc_label=ctc_label)
         return jt.criterion.train_forward(data)["loss_main"]
+    if with_loss:
+        return jax.jit(jax.value_and_grad(loss))(state.params)
     return jax.jit(jax.grad(loss))(state.params)
