@@ -129,6 +129,33 @@ Phases, always all of them, in this order:
            last -avg 2, the recipe's decode.yaml: ctc_att, online
            ctc_att_online) writes the 4 dev hypotheses.  Prints a
            {"fit_toy": ...} line.
+  dp       data parallelism (NCCL refuses two ranks on one device, so the
+           multi-rank logic runs as two gloo ranks sharing the card): (a)
+           two ranks spawned by ``parallel.dist.spawn``, each with half of
+           train_b's global batch, train the recipe Conformer at full
+           width in configuration B (K3 + K4), f32, SpecAugment on,
+           dropout 0, through the Trainer API from rank 0's weights (rank
+           1 seeds its own; the broadcast replaces them): the global
+           gradient of the B=32 batch, then one step on it and one on 31
+           rows (rank 1 holds a zero-length pad row), against the
+           one-process step on the same weights and global batches: loss
+           within 1e-4 (relative), encoder gradients within 1e-3 of their
+           largest magnitude, decoder/CTC gradients within 1e-2 (L2),
+           BatchNorm running statistics within 1e-5; the ranks' weights,
+           statistics and EMA bitwise equal after the broadcast and after
+           each step; K3 and K4 12 launches per rank per step; each
+           rank's step ms (two ranks sharing one card, not a scaling
+           figure).  (b) is fit_b: the train CLI's default -num_devices
+           -1 on this one-GPU machine trains in an NCCL group of one
+           (logged, and checked there).  (c) two gloo ranks run the train
+           CLI's build and Trainer.fit on fit_b's corpus with
+           config_baseline.yaml and the rel kernels: 2 epochs beside 1
+           epoch, then resumed to 2 in the same exp_dir: rank 0 alone
+           wrote (one metrics.jsonl line a step, one checkpoint tree),
+           the resumed final weights within 1e-4 of the largest of the
+           unbroken run's, every rank bitwise equal at the end, K3 / K4
+           launches per rank.  Prints a {"dp": ...} line; the kernel list
+           gains ``launches_dp`` (rank 0's in (a)).
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -1094,6 +1121,31 @@ def _last_state_dict(exp):
 def phase_fit_b(state):
     """The train CLI on the recipe Conformer with K3 + K4, resumed, then
     the decode CLI and ASRProcess on its checkpoints."""
+    import logging
+    import re
+    seed = state["seed"]
+    blocks = RECIPE["encoder_num_blocks"]
+    label = "fit_b"
+    # the CLI logs the process group it trains in: keep those lines
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    process_groups = []
+
+    class GroupLines(logging.Handler):
+        def emit(self, record):
+            m = re.match(r"data parallel: backend (\w+), world size (\d+)",
+                         record.getMessage())
+            if m:
+                process_groups.append((m.group(1), int(m.group(2))))
+    handler = GroupLines()
+    logging.getLogger().addHandler(handler)
+    try:
+        _fit_b(state, label, seed, blocks, process_groups)
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
+def _fit_b(state, label, seed, blocks, process_groups):
     import contextlib
     import io
     import torch
@@ -1110,9 +1162,6 @@ def phase_fit_b(state):
                                               checkpoint_steps,
                                               load_model_weights,
                                               load_reference_checkpoint)
-    seed = state["seed"]
-    blocks = RECIPE["encoder_num_blocks"]
-    label = "fit_b"
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         train_dir, dev_dir, dict_path = _fit_corpus(tmp, seed + 3)
@@ -1171,6 +1220,10 @@ def phase_fit_b(state):
 
         exp_a, exp_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         steps_a, valids_a, fwd_a, bwd_a, wall_a = run(exp_a, 2)
+        log(f"{label}: the train CLI's default -num_devices -1 ran in "
+            f"{process_groups} (backend, world size)")
+        check(process_groups == [("nccl", 1)], f"{label}: the train CLI "
+              f"ran in {process_groups}, not one NCCL rank")
         n = len(groups)
         check(len(steps_a) == 2 * n and len(valids_a) == 2,
               f"{label}: run (a) took {len(steps_a)} steps")
@@ -1307,6 +1360,8 @@ def phase_fit_b(state):
             "resume_max_rel_diff_metrics": worst_line,
             "resume_max_abs_diff_weights": diffs[worst],
             "decode_rtf": {m: rtf[m]["rtf"] for m in rtf},
+            "backend": process_groups[0][0],
+            "world_size": process_groups[0][1],
             "launches": {"rel_attention_fwd": fwd_a,
                          "rel_attention_bwd": bwd_a},
             "card": state["card"]}
@@ -2213,6 +2268,335 @@ def phase_fit_toy(state):
     state["timings"][label] = summary
 
 
+# the dp phase: two gloo ranks share the card (NCCL refuses two ranks on
+# one device), each with half of train_b's global batch
+DP_RANKS = 2
+DP_CHAIN = ["norm", "fbank:80", "specaug"]
+DP_TIMEOUT_S = 300.0
+DP_TOL = dict(loss=1e-4, entry=1e-3, l2=1e-2, noise=1e-4, stats=1e-5)
+
+
+def _dp_same(trainer, tstate):
+    """Whether every rank's parameters, float buffers and EMA shadow equal
+    rank 0's bit for bit (a broadcast of rank 0's, compared on each rank,
+    the verdicts summed)."""
+    import torch
+    from lasr_tpu_torch.parallel import dist
+    tensors = list(trainer.params) + [
+        b for b in trainer.model.buffers() if b.is_floating_point()]
+    if tstate is not None and tstate.ema is not None:
+        tensors += list(tstate.ema["shadow"])
+    mine = torch.cat([t.detach().reshape(-1) for t in tensors])
+    theirs = mine.clone()
+    torch.distributed.broadcast(theirs, 0)
+    differ = torch.tensor(float(not torch.equal(mine, theirs)),
+                          device=mine.device)
+    return float(dist.global_sum(differ)) == 0.0
+
+
+def _dp_rank_setup(rendezvous):
+    import torch
+    from lasr_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init(dev, "gloo", rendezvous, timeout_s=DP_TIMEOUT_S)
+    return dev
+
+
+def _dp_step_rank(rendezvous, root):
+    """A rank of dp (a): rank 0's weights (rank 1 seeds its own), the
+    global gradient of batch 0, then one train_step per batch on this
+    rank's rows; writes root/rank<r>.pt."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    from lasr_tpu_torch.parallel import dist
+    spec = torch.load(os.path.join(root, "spec.pt"), weights_only=False)
+    dev = _dp_rank_setup(rendezvous)
+    try:
+        rank, world = dist.rank(), dist.world_size()
+        torch.manual_seed(1000 + rank)
+        model = E2E_Conformer_CTC(**spec["kw"], device=dev)
+        if rank == 0:
+            model.load_state_dict(spec["init"])
+        trainer = _trainer(model, DP_CHAIN, spec["seed"],
+                           odim=spec["kw"]["odim"], device=dev)
+        out = {"same_init": _dp_same(trainer, None), "steps": []}
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        m0, g0 = trainer.loss_and_grads(
+            dist.shard_rows(spec["batches"][0], rank, world), 0)
+        model.load_state_dict(start)
+        tstate = trainer.init_state()
+        for batch in spec["batches"]:
+            rows = dist.shard_rows(batch, rank, world)
+            rel_attention_forward.launches = 0
+            rel_attention_backward.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tstate, m = trainer.train_step(tstate, rows)
+            torch.cuda.synchronize()
+            out["steps"].append(dict(
+                metrics=m, ms=(time.perf_counter() - t0) * 1e3,
+                fwd=rel_attention_forward.launches,
+                bwd=rel_attention_backward.launches,
+                rows=len(rows["wav_len"]),
+                pad_rows=int((rows["wav_len"] == 0).sum()),
+                same=_dp_same(trainer, tstate)))
+        if rank == 0:
+            out.update(metrics0={k: float(v.detach()) for k, v in m0.items()},
+                       grads0=[g.cpu() for g in g0], names=trainer.names,
+                       buffers={k: v.cpu() for k, v in model.named_buffers()})
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def _dp_fit_rank(rendezvous, argv, result):
+    """A rank of dp (c): the train CLI's build and fit on two gloo ranks;
+    writes ``result.format(rank)``."""
+    from lasr_tpu_torch.bin import train
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    from lasr_tpu_torch.parallel import dist
+    args = train.build_parser().parse_args(argv)
+    dev = _dp_rank_setup(rendezvous)
+    try:
+        run = train.build(args, dev)
+        rel_attention_forward.launches = 0
+        rel_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        tstate = train.fit(args, *run)
+        with open(result.format(dist.rank()), "w") as f:
+            json.dump({"step": tstate.step,
+                       "wall_s": time.perf_counter() - t0,
+                       "fwd": rel_attention_forward.launches,
+                       "bwd": rel_attention_backward.launches,
+                       "same": _dp_same(run[0], tstate)}, f)
+    finally:
+        dist.shutdown()
+
+
+def _dp_step_check(state, tmp):
+    """dp (a): two ranks' steps against the one-process step."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.parallel import dist
+    label, seed, card = "dp", state["seed"], state["card"]
+    blocks = RECIPE["encoder_num_blocks"]
+    kw = dict(RECIPE, encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+              ctc_dropout=0.0, encoder_use_pallas_attention=True)
+    torch.manual_seed(seed)
+    model = E2E_Conformer_CTC(**kw)
+    # train_b's global batch, then 31 rows of another: rank 1 holds a
+    # zero-length pad row in the second step
+    batches = [_train_batch(seed + 2),
+               {k: v[:TRAIN_BATCH - 1]
+                for k, v in _train_batch(seed + 4).items()}]
+    torch.save(dict(kw=kw, seed=seed, batches=batches,
+                    init={k: v.cpu() for k, v in model.state_dict().items()}),
+               os.path.join(tmp, "spec.pt"))
+    t0 = time.perf_counter()
+    dist.spawn(_dp_step_rank, DP_RANKS, (tmp,))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+
+    # the one-process step on the same weights and global batches
+    trainer = _trainer(model, DP_CHAIN, seed, odim=kw["odim"])
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    m0, g0 = trainer.loss_and_grads(dist.pad_rows(batches[0], DP_RANKS), 0)
+    model.load_state_dict(start)
+    tstate = trainer.init_state()
+    want = []
+    for b in batches:
+        tstate, m = trainer.train_step(tstate, dist.pad_rows(b, DP_RANKS))
+        want.append(m)
+    got = ranks[0]
+    got_losses = [got["metrics0"]["loss_main"]] + [
+        s["metrics"]["loss_main"] for s in got["steps"]]
+    want_losses = [float(m0["loss_main"].detach())] + [
+        m["loss_main"] for m in want]
+    loss_err = max(abs(g - w) / abs(w)
+                   for g, w in zip(got_losses, want_losses))
+    top = max(float(g.abs().max()) for g in g0)
+    entry, l2, noise = {}, {}, {}
+    for n, a, b in zip(got["names"], got["grads0"], g0):
+        b = b.cpu()
+        if n.endswith(ZERO_GRADIENT_LEAVES):
+            noise[n] = max(float(a.abs().max()), float(b.abs().max())) / top
+        elif n.startswith("encoder."):
+            entry[n] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+        else:
+            l2[n] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    stats = {k: float((got["buffers"][k] - v.cpu()).abs().max())
+             for k, v in model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    worst_entry = max(entry, key=entry.get)
+    worst_l2 = max(l2, key=l2.get)
+    loudest = max(noise, key=noise.get)
+    worst_stat = max(stats, key=stats.get)
+    steps = [[s for s in r["steps"]] for r in ranks]
+    log(f"{label}: (a) {DP_RANKS} gloo ranks on one card, B={TRAIN_BATCH} x "
+        f"{TRAIN_SECS:g} s then {TRAIN_BATCH - 1} rows, K3+K4, f32, "
+        f"SpecAugment, dropout 0, in {wall:.1f} s: rows per rank "
+        f"{[s['rows'] for s in steps[0]]}, pad rows on rank 1 "
+        f"{[s['pad_rows'] for s in steps[1]]}; step ms per rank "
+        f"{[[round(s['ms'], 1) for s in r] for r in steps]} (two ranks "
+        f"sharing one card, each all-reduce through the host) [{card}]")
+    log(f"{label}: (a) against the one-process step: loss rel "
+        f"{loss_err:.2e} (tol {DP_TOL['loss']:g}); {len(entry)} encoder "
+        f"gradients, worst {worst_entry} {entry[worst_entry]:.2e} (tol "
+        f"{DP_TOL['entry']:g}); {len(l2)} decoder/CTC gradients, worst L2 "
+        f"{worst_l2} {l2[worst_l2]:.2e} (tol {DP_TOL['l2']:g}); "
+        f"zero-gradient leaves at most {noise[loudest]:.2e} ({loudest}); "
+        f"BatchNorm statistics worst {worst_stat} {stats[worst_stat]:.2e} "
+        f"(tol {DP_TOL['stats']:g}); ranks bitwise equal after the "
+        f"broadcast {[r['same_init'] for r in ranks]}, after each step "
+        f"{[s['same'] for s in steps[0]]}; K3 / K4 launches per rank per "
+        f"step {[[(s['fwd'], s['bwd']) for s in r] for r in steps]}")
+    check(loss_err <= DP_TOL["loss"], f"{label}: loss differs by {loss_err}")
+    check(entry[worst_entry] <= DP_TOL["entry"], f"{label}: gradient of "
+          f"{worst_entry} differs by {entry[worst_entry]}")
+    check(l2[worst_l2] <= DP_TOL["l2"], f"{label}: gradient of {worst_l2} "
+          f"differs by {l2[worst_l2]} (L2)")
+    check(noise[loudest] <= DP_TOL["noise"], f"{label}: gradient of "
+          f"{loudest} is not ~0")
+    check(stats[worst_stat] <= DP_TOL["stats"], f"{label}: {worst_stat} "
+          f"differs by {stats[worst_stat]}")
+    check(all(r["same_init"] and all(s["same"] for s in r["steps"])
+              for r in ranks), f"{label}: the ranks' weights differ")
+    check(steps[1][1]["pad_rows"] == 1, f"{label}: no pad row on rank 1")
+    check(all(s["fwd"] == blocks and s["bwd"] == blocks
+              for r in steps for s in r),
+          f"{label}: K3 / K4 did not launch {blocks} times per rank per step")
+    state["dp_launches"] = {
+        "rel_attention_fwd": sum(s["fwd"] for s in steps[0]),
+        "rel_attention_bwd": sum(s["bwd"] for s in steps[0])}
+    return {"a_wall_s": wall, "a_step_ms": [[s["ms"] for s in r]
+                                            for r in steps],
+            "a_loss_rel_err": loss_err,
+            "a_worst_encoder_grad": entry[worst_entry],
+            "a_worst_decoder_ctc_grad_l2": l2[worst_l2],
+            "a_worst_bn_stat": stats[worst_stat],
+            "a_ranks_bitwise_equal": True}
+
+
+def _dp_fit_check(state, tmp):
+    """dp (c): Trainer.fit on two gloo ranks, resumed."""
+    import threading
+    import torch
+    from lasr_tpu_torch.data.dataset import BatchAudioDataSet
+    from lasr_tpu_torch.data.tokenizer import CharTokenizer
+    from lasr_tpu_torch.parallel import dist
+    from lasr_tpu_torch.utils.weights import checkpoint_steps
+    label, seed, card = "dp", state["seed"], state["card"]
+    blocks = RECIPE["encoder_num_blocks"]
+    train_dir, dev_dir, dict_path = _fit_corpus(tmp, seed + 3)
+    cfg, config, _ = _fit_configs(tmp, train_dir, dev_dir, dict_path)
+    tok = CharTokenizer(dict_path)
+    sizes = []
+    for key in ("train_data_config", "valid_data_config"):
+        ds = BatchAudioDataSet(**cfg[key]["kwargs"], tokenizer=tok)
+        ds.load_check_data()
+        sizes.append(len(ds))
+    n, n_valid = sizes
+
+    def argv(exp, epochs):
+        return ["-config", config, "-exp_dir", exp, "-num_epochs",
+                str(epochs), "-ema", "1", "-fp16", "32", "-log_interval",
+                "1", "-seed", str(seed), "-num_workers", "4"]
+
+    def spawn(exp, epochs, errors):
+        try:
+            dist.spawn(_dp_fit_rank, DP_RANKS,
+                       (argv(exp, epochs), exp + ".rank{}.json"))
+        except Exception as e:  # reported by the caller
+            errors.append(f"{os.path.basename(exp)}: {e}")
+
+    exp_u, exp_r = os.path.join(tmp, "unbroken"), os.path.join(tmp, "resumed")
+    errors = []
+    t0 = time.perf_counter()
+    # the unbroken 2-epoch run beside the first epoch of the resumed one
+    threads = [threading.Thread(target=spawn, args=(exp, e, errors))
+               for exp, e in ((exp_u, 2), (exp_r, 1))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_1 = time.perf_counter() - t0
+    check(not errors, f"{label}: (c) {errors}")
+    t0 = time.perf_counter()
+    spawn(exp_r, 2, errors)
+    wall_2 = time.perf_counter() - t0
+    check(not errors, f"{label}: (c) {errors}")
+    results = {}
+    for exp in (exp_u, exp_r):
+        results[exp] = [json.load(open(exp + f".rank{r}.json"))
+                        for r in range(DP_RANKS)]
+    listing = sorted(os.listdir(exp_u))
+    lines = _metrics(exp_u)
+    steps_logged = [x["step"] for x in lines if "loss_main" in x]
+    kept = {sub: sorted(checkpoint_steps(os.path.join(exp, "checkpoints",
+                                                      sub)))
+            for exp in (exp_u, exp_r) for sub in ("last", "best")}
+    sd_u, sd_r = _last_state_dict(exp_u), _last_state_dict(exp_r)
+    floats = [k for k, v in sd_u.items() if torch.is_floating_point(v)]
+    top = max(float(sd_u[k].abs().max()) for k in floats)
+    diffs = {k: float((sd_r[k] - sd_u[k]).abs().max()) for k in floats}
+    worst = max(diffs, key=diffs.get)
+    res_u, res_r = results[exp_u], results[exp_r]
+    log(f"{label}: (c) Trainer.fit on {DP_RANKS} gloo ranks, "
+        f"{RECIPE_CONFIG} with the rel kernels: unbroken 2 epochs beside "
+        f"1 epoch in {wall_1:.1f} s, resumed to 2 in {wall_2:.1f} s; "
+        f"{n} steps and {n_valid} validation batch(es) an epoch; rank 0 "
+        f"wrote {listing}, {len(steps_logged)} step lines "
+        f"{steps_logged}; last/best {kept}; resumed vs unbroken final "
+        f"weights worst {worst} {diffs[worst]:.2e} against the largest "
+        f"magnitude {top:.3e} (tol 1e-4 of it); ranks bitwise equal "
+        f"{[r['same'] for r in res_u + res_r]}; K3 / K4 launches per "
+        f"rank (unbroken) {[(r['fwd'], r['bwd']) for r in res_u]} [{card}]")
+    check(listing == ["checkpoints", "hparams.yaml", "metrics.jsonl"],
+          f"{label}: (c) the exp_dir holds {listing}")
+    check(steps_logged == list(range(1, 2 * n + 1)),
+          f"{label}: (c) metrics.jsonl's step lines {steps_logged}")
+    check(all(r["step"] == 2 * n for r in res_u + res_r),
+          f"{label}: (c) the runs ended at steps "
+          f"{[r['step'] for r in res_u + res_r]}")
+    check(diffs[worst] <= 1e-4 * top, f"{label}: (c) resumed weights "
+          f"differ by {diffs[worst]}")
+    check(all(r["same"] for r in res_u + res_r),
+          f"{label}: (c) the ranks' weights differ")
+    check(all(r["fwd"] == blocks * 2 * (n + n_valid)
+              and r["bwd"] == blocks * 2 * n for r in res_u),
+          f"{label}: (c) K3 / K4 launches "
+          f"{[(r['fwd'], r['bwd']) for r in res_u]}")
+    return {"c_wall_s": [wall_1, wall_2], "c_steps": 2 * n,
+            "c_resume_max_abs_diff_weights": diffs[worst],
+            "c_fit_s_per_rank": [r["wall_s"] for r in res_u],
+            "c_launches_per_rank": [[r["fwd"], r["bwd"]] for r in res_u]}
+
+
+def phase_dp(state):
+    """Data parallelism: (a) two gloo ranks on the card against the
+    one-process step; (b) is fit_b (the train CLI at world size 1 through
+    NCCL); (c) two gloo ranks through Trainer.fit, resumed."""
+    import torch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = _dp_step_check(state, tmp)
+        fit_b = state["timings"].get("fit_b", {})
+        summary.update(b_backend=fit_b.get("backend"),
+                       b_world_size=fit_b.get("world_size"),
+                       b_median_step_ms=fit_b.get("median_step_ms"))
+        summary.update(_dp_fit_check(state, tmp))
+    summary["card"] = state["card"]
+    print(json.dumps({"dp": summary}), flush=True)
+    state["timings"]["dp"] = summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2234,7 +2618,8 @@ def main(argv=None) -> int:
     state = {"seed": args.seed, "kernels": {}, "launches": {},
              "train_launches": {}, "fit_launches": {},
              "stream_launches": {}, "bf16_launches": {},
-             "family_launches": {}, "timings": {}, "card": "not measured"}
+             "family_launches": {}, "dp_launches": {}, "timings": {},
+             "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
               ("slice_b", phase_slice_b), ("train_a", phase_train_a),
@@ -2242,7 +2627,7 @@ def main(argv=None) -> int:
               ("stream", phase_stream), ("bf16", phase_bf16),
               ("train_tf", phase_train_tf),
               ("train_stream", phase_train_stream),
-              ("fit_toy", phase_fit_toy)]
+              ("fit_toy", phase_fit_toy), ("dp", phase_dp)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -2270,6 +2655,8 @@ def main(argv=None) -> int:
             entry["launches_bf16"] = bf16
         for phase, counts in state["family_launches"].items():
             entry[f"launches_{phase}"] = counts.get(name, 0)
+        if name in state["dp_launches"]:
+            entry["launches_dp"] = state["dp_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

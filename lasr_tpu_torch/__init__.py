@@ -22,6 +22,7 @@ Layer map (same as lasr_tpu):
              Transformer, streaming), losses
   data/      WAV reader, tokenizers, the frontend chain, pack_s2s
   train/     Adam/Noam (optax's update written out), EMA, the Trainer step
+  parallel/  data parallelism over one process per GPU (torch.distributed)
   decode/    greedy CTC, the joint CTC/attention beam search (offline and
              online), the chunk-incremental StreamingRecognizer
   process/   one-call ASRProcess user API

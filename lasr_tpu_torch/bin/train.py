@@ -17,17 +17,30 @@ the exact epoch and batch of the newest.
 compute, float32 parameters, optimizer state and checkpoints), as the JAX
 CLI builds it with ``jnp.bfloat16``; ``hparams.yaml`` does not record it.
 ``-device`` (default ``cuda``) picks the device; without a GPU pass
-``-device cpu``.  Flags of features the port lacks raise
-``NotImplementedError`` naming their ROADMAP item when set away from their
-defaults: ``-num_devices`` > 1, ``-model_parallel``, ``-seq_parallel``,
-``-pipeline_parallel`` > 1 and ``-fsdp 1`` (A6).  The model classes the
-recipes name train, in either dtype: ``E2E_Conformer_CTC``,
-``E2E_Transformer_CTC`` and ``E2E_Transformer_CTC_Online`` (the toy
-recipe's ``config.yaml`` and ``config_online.yaml``).
+``-device cpu``.  The model classes the recipes name train, in either
+dtype: ``E2E_Conformer_CTC``, ``E2E_Transformer_CTC`` and
+``E2E_Transformer_CTC_Online`` (the toy recipe's ``config.yaml`` and
+``config_online.yaml``).
+
+Data parallelism, one process (rank) per device: ``-num_devices N``
+trains on N local GPUs, ``-1`` (the default) on every one
+(``torch.cuda.device_count()``, as the JAX CLI takes every device), and
+more than there are raises; ``-device cpu -num_devices N`` runs N
+``gloo`` ranks on the CPU.  Without ``torchrun`` the CLI spawns the ranks
+itself; under ``torchrun --nproc_per_node N -m lasr_tpu_torch.bin.train
+...`` each process is one rank.  Batches pad to a multiple of the ranks
+on a host (the JAX CLI pads to its data axis), a step equals the one-GPU
+step on the global batch (``lasr_tpu_torch/parallel/dist.py``), rank 0
+writes, and a rank that fails ends the run with a non-zero exit.  At one
+rank the group is one process and nothing is communicated.  Flags of the
+other kinds of parallelism raise ``NotImplementedError`` naming ROADMAP
+A8 when set away from their defaults: ``-model_parallel``,
+``-seq_parallel``, ``-pipeline_parallel`` > 1 and ``-fsdp 1``.
 """
 
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -36,8 +49,8 @@ import yaml
 _PROC_T0 = time.time()
 
 # flag -> (its default, the ROADMAP item of the feature it selects)
-_UNPORTED = {"model_parallel": (1, "A6"), "seq_parallel": (1, "A6"),
-             "pipeline_parallel": (1, "A6"), "fsdp": (0, "A6")}
+_UNPORTED = {"model_parallel": (1, "A8"), "seq_parallel": (1, "A8"),
+             "pipeline_parallel": (1, "A8"), "fsdp": (0, "A8")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-exp_dir", default="exp", type=str)
     parser.add_argument("-config", required=True)
     parser.add_argument("-num_devices", default=-1, type=int,
-                        help="data-parallel devices; -1 = all local ones "
-                             "(the port trains on one device)")
+                        help="data-parallel devices (one rank each); -1 "
+                             "= every local GPU (one process on the CPU)")
     parser.add_argument("-model_parallel", default=1, type=int,
                         help="tensor parallelism (not ported)")
     parser.add_argument("-seq_parallel", default=1, type=int,
@@ -99,28 +112,106 @@ def refuse_unported(args) -> None:
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"-{flag} {getattr(args, flag)}: not ported (ROADMAP "
-                f"{item}); the port trains on one device")
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            f"-num_devices {args.num_devices}: data parallelism is not "
-            f"ported (ROADMAP A6)")
+                f"{item}); the port trains data-parallel only")
+
+
+def _log_config(rank: int) -> None:
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        format="%(asctime)s %(levelname)s %(message)s")
+
+
+def num_ranks(args) -> int:
+    """The ranks ``-num_devices`` asks for on this host: -1 means every
+    local GPU (one process on the CPU); more GPUs than there are raise."""
+    import torch
+
+    from lasr_tpu_torch import resolve_device
+    device = resolve_device(args.device)
+    n = args.num_devices
+    if n == 0 or n < -1:
+        raise ValueError(f"-num_devices {n}: expected -1 or a count >= 1")
+    if device.type != "cuda":
+        return 1 if n == -1 else n
+    count = torch.cuda.device_count()
+    n = count if n == -1 else n
+    if n > count:
+        raise ValueError(f"-num_devices {n} exceeds the {count} available "
+                         f"GPUs")
+    if n > 1 and device.index is not None:
+        raise ValueError(f"-device {args.device}: with -num_devices {n} "
+                         f"rank i takes cuda:i; pass -device cuda")
+    return n
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
     refuse_unported(args)
+    from lasr_tpu_torch.parallel import dist
+    if dist.launched_by_torchrun():
+        _log_config(int(os.environ["RANK"]))
+        local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ["WORLD_SIZE"]))
+        if args.num_devices not in (-1, local):
+            raise ValueError(f"-num_devices {args.num_devices}: torchrun "
+                             f"started {local} ranks on this host")
+        return run(args)
+    _log_config(0)
+    n = num_ranks(args)
+    if n == 1:
+        return run(args)
+    logging.info("spawning %d ranks", n)
+    dist.spawn(_spawned_rank, n, (args, _PROC_T0))
+    return 0
 
+
+def _spawned_rank(rendezvous, args, wall_t0):
+    _log_config(rendezvous.rank)
+    run(args, rendezvous, wall_t0=wall_t0)
+
+
+def run(args, rendezvous=None, wall_t0=None) -> int:
+    """One rank's training run: join the process group (``spawn``'s
+    ``rendezvous``, else ``torchrun``'s environment, else a group of one)
+    on the rank's device (``-device``; for CUDA the rank's local GPU),
+    ``build`` and ``fit``, leave the group.  A caller with other needs
+    (two ``gloo`` ranks sharing one card) calls ``dist.init``, ``build``
+    and ``fit`` itself."""
     import torch
 
     from lasr_tpu_torch import resolve_device
+    from lasr_tpu_torch.parallel import dist
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        local = (rendezvous.rank if rendezvous is not None
+                 else int(os.environ.get("LOCAL_RANK", 0)))
+        device = torch.device("cuda", local)
+    if device.type == "cpu" and rendezvous is not None:
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // rendezvous.world_size))
+    backend = dist.init(device, rendezvous=rendezvous)
+    try:
+        logging.info("data parallel: backend %s, world size %d, device %s",
+                     backend, dist.world_size(), device)
+        fit(args, *build(args, device),
+            wall_t0=_PROC_T0 if wall_t0 is None else wall_t0)
+        return 0
+    finally:
+        dist.shutdown()
+
+
+def build(args, device):
+    """The run's (trainer, state, train dataset, valid dataset) on
+    ``device``, its data checked and ``hparams.yaml`` written, under the
+    process group the caller joined."""
+    import torch
+
     from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.parallel import dist
     from lasr_tpu_torch.train.optimizer import build_optimizer
     from lasr_tpu_torch.train.trainer import Trainer
     from lasr_tpu_torch.utils.registry import BaseConfig
 
-    device = resolve_device(args.device)
     with open(args.config) as f:
         config = yaml.safe_load(f)
 
@@ -132,9 +223,12 @@ def main(argv=None):
     tokenizer_config = config["tokenizer_config"]
 
     tokenizer = BaseConfig(**tokenizer_config).generateExample()
-    # one device: batches pad to no multiple (the JAX CLI pads to its mesh)
+    # batch rows divide over the host's ranks (the JAX CLI pads to its
+    # data axis)
+    local_world = dist.layout()[3]
     for dc in (train_data_config, valid_data_config):
-        dc.setdefault("kwargs", {}).setdefault("batch_pad_multiple", 1)
+        dc.setdefault("kwargs", {}).setdefault("batch_pad_multiple",
+                                               local_world)
     train_dataset = BaseConfig(**train_data_config).generateExample(
         tokenizer=tokenizer)
     valid_dataset = BaseConfig(**valid_data_config).generateExample(
@@ -183,7 +277,12 @@ def main(argv=None):
         state = trainer.restore_checkpoint(path=args.resume_ckpt)
         logging.info("resumed from %s at step %d", args.resume_ckpt,
                      state.step)
+    return trainer, state, train_dataset, valid_dataset
 
+
+def fit(args, trainer, state, train_dataset, valid_dataset, wall_t0=None):
+    """``Trainer.fit`` with the flags' settings; returns the final
+    state."""
     state = trainer.fit(state, train_dataset, valid_dataset,
                         num_epochs=args.num_epochs,
                         num_workers=args.num_workers,
@@ -195,9 +294,9 @@ def main(argv=None):
                         checkpoint_interval_epochs=
                         args.checkpoint_interval_epochs,
                         max_wall_secs=args.max_wall_secs,
-                        wall_t0=_PROC_T0)
+                        wall_t0=wall_t0)
     logging.info("done at step %d", state.step)
-    return 0
+    return state
 
 
 if __name__ == "__main__":

@@ -19,8 +19,13 @@ touch the device.
 Every ``random.Random`` call is the JAX package's, so both packages give
 the same groups and the same epoch order for a seed.  Not ported:
 ``wire_dtype="int16"`` and ``device_audio_cache`` (TPU host-link
-workarounds) and ``process_count > 1`` (ROADMAP A6) raise
-``NotImplementedError``.
+workarounds) raise ``NotImplementedError``.
+
+Data parallelism (``batches``): the hosts (``process_index`` of
+``process_count``) take whole batches round-robin, as ``lasr_tpu``'s
+processes do, and the ranks on a host (``local_rank`` of
+``local_world_size``, one per GPU) take rows of the host's batch; each
+rank reads only its rows' audio.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import random
 import threading
 import zlib
 from math import ceil, gcd
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -224,10 +229,42 @@ class AudioDataSet:
         B = round_up(len(items), self.batch_pad_multiple)
         return B, S, L
 
-    def merge_batch(self, items: Sequence[Dict],
-                    perturb_seed: int = 0) -> Dict:
+    def _rank_batch(self, groups: Sequence[Sequence[int]],
+                    process_index: int, local_rank: int,
+                    local_world_size: int, perturb_seed: int) -> Dict:
+        """Rank ``local_rank``'s rows of host ``process_index``'s batch in
+        the global batch of ``groups`` (one group per host).  Every host's
+        batch takes the largest of their ``batch_shape``s (``lasr_tpu``'s
+        ``pad_shapes``), B rounded up to a multiple of
+        ``local_world_size``."""
+        B, S, L = np.max([self.batch_shape(g, perturb_seed)
+                          for g in groups], axis=0).tolist()
+        B = round_up(B, local_world_size)
+        b = B // local_world_size
+        global_len = np.zeros((len(groups) * B,), np.int32)
+        for p, g in enumerate(groups):
+            global_len[p * B: p * B + len(g)] = [
+                self.expected_samples(self.train_set[i], perturb_seed)
+                for i in g]
+        row0 = process_index * B + local_rank * b
+        mine = groups[process_index][local_rank * b: (local_rank + 1) * b]
+        out = self.merge_batch([self.train_set[i] for i in mine],
+                               perturb_seed, pad_to=(b, S, L))
+        if not np.array_equal(out["wav_len"],
+                              global_len[row0: row0 + b]):
+            raise RuntimeError(
+                f"decoded lengths {out['wav_len'].tolist()} differ from "
+                f"the metadata's {global_len[row0: row0 + b].tolist()}")
+        out.update(row0=row0, global_wav_len=global_len,
+                   n_utts=sum(len(g) for g in groups))
+        return out
+
+    def merge_batch(self, items: Sequence[Dict], perturb_seed: int = 0,
+                    pad_to: Optional[Tuple[int, int, int]] = None) -> Dict:
         """Read and host-transform the waveforms and pad to the bucketed
-        (B, S, L)."""
+        (B, S, L), or to ``pad_to`` (B, S, L), which raises if the items
+        need more.  With ``pad_to`` the items may be none (a rank's share
+        of pad rows)."""
         waves = self._read_waves(items)
         if "soxspeed" in self.audio_trans:
             # speed perturbation: resampling the wave by 1/ratio at a fixed
@@ -237,10 +274,17 @@ class AudioDataSet:
                 for w, it in zip(waves, items)]
         wave_lens = [len(w) for w in waves]
 
-        S = round_up(max(wave_lens), self.sample_bucket)
-        L = round_up(max(it["token_len"] for it in items) or 1,
+        S = round_up(max(wave_lens, default=1), self.sample_bucket)
+        L = round_up(max((it["token_len"] for it in items), default=0) or 1,
                      self.token_bucket)
         B = round_up(len(items), self.batch_pad_multiple)
+        if pad_to is not None:
+            if pad_to[0] < len(items) or pad_to[1] < S or pad_to[2] < L:
+                raise RuntimeError(
+                    f"batch shape prediction too small: predicted {pad_to}, "
+                    f"actual {(len(items), S, L)}: metadata and decoder "
+                    f"disagree")
+            B, S, L = pad_to
 
         wav_array = np.full((B, S), float(self.pad_audio), dtype=np.float32)
         for i, w in enumerate(waves):
@@ -284,45 +328,74 @@ class AudioDataSet:
 
     def batches(self, shuffle: bool = False, seed: int = 0,
                 num_workers: int = 4, prefetch: int = 4,
-                process_count: int = 1, skip: int = 0) -> Iterator[Dict]:
-        """Host batches in order, read ahead by ``num_workers`` threads.
+                process_index: int = 0, process_count: int = 1,
+                skip: int = 0, local_rank: int = 0,
+                local_world_size: int = 1) -> Iterator[Dict]:
+        """This rank's batches in order, read ahead by ``num_workers``
+        threads.
 
         Worker w assembles batches w, w + n, w + 2n, ... into its own
         queue and the consumer drains the queues round-robin, so the order
         is ``batch_indices(shuffle, seed)``'s whatever the thread timing.
-        ``skip``: drop the first N batches without reading their audio
+        ``skip``: drop the first N steps without reading their audio
         (mid-epoch resume: the order is a pure function of ``seed``).
-        Each batch carries ``order_pad`` (False: a single process cycles
-        no batch in)."""
-        if process_count > 1:
-            raise NotImplementedError(
-                "multi-process data sharding (process_count > 1) is not "
-                "ported (ROADMAP A6)")
-        order = self.batch_indices(shuffle=shuffle, seed=seed)[skip:]
-        if not order:
+
+        Data parallelism, as ``lasr_tpu``'s ``batches(process_index,
+        process_count)``: the order is padded to a multiple of
+        ``process_count`` by cycling batches from its head (tagged
+        ``order_pad``, so that validation skips them) and host p takes
+        batches p, p + P, ...; step s's global batch is the P host batches
+        of order[s·P:(s+1)·P] padded to one shape.  Rank
+        ``local_rank`` of the host takes rows ``local_rank·b`` to
+        ``(local_rank+1)·b`` of its host batch (b = B / local_world_size,
+        B padded to a multiple of it), padded to the global batch's
+        sample and token lengths, so that every rank's frontend gives the
+        same frame count.  Every batch also carries ``row0`` (its first
+        row in the global batch), ``global_wav_len`` (the global batch's
+        wave lengths, from the metadata), ``n_utts`` (the global batch's
+        utterances) and ``order_pad``; one rank's batch is the whole
+        global batch, at ``row0`` 0."""
+        if not (0 <= process_index < process_count
+                and 0 <= local_rank < local_world_size):
+            raise ValueError(
+                f"no such rank: process_index {process_index} of "
+                f"{process_count}, local_rank {local_rank} of "
+                f"{local_world_size}")
+        order = self.batch_indices(shuffle=shuffle, seed=seed)
+        n_real = len(order)
+        P = process_count
+        if P > 1 and order and len(order) % P:
+            order = order + [order[i % len(order)]
+                             for i in range(P - len(order) % P)]
+        steps = [order[g: g + P] for g in range(0, len(order), P)][skip:]
+        pad_flags = [skip * P + s * P + process_index >= n_real
+                     for s in range(len(steps))]
+        if not steps:
             return
         stop = object()
 
-        def worker(sub_order, out_q):
-            for group in sub_order:
-                items = [self.train_set[i] for i in group]
-                merged = self.merge_batch(items, perturb_seed=seed)
-                merged["order_pad"] = False
+        def worker(sub, out_q):
+            for pos, groups in sub:
+                merged = self._rank_batch(groups, process_index,
+                                          local_rank, local_world_size, seed)
+                merged["order_pad"] = pad_flags[pos]
                 out_q.put(merged)
             out_q.put(stop)
 
-        n_workers = max(1, min(num_workers, len(order)))
+        indexed = list(enumerate(steps))
+
+        n_workers = max(1, min(num_workers, len(indexed)))
         qs = [queue_mod.Queue(maxsize=max(1, prefetch // n_workers))
               for _ in range(n_workers)]
         threads = [threading.Thread(target=worker,
-                                    args=(order[w::n_workers], qs[w]),
+                                    args=(indexed[w::n_workers], qs[w]),
                                     daemon=True)
                    for w in range(n_workers)]
         for t in threads:
             t.start()
         done = [False] * n_workers
         pos = served = 0
-        while served < len(order):
+        while served < len(indexed):
             w = pos % n_workers
             pos += 1
             if done[w]:

@@ -16,8 +16,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from lasr_tpu_torch.ops.fbank import (KaldiFbankConfig, log_mel_fbank,
-                                      peak_normalize)
+from lasr_tpu_torch.ops.fbank import (KaldiFbankConfig, fbank_num_frames,
+                                      log_mel_fbank, peak_normalize)
 from lasr_tpu_torch.ops.specaug import spec_augment
 
 _SPECAUG_KNOBS = {"W": "max_time_warp", "F": "max_freq_width",
@@ -26,8 +26,11 @@ _SPECAUG_KNOBS = {"W": "max_time_warp", "F": "max_freq_width",
 
 
 class DeviceFrontend:
-    """Callable (wav, wav_len, generator=None, train=False) → (feats,
-    feat_len), on the device the inputs live on."""
+    """Callable (wav, wav_len, generator=None, train=False, rows=None) →
+    (feats, feat_len), on the device the inputs live on.  ``rows = (row0,
+    global_wav_len)`` marks the batch as rows ``row0`` on of a global
+    batch with those wave lengths: SpecAugment draws for the global rows
+    and applies this batch's (``spec_augment``)."""
 
     def __init__(self, audio_trans: Sequence[str],
                  fbank: Optional[KaldiFbankConfig] = None,
@@ -66,7 +69,9 @@ class DeviceFrontend:
 
     def __call__(self, wav: torch.Tensor, wav_len: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
-                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                 train: bool = False,
+                 rows: Optional[Tuple[int, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if not wav.is_floating_point():
             # int16 wire format, dequantized to the readers' float/32768
             wav = wav.to(torch.float32) * (1.0 / 32768.0)
@@ -82,7 +87,14 @@ class DeviceFrontend:
                 if generator is None:
                     raise ValueError("train-mode SpecAugment draws from a "
                                      "generator: pass generator=")
+                global_rows = None
+                if rows is not None:
+                    global_len = torch.clamp(fbank_num_frames(
+                        rows[1].to(feat_len.device), self.fbank_cfg),
+                        max=feats.shape[1])
+                    global_rows = (rows[0], global_len)
                 feats = spec_augment(feats, feat_len, generator,
+                                     rows=global_rows,
                                      **dict(self.specaug_kwargs, **arg))
         return feats, feat_len
 

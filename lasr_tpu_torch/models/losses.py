@@ -11,6 +11,13 @@
 
 Criteria are plain callables with the reference's dict-in / dict-out
 contract.
+
+Under a process group of several ranks every denominator (valid rows,
+tokens, reference lengths) is the global batch's count, summed over the
+ranks outside autograd, and each numerator stays the rank's own: the sum
+of the ranks' losses and metrics is the global batch's, as ``lasr_tpu``'s
+one program on a data axis computes it, and the sum of their gradients
+is its gradient.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 
 from lasr_tpu_torch.ops.ctc import (ctc_forward_from_logits,
                                     ctc_labels_from_padded)
+from lasr_tpu_torch.parallel.dist import global_sum
 from lasr_tpu_torch.utils.text import edit_distance
 
 
@@ -53,19 +61,20 @@ class LabelSmoothingLoss:
         kl = true_dist * (torch.log(torch.clamp(true_dist, min=1e-30)) - logp)
         kl = torch.where(ignore[..., None], 0.0, kl)
         if self.normalize_length:
-            denom = torch.clamp((~ignore).sum(), min=1)
+            denom = (~ignore).sum()
         elif utt_valid is not None:
-            denom = torch.clamp(utt_valid.sum(), min=1)
+            denom = utt_valid.sum()
         else:
-            denom = B
-        return kl.sum() / denom
+            denom = torch.tensor(B, device=x.device)
+        return kl.sum() / torch.clamp(global_sum(denom), min=1)
 
 
 def att_accuracy(att_out: torch.Tensor, att_label: torch.Tensor,
                  ignore_id: int = -1) -> torch.Tensor:
     """Token accuracy over the non-ignored positions."""
     ok = (att_out.argmax(dim=-1) == att_label) & (att_label != ignore_id)
-    return ok.sum() / torch.clamp((att_label != ignore_id).sum(), min=1)
+    return ok.sum() / torch.clamp(global_sum((att_label != ignore_id).sum()),
+                                  min=1)
 
 
 class E2E_Loss:
@@ -90,7 +99,7 @@ class E2E_Loss:
     def __call__(self, att_out, ctc_out, att_label, ctc_label, hs_len):
         att_out = att_out.float()
         utt_valid = hs_len > 0   # bucket-padding rows have hs_len == 0
-        n_valid = torch.clamp(utt_valid.sum(), min=1)
+        n_valid = torch.clamp(global_sum(utt_valid.sum()), min=1)
         att = self.att_loss(att_out, att_label, utt_valid)
         labels, label_len = ctc_labels_from_padded(ctc_label, self.ignore_id)
         ll = ctc_forward_from_logits(ctc_out, hs_len, labels, label_len,
@@ -109,18 +118,23 @@ class E2E_Loss:
                                         input_dict["att_label"],
                                         self.ignore_id)}
         if self.log_ctc_cer:
-            step = input_dict.get("step")
-            interval = self.ctc_cer_interval or 1
-            if step is not None and interval > 1 \
-                    and (int(step) + 1) % interval:
-                out["ctc_cer"] = torch.tensor(-1.0,
-                                              device=main.device)
-            else:
+            if self.logs_step(input_dict.get("step")):
                 with torch.no_grad():
                     out["ctc_cer"] = ctc_greedy_cer_device(
                         input_dict["ctc_out"], input_dict["ctc_label"],
                         input_dict["hs_len"], self.blank_id, self.ignore_id)
+            else:
+                out["ctc_cer"] = torch.tensor(-1.0,
+                                              device=main.device)
         return out
+
+    def logs_step(self, step: Optional[int]) -> bool:
+        """Whether the train call at ``step`` (the step before its update;
+        None: outside the Trainer's steps) computes its metrics in full:
+        every ``ctc_cer_interval``-th call, the ones whose metrics are
+        logged."""
+        interval = self.ctc_cer_interval or 1
+        return step is None or interval <= 1 or (int(step) + 1) % interval == 0
 
     valid_forward = train_forward
 
@@ -159,7 +173,7 @@ def ctc_greedy_cer_device(ctc_out, ctc_label, hs_len, blank_id: int = 0,
     has = ref_len > 0
     errs = torch.where(has, dist, 0).sum()
     total = torch.where(has, ref_len, 0).sum()
-    return errs.float() / torch.clamp(total, min=1).float()
+    return errs.float() / torch.clamp(global_sum(total), min=1).float()
 
 
 def ctc_greedy_cer(ctc_out: np.ndarray, ctc_label: np.ndarray,

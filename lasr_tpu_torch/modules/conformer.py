@@ -25,6 +25,7 @@ from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 from lasr_tpu_torch.modules.layers import Computes, Conv1d, LayerNorm
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
+from lasr_tpu_torch.parallel import dist
 
 
 class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
@@ -36,7 +37,14 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
     variance with the biased batch variance (torch's BatchNorm keeps the
     unbiased one).  Eval mode normalizes with the running statistics.
     Statistics, running averages and the affine map are float32 whatever
-    the compute dtype; the result is cast to it (Flax's policy)."""
+    the compute dtype; the result is cast to it (Flax's policy).
+
+    Under a process group of several ranks the statistics are the global
+    batch's, as ``lasr_tpu``'s one program on a data axis takes them:
+    (Σx, Σx², count) summed over the ranks by a differentiable all-reduce,
+    whose backward carries the cross-rank terms; the running statistics
+    stay identical on every rank.  (``nn.SyncBatchNorm`` moves
+    ``running_var`` with the unbiased variance.)"""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
@@ -44,8 +52,15 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(self.dtype)
-        mean = x.mean(dim=(0, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        if dist.world_size() > 1:
+            C = x.shape[1]
+            sums = dist.all_reduce_sum(torch.cat([
+                x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
+                x.new_full((1,), x.shape[0] * x.shape[2])]))
+            mean, sq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+        else:
+            mean, sq = x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)

@@ -19,7 +19,7 @@ The reference's quirks are kept, as in ``lasr_tpu``:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -136,10 +136,20 @@ def spec_augment(feats: torch.Tensor, feat_len: torch.Tensor,
                  generator: torch.Generator, max_time_warp: int = 5,
                  max_freq_width: int = 27, n_freq_mask: int = 2,
                  max_time_width: int = 40, n_time_mask: int = 2,
-                 replace_with_zero: bool = False) -> torch.Tensor:
-    """SpecAugment of a padded batch with draws from ``generator``."""
-    draws = spec_augment_draws(feat_len, feats.shape[-1], generator,
+                 replace_with_zero: bool = False,
+                 rows: Optional[Tuple[int, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """SpecAugment of a padded batch with draws from ``generator``.
+
+    ``rows = (row0, global_feat_len)``: the batch is rows ``row0`` on of a
+    global batch whose feature lengths are ``global_feat_len``; the draws
+    are the global batch's, and the batch gets its rows' (a data-parallel
+    rank augments its rows as the one-process step does)."""
+    draw_len, row0 = (feat_len, 0) if rows is None else (rows[1], rows[0])
+    draws = spec_augment_draws(draw_len, feats.shape[-1], generator,
                                max_time_warp, max_freq_width, n_freq_mask,
                                max_time_width, n_time_mask)
+    if rows is not None:
+        draws = {k: v[row0: row0 + feats.shape[0]] for k, v in draws.items()}
     return apply_spec_augment(feats, feat_len, draws, max_time_warp,
                               replace_with_zero)

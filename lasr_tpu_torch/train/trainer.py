@@ -27,6 +27,24 @@ lowest ``valid_loss_main``.  ``loop_state.json`` beside them maps each
 saved step to its (epoch, batch), so ``auto_resume`` re-enters the same
 batch mid-epoch.
 
+Data parallelism (``lasr_tpu_torch.parallel``): under a process group of
+N ranks each rank trains on its rows of the global batch (the dataset's
+``batches`` or ``parallel.dist.shard_rows`` give them) and a step equals
+the one-process step on the global batch, as ``lasr_tpu``'s one program
+on a data axis does: BatchNorm's statistics and every loss denominator
+are the global batch's, SpecAugment draws for the global rows from the
+shared (seed, step) generator, the gradient is summed over the ranks
+once per optimizer step (for ``acc_grads`` > 1 at the emitting call,
+after the running mean) before clipping, and the metrics are the global
+ones.  Dropout draws from a generator keyed on (seed, step, rank), so its
+draws differ from a one-process run's (as they differ from JAX's).
+``grad_norm`` is the global norm of the call's gradient; with
+``acc_grads`` > 1 over several ranks a call's gradient is summed over the
+ranks only on the steps whose metrics are logged (those of the greedy
+CER), and other calls report -1.  Rank 0's initial weights are broadcast
+to every rank; rank 0 alone writes checkpoints, ``hparams.yaml``,
+``metrics.jsonl`` and the loop state, and every rank restores.
+
 Checkpoints are reference Lightning ``.ckpt`` files named
 ``step-<step, 9 digits>.ckpt`` (names sort by step): ``state_dict`` with
 the model's weights and BatchNorm statistics under ``model.`` and the EMA
@@ -53,6 +71,7 @@ import yaml
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.data.frontend import DeviceFrontend, pack_s2s
 from lasr_tpu_torch.modules.dropout import dropout_generator
+from lasr_tpu_torch.parallel import dist
 from lasr_tpu_torch.train.ema import ema_init, ema_update
 from lasr_tpu_torch.train.optimizer import clip_by_global_norm, global_norm
 from lasr_tpu_torch.utils.weights import checkpoint_name, checkpoint_steps
@@ -92,7 +111,8 @@ class Trainer:
         ``schedule``) or the update ``build_optimizer`` returns;
         ``schedule`` is also what ``metrics.jsonl``'s ``lr`` reads.
         ``device=None`` means CUDA (raises without a GPU); the model must
-        already live there."""
+        already live there.  Under a process group, the model's weights
+        and buffers become rank 0's."""
         self.device = resolve_device(device)
         self.model = model
         self.criterion = criterion
@@ -116,6 +136,8 @@ class Trainer:
         self.ignore = tokenizer.ID_VALUE_IGNORE if tokenizer else -1
         if getattr(criterion, "ctc_cer_interval", 0) is None:
             criterion.ctc_cer_interval = max(1, min(log_interval, 1000))
+        self.rank, self.world = dist.rank(), dist.world_size()
+        dist.broadcast_module(model)
 
     # ---- state ----
 
@@ -131,13 +153,27 @@ class Trainer:
     # ---- steps ----
 
     def _generators(self, step: int):
-        """(SpecAugment generator, dropout generator) of ``step``."""
+        """(SpecAugment generator, dropout generator) of ``step``: the
+        first is every rank's, the second this rank's."""
         return tuple(torch.Generator(device=self.device).manual_seed(
-            _fold(self.seed, step, stream)) for stream in (0, 1))
+            _fold(self.seed, step, stream)) for stream in (0, 1 + self.rank))
 
     def _batch(self, batch: Dict):
         return [torch.as_tensor(batch[k], device=self.device)
                 for k in ("wav_array", "wav_len", "token_id", "token_len")]
+
+    def _rows(self, batch: Dict):
+        """The frontend's ``rows`` of a rank's batch; None at world size
+        1."""
+        if self.world == 1:
+            return None
+        if "row0" not in batch:
+            raise ValueError(
+                "under a process group a batch is a rank's rows of the "
+                "global batch: take it from the dataset's batches(...) or "
+                "parallel.dist.shard_rows")
+        return (int(batch["row0"]),
+                torch.as_tensor(batch["global_wav_len"], device=self.device))
 
     def _forward(self, batch: Dict, step: Optional[int], train: bool):
         wav, wav_len, token_id, token_len = self._batch(batch)
@@ -145,7 +181,8 @@ class Trainer:
         self.model.train(train)
         with torch.no_grad():
             feats, feat_len = self.frontend(wav, wav_len, generator=g_spec,
-                                            train=train)
+                                            train=train,
+                                            rows=self._rows(batch))
         ys_in, att_label, ctc_label = pack_s2s(token_id, token_len, self.sos,
                                                self.eos, self.ignore)
         with dropout_generator(g_drop):
@@ -155,27 +192,64 @@ class Trainer:
             data["step"] = step
         return data, wav_len
 
-    def loss_and_grads(self, batch: Dict, step: int = 0):
-        """The train-mode metrics of ``batch`` at ``step`` and the
-        gradient of ``loss_main`` for every parameter (in
-        ``named_parameters`` order); nothing is updated but the BatchNorm
-        statistics."""
+    def _local_loss_and_grads(self, batch: Dict, step: int):
+        """This rank's share of the metrics (the global ones summed over
+        the ranks) and of the gradient of ``loss_main``."""
         data, _ = self._forward(batch, step, train=True)
         metrics = self.criterion.train_forward(data)
         grads = torch.autograd.grad(metrics["loss_main"], self.params,
                                     allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
+        return self._global_metrics(metrics), grads
+
+    def _global_metrics(self, metrics: Dict) -> Dict:
+        """The ranks' shares summed (one all-reduce); the greedy CER's -1
+        of a step that skips it stays -1."""
+        if self.world == 1:
+            return metrics
+        keys = list(metrics)
+        local = torch.stack([metrics[k].detach().float().reshape(())
+                             for k in keys])
+        total = dist.global_sum(local)
+        out = dict(zip(keys, total.unbind()))
+        if "ctc_cer" in out:
+            cer = local[keys.index("ctc_cer")]
+            out["ctc_cer"] = torch.where(cer < 0, cer, out["ctc_cer"])
+        return out
+
+    def _logged(self, step: int) -> bool:
+        """Whether the call at ``step`` computes its metrics in full (the
+        criterion's ``logs_step``; every call for a criterion without
+        one)."""
+        logs_step = getattr(self.criterion, "logs_step", None)
+        return logs_step is None or logs_step(step)
+
+    def loss_and_grads(self, batch: Dict, step: int = 0):
+        """The train-mode metrics of ``batch`` at ``step`` and the
+        gradient of ``loss_main`` for every parameter (in
+        ``named_parameters`` order), of the global batch under a process
+        group; nothing is updated but the BatchNorm statistics."""
+        metrics, grads = self._local_loss_and_grads(batch, step)
+        grads = dist.all_reduce_flat(grads)
         metrics["grad_norm"] = global_norm(grads)
         return metrics, grads
 
     def train_step(self, state: TrainState, batch: Dict):
         """One step on a host batch ``{wav_array, wav_len, token_id,
-        token_len}`` (numpy or tensors); returns (state, metrics as
-        floats)."""
-        metrics, grads = self.loss_and_grads(batch, state.step)
+        token_len}`` (numpy or tensors; under a process group a rank's
+        rows of it); returns (state, metrics as floats)."""
+        metrics, grads = self._local_loss_and_grads(batch, state.step)
         emit = True
         if self.acc_grads > 1:
+            if self.world == 1:
+                metrics["grad_norm"] = global_norm(grads)
+            elif self._logged(state.step):
+                metrics["grad_norm"] = global_norm(
+                    dist.all_reduce_flat(grads))
+            else:
+                metrics["grad_norm"] = torch.tensor(-1.0,
+                                                    device=self.device)
             acc = state.acc_grads or [torch.zeros_like(g) for g in grads]
             n = state.mini_step
             acc = [a + (g - a) / (n + 1) for a, g in zip(acc, grads)]
@@ -184,6 +258,9 @@ class Trainer:
             state.acc_grads = None if emit else acc
             grads = acc
         if emit:
+            grads = dist.all_reduce_flat(grads)
+            if self.acc_grads == 1:
+                metrics["grad_norm"] = global_norm(grads)
             self.optimizer.step(self.params,
                                 clip_by_global_norm(grads, self.grad_clip),
                                 state.opt_state)
@@ -204,17 +281,21 @@ class Trainer:
             torch._foreach_copy_(self.params, state.ema["shadow"])
         try:
             data, wav_len = self._forward(batch, None, train=False)
-            metrics = self.criterion.valid_forward(data)
+            metrics = self._global_metrics(
+                self.criterion.valid_forward(data))
         finally:
             if live is not None:
                 torch._foreach_copy_(self.params, live)
         out = {k: float(v) for k, v in metrics.items()}
-        out["n_utts"] = max(int((wav_len > 0).sum()), 1)
+        out["n_utts"] = max(int(dist.global_sum((wav_len > 0).sum())), 1)
         return out
 
     # ---- files ----
 
     def save_hparams(self, configs: Dict) -> None:
+        """Write ``exp_dir/hparams.yaml`` (rank 0 only)."""
+        if self.rank != 0:
+            return
         os.makedirs(self.exp_dir, exist_ok=True)
         with open(os.path.join(self.exp_dir, "hparams.yaml"), "w") as f:
             yaml.safe_dump(configs, f, sort_keys=False, allow_unicode=True)
@@ -264,17 +345,20 @@ class Trainer:
         and the oldest beyond ``checkpoint_keep`` are deleted; with
         ``valid_metrics`` it also enters ``best/`` (a hard link where the
         file system allows), which keeps the ``checkpoint_keep`` lowest
-        ``valid_metrics["loss_main"]``."""
+        ``valid_metrics["loss_main"]``.  Under a process group rank 0
+        writes and every rank returns the path."""
         valid_loss = None if not valid_metrics \
             else float(valid_metrics["loss_main"])
-        blob = self._checkpoint_blob(state, valid_loss)
         if path is not None:
-            _atomic_save(blob, path)
+            if self.rank == 0:
+                _atomic_save(self._checkpoint_blob(state, valid_loss), path)
             return path
         root = self._checkpoint_root()
         name = checkpoint_name(state.step)
         last = os.path.join(root, "last", name)
-        _atomic_save(blob, last)
+        if self.rank != 0:
+            return last
+        _atomic_save(self._checkpoint_blob(state, valid_loss), last)
         kept = checkpoint_steps(os.path.dirname(last))
         for step in sorted(kept)[:-self.checkpoint_keep]:
             os.remove(os.path.join(os.path.dirname(last), kept[step]))
@@ -347,6 +431,8 @@ class Trainer:
         return os.path.join(self._checkpoint_root(), "loop_state.json")
 
     def _write_loop_state(self, step: int, epoch: int, batch_idx: int):
+        if self.rank != 0:
+            return
         path = self._loop_state_path()
         hist = _read_json(path)
         hist[str(step)] = [epoch, batch_idx]
@@ -376,11 +462,20 @@ class Trainer:
         every ``valid_interval_epochs`` / ``checkpoint_interval_epochs``
         epochs and always after the last; ``max_wall_secs`` > 0
         checkpoints and stops at the first epoch boundary past that many
-        seconds since ``wall_t0``."""
+        seconds since ``wall_t0``.  Under a process group every rank runs
+        ``fit`` on its shard of each batch (``dist.layout``), resumes
+        rank 0's newest step, stops at rank 0's wall deadline, and waits
+        at each checkpoint until rank 0 has written it."""
         start_epoch, start_skip = 0, 0
+        main = self.rank == 0
+        host, hosts, local_rank, local_world = dist.layout()
+        shard = dict(process_index=host, process_count=hosts,
+                     local_rank=local_rank, local_world_size=local_world)
         if auto_resume and self.exp_dir:
             latest = self.latest_step()
-            if latest is not None:
+            latest = dist.broadcast_int(-1 if latest is None else latest,
+                                        self.device)
+            if latest >= 0:
                 state = self.restore_checkpoint(step=latest)
                 loop = self._read_loop_state(latest)
                 if loop is not None:
@@ -388,21 +483,28 @@ class Trainer:
                 logging.info("auto-resumed from step %d (epoch %d, "
                              "batch %d)", latest, start_epoch, start_skip)
         metrics_path = None
-        if self.exp_dir:
+        if self.exp_dir and main:
             os.makedirs(self.exp_dir, exist_ok=True)
             metrics_path = os.path.join(self.exp_dir, "metrics.jsonl")
         save = save_checkpoints and bool(self.exp_dir)
+
+        def checkpoint(valid_metrics, epoch_, batch_idx_):
+            self.save_checkpoint(state, valid_metrics)
+            self._write_loop_state(state.step, epoch_, batch_idx_)
+            if self.world > 1:
+                dist.barrier(self.device)
+
         t0 = time.time()
         wall_t0 = time.time() if wall_t0 is None else wall_t0
         for epoch in range(start_epoch, num_epochs):
-            if max_wall_secs and time.time() - wall_t0 > max_wall_secs \
-                    and epoch > start_epoch:
+            late = bool(max_wall_secs) and epoch > start_epoch \
+                and time.time() - wall_t0 > max_wall_secs
+            if dist.broadcast_int(int(late), self.device):
                 logging.info("wall deadline (%.0fs) reached at epoch %d; "
                              "checkpointing and exiting cleanly",
                              max_wall_secs, epoch)
                 if save:
-                    self.save_checkpoint(state)
-                    self._write_loop_state(state.step, epoch, 0)
+                    checkpoint(None, epoch, 0)
                 break
             skip = start_skip if epoch == start_epoch else 0
             batch_idx = skip
@@ -414,7 +516,7 @@ class Trainer:
             t_mark = time.perf_counter()
             for batch in train_dataset.batches(
                     shuffle=True, seed=self.seed + epoch,
-                    num_workers=num_workers, skip=skip):
+                    num_workers=num_workers, skip=skip, **shard):
                 t_data += time.perf_counter() - t_mark
                 t_mark = time.perf_counter()
                 state, metrics = self.train_step(state, batch)
@@ -428,8 +530,7 @@ class Trainer:
                     t_data = t_disp = 0.0
                 if checkpoint_interval_steps and save and \
                         state.step % checkpoint_interval_steps == 0:
-                    self.save_checkpoint(state)
-                    self._write_loop_state(state.step, epoch, batch_idx)
+                    checkpoint(None, epoch, batch_idx)
                 t_mark = time.perf_counter()
             if pending:
                 self._flush_metrics(pending, epoch, metrics_path, t0,
@@ -439,9 +540,10 @@ class Trainer:
             if valid_dataset is not None and (
                     last_epoch or (epoch + 1) % valid_interval_epochs == 0):
                 valid_metrics = self.validate(state, valid_dataset)
-                logging.info("epoch %d valid: %s", epoch,
-                             {k: round(v, 4) for k, v in
-                              valid_metrics.items()})
+                if main:
+                    logging.info("epoch %d valid: %s", epoch,
+                                 {k: round(v, 4) for k, v in
+                                  valid_metrics.items()})
                 if metrics_path:
                     _append_line(metrics_path, {
                         "epoch": epoch, "step": state.step,
@@ -449,18 +551,22 @@ class Trainer:
                            for k, v in valid_metrics.items()}})
             if save and (last_epoch
                          or (epoch + 1) % checkpoint_interval_epochs == 0):
-                self.save_checkpoint(state, valid_metrics)
-                self._write_loop_state(state.step, epoch + 1, 0)
+                checkpoint(valid_metrics, epoch + 1, 0)
         return state
 
     def validate(self, state: TrainState, valid_dataset,
                  num_workers: int = 2) -> Dict[str, float]:
         """The mean of each per-batch metric over the dataset (batches
         tagged ``order_pad`` are not scored), EMA weights when
-        ``use_ema``."""
+        ``use_ema``; under a process group each rank takes its shard of
+        every batch and the metrics are the global batches'."""
         totals: Dict[str, float] = {}
         n_batches = 0
-        for batch in valid_dataset.batches(num_workers=num_workers):
+        host, hosts, local_rank, local_world = dist.layout()
+        for batch in valid_dataset.batches(
+                num_workers=num_workers, process_index=host,
+                process_count=hosts, local_rank=local_rank,
+                local_world_size=local_world):
             metrics = self.valid_step(state, batch)
             if batch.get("order_pad"):
                 continue
@@ -475,17 +581,19 @@ class Trainer:
         step, host, _ = pending[-1]
         host = dict(host)
         utts = sum(n for _, _, n in pending)
-        # ctc_cer is computed on steps that are multiples of its interval
-        # (-1 elsewhere): a flush whose last step did not compute it reads
-        # the newest step that did, or leaves it out
-        interval = getattr(self.criterion, "ctc_cer_interval", None) or 1
-        if host.get("ctc_cer", 0.0) == -1.0 and interval > 1:
+        # ctc_cer is computed on the logged steps only (-1 elsewhere; so
+        # is grad_norm with acc_grads > 1 over several ranks): a flush
+        # whose last step did not compute it reads the newest step that
+        # did, or leaves it out (pending holds the steps after update)
+        for key in ("ctc_cer", "grad_norm"):
+            if host.get(key, 0.0) != -1.0:
+                continue
             for s, m, _ in reversed(pending[:-1]):
-                if s % interval == 0:
-                    host["ctc_cer"] = m["ctc_cer"]
+                if self._logged(s - 1):
+                    host[key] = m[key]
                     break
             else:
-                host.pop("ctc_cer", None)
+                host.pop(key, None)
         line = {"epoch": epoch, "step": step,
                 "utts_cum": utts, "wall_s": round(time.time() - t0, 2),
                 "data_wait_s": round(t_data, 2),
@@ -494,8 +602,9 @@ class Trainer:
         if self.schedule is not None:
             line["lr"] = float(self.schedule(
                 max(step // max(self.acc_grads, 1) - 1, 0)))
-        logging.info("train %s", {k: (round(v, 4) if isinstance(v, float)
-                                      else v) for k, v in line.items()})
+        if dist.is_main():
+            logging.info("train %s", {k: (round(v, 4) if isinstance(v, float)
+                                          else v) for k, v in line.items()})
         if metrics_path:
             _append_line(metrics_path, line)
 

@@ -238,8 +238,8 @@ def test_decode_cli_matches_the_jax_cli(run, method, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("-num_devices", "2"), ("-model_parallel", "2"),
-    ("-seq_parallel", "2"), ("-pipeline_parallel", "2"), ("-fsdp", "1")])
+    ("-model_parallel", "2"), ("-seq_parallel", "2"),
+    ("-pipeline_parallel", "2"), ("-fsdp", "1")])
 def test_train_cli_refuses_unported_flags(flag, value, tmp_path):
     with pytest.raises(NotImplementedError, match=flag.lstrip("-")):
         port_train.main(["-config", str(tmp_path / "none.yaml"),

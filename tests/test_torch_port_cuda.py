@@ -478,3 +478,145 @@ def test_chunk_encoder_on_the_card_matches_cpu_and_chunk_serving():
     assert float((hs.cpu() - hs_cpu).abs().max()) <= 1e-3
     for b, n in enumerate(hs_len.tolist()):
         assert float((inc[b, :n] - hs[b, :n]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("flags", [{}, {"encoder_use_pallas_attention": True}])
+def test_two_gloo_ranks_on_the_card_equal_one_process(flags, tmp_path):
+    """Two ``gloo`` ranks sharing the card against the one-process step on
+    the same global batch (a pad row on rank 1, SpecAugment on), the
+    table configuration and B-train's (K3 + K4); the ranks bitwise equal.
+    Each rank's GEMMs and convolutions run at half the batch, which the
+    card tiles and sums in another order than the one-process step.
+    B-train is held within 1e-5, as ``test_torch_port_dp.py`` holds the
+    step on the CPU, but for the biases in front of the conv module's
+    BatchNorm (``norm_conv.bias``, ``pointwise_conv1.bias``), whose
+    gradient BatchNorm nearly cancels (a difference of nearly equal sums
+    over B x T) and which are held at 1e-4: ``pointwise_conv1.bias`` came
+    out at 1.11e-5 (relative L2) in B-train and ``norm_conv.bias`` at
+    1.03e-5 in the table configuration.  The table configuration, whose
+    attention runs as batched GEMMs, is held at this file's f32
+    tolerance, 1e-4: in a second card run nine more of its gradient
+    leaves, of FF, norm and conv-module weights, came out at 1.03e-5 to
+    1.25e-5.  Readings on an NVIDIA H100 80GB HBM3 at 700.00 W."""
+    from lasr_tpu_torch.parallel import dist
+    from tests.torch_port_dp_worker import (KW, assert_step_equal,
+                                            build_trainer, ranks_result,
+                                            run_steps, start_ranks,
+                                            wav_batch)
+    dev = _card()
+    spec = dict(kw=dict(KW, **flags), chain=["norm", "fbank:20", "specaug"],
+                adam=dict(lr=1e-3, eps=1e-3), acc_grads=1, device="cuda:0",
+                batches=[wav_batch(0, 3, 3), wav_batch(1, 4, 4)])
+    torch.manual_seed(0)
+    model, trainer = build_trainer(spec, dev)
+    spec["init"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    worker = start_ranks(str(tmp_path), spec)
+    want = run_steps(trainer, model, spec["batches"],
+                     lambda b: dist.pad_rows(b, 2))
+    if flags:
+        tol, loose = 1e-5, {"norm_conv.bias": 1e-4,
+                            "conv_module.pointwise_conv1.bias": 1e-4}
+    else:
+        tol, loose = TOL[torch.float32], None
+    assert_step_equal(ranks_result(str(tmp_path), worker), want, tol, loose)
+
+
+def test_nccl_ranks_on_every_card_equal_one_process(tmp_path):
+    """One NCCL rank per card (up to 4; needs two cards) against the
+    one-process step on the same global batch (B=7, so pad rows land on
+    the last rank; SpecAugment on, the rel kernels), at this file's f32
+    tolerance; every rank bitwise equal to rank 0."""
+    from lasr_tpu_torch.parallel import dist
+    from tests.torch_port_dp_worker import (KW, assert_step_equal,
+                                            build_trainer, ranks_result,
+                                            run_steps, start_ranks,
+                                            wav_batch)
+    dev = _card()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    spec = dict(kw=dict(KW, encoder_use_pallas_attention=True),
+                chain=["norm", "fbank:20", "specaug"],
+                adam=dict(lr=1e-3, eps=1e-3), acc_grads=1, device="cuda",
+                backend="nccl", ranks=n,
+                batches=[wav_batch(0, 7, 7), wav_batch(1, 8, 8)])
+    torch.manual_seed(0)
+    model, trainer = build_trainer(spec, dev)
+    spec["init"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    worker = start_ranks(str(tmp_path), spec)
+    want = run_steps(trainer, model, spec["batches"],
+                     lambda b: dist.pad_rows(b, n))
+    assert_step_equal(ranks_result(str(tmp_path), worker, n), want,
+                      TOL[torch.float32])
+
+
+def test_train_cli_on_every_card_equals_one_card(tmp_path):
+    """``python -m lasr_tpu_torch.bin.train`` with the default
+    ``-num_devices -1`` on a machine with two or more cards (one NCCL rank
+    each) against ``-num_devices 1``, both padding batches to the card
+    count, dropout 0, no SpecAugment, the rel kernels, Adam eps 1e-3 (the
+    leaves whose true gradient is 0 hold rounding noise that the default
+    eps turns into +-lr a step, test_torch_port_trainer.py): 2 epochs
+    with validation; every metrics line within 1e-4 (relative) and the
+    final weights within 1e-4 of their largest magnitude; rank 0 alone
+    wrote."""
+    import json
+    import os
+    import yaml
+    from tests.test_torch_port_cli import (TINY_CONFORMER, write_config,
+                                           write_corpus)
+    from tests.torch_port_dp_worker import Worker
+    _card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    corpus = dict(n8=0, secs=(0.5, 0.9), n_words=(1, 3), word_len=(1, 4))
+    train = write_corpus(str(tmp_path / "train"), n16=9, seed=31, **corpus)
+    valid = write_corpus(str(tmp_path / "dev"), n16=3, seed=32, **corpus)
+    kw = dict(TINY_CONFORMER, encoder_use_pallas_attention=True,
+              encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+              ctc_dropout=0.0)
+    config = write_config(str(tmp_path / "config.yaml"), train, valid, kw,
+                          train_batch=5, valid_batch=3)
+    with open(config) as f:
+        cfg = yaml.safe_load(f)
+    for key in ("train_data_config", "valid_data_config"):
+        cfg[key]["kwargs"]["batch_pad_multiple"] = n
+    cfg["opti_config"]["kwargs"]["eps"] = 1e-3
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    flags = ["-config", config, "-num_epochs", "2", "-ema", "1",
+             "-log_interval", "1", "-num_workers", "1"]
+    runs = {name: Worker(flags + ["-exp_dir", str(tmp_path / name)] + extra,
+                         str(tmp_path), module="lasr_tpu_torch.bin.train",
+                         name=name)
+            for name, extra in (("one", ["-num_devices", "1"]),
+                                ("every", []))}
+    outs = {}
+    for name, w in runs.items():
+        rc, outs[name] = w.wait()
+        assert rc == 0, outs[name][-6000:]
+    assert f"backend nccl, world size {n}" in outs["every"]
+    assert sorted(os.listdir(tmp_path / "every")) == [
+        "checkpoints", "hparams.yaml", "metrics.jsonl"]
+    lines = {}
+    for name in runs:
+        with open(tmp_path / name / "metrics.jsonl") as f:
+            lines[name] = [json.loads(x) for x in f]
+    assert [(x["epoch"], x["step"]) for x in lines["every"]] == \
+        [(x["epoch"], x["step"]) for x in lines["one"]]
+    for a, b in zip(lines["every"], lines["one"]):
+        for k in ("loss_main", "att_loss", "ctc_loss", "grad_norm",
+                  "valid_loss_main", "valid_ctc_cer"):
+            if k in b:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-4,
+                                           atol=1e-6, err_msg=k)
+    last = [sorted((tmp_path / name / "checkpoints" / "last").iterdir())[-1]
+            for name in ("every", "one")]
+    got, want = [torch.load(p, map_location="cpu",
+                            weights_only=False)["state_dict"] for p in last]
+    top = max(float(v.abs().max()) for v in want.values()
+              if v.is_floating_point())
+    for k, v in want.items():
+        if v.is_floating_point():
+            assert float((got[k] - v).abs().max()) <= 1e-4 * top, k

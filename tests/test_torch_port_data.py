@@ -13,7 +13,7 @@ the test: 16 WAVs at 16 kHz and 2 at 8 kHz of 0.5-1.6 s.
   - the header probes, ``read_scp``, the edit-distance split and the WER
     accumulator equal lasr_tpu's;
   - what the port does not do raises: ``wire_dtype="int16"``,
-    ``device_audio_cache``, ``process_count > 1``, non-WAV audio.
+    ``device_audio_cache``, a rank outside its sharding, non-WAV audio.
 """
 
 import numpy as np
@@ -212,8 +212,10 @@ def test_unported_options_raise(corpus, kw, match):
 
 def test_multi_process_sharding_and_other_audio_raise(corpus, tmp_path):
     _, pd = _pair(corpus, **BATCHING["size"])
-    with pytest.raises(NotImplementedError, match="process_count"):
-        next(pd.batches(process_count=2))
+    with pytest.raises(ValueError, match="process_index 2 of 2"):
+        next(pd.batches(process_index=2, process_count=2))
+    with pytest.raises(ValueError, match="local_rank 1 of 1"):
+        next(pd.batches(local_rank=1))
     for name in ("x.flac", "x.mp3"):
         (tmp_path / name).write_bytes(b"\0" * 64)
         with pytest.raises(NotImplementedError, match=name):
