@@ -11,7 +11,8 @@ Phases, always all of them, in this order:
            registers / shared memory per kernel.
   kernels  each kernel in f32 and bf16 against its plain PyTorch version:
            the forward kernels at the served shape (B=8 x 10 s -> BH=64,
-           T=248) and at the training shape, the backward kernels at the
+           T=248), at the training shape and at the long-form window
+           shape (4 windows -> BH=32, T=1791), the backward kernels at the
            training shape (B=32 x 15.6 s -> BH=256, T=388), dk=40, M=320,
            H=8, ragged kv_len >= 1; kernel, plain and library times (CUDA
            events) beside the least time the card could take, on the
@@ -57,6 +58,37 @@ Phases, always all of them, in this order:
            {"fit_b": ...} line: steps, step times (also per second of
            audio, beside train_b's), data_wait_s / dispatch_s per epoch,
            valid losses, the resume's differences, decode RTFs.
+  decoders the decode surface beyond ctc_att, at the recipe's full width
+           (configuration B, seeded weights): (a) served B (B=8 x 10 s,
+           beam 10, ctc_beam 15, ctc_weight 0.5) with RNNLM shallow fusion
+           (a seeded 2 x 1024 LSTM RNNCellStack over odim 5000, lm_rate
+           0.3) and nbest 4: token steps and ms a step with and without
+           the LM, one LM step's ms; the n-best lists sorted with the
+           1-best at their head; row 0 equal to the same search on the
+           CPU (ids exact, scores within 1e-3; a difference passes only as
+           a tie, logged with both scores); (b) a seeded 120 s recording
+           through LongFormCTCAttDecoder (encoder windows of 1,536 + 2 x
+           128 frames, segment_frames 256, 8 segments a search call:
+           random weights never end a hypothesis, so each search call
+           runs max_len steps):
+           its windows (T=1791) launch K3 12 times per window batch and
+           match the plain attention within 1e-3, and in configuration A
+           launch K1 as often and match within 1e-3; the stitched hs has
+           T_enc frames; the decode equals decoder.search run directly on
+           the first call's padded segments; ms per audio minute of the
+           windowed encoder, the search's token steps and ms a step, peak
+           memory against plain ctc_att on the same input (its full
+           forward and first 3 search steps); a 20 s input takes the full
+           forward, bitwise equal to encode; (c) fit_b's checkpoints through
+           ``lasr_tpu_torch.bin.decode`` on the card and on the CPU with
+           ctc_bs (the LM of (a)), ctc_kenlm_lexcoin and wfst (a seeded
+           lexicon, ARPA bigram and TLG over the dev set's words and 40
+           drawn ones) and ctc_att with nbest 2: 4 lines, the WER line and
+           the .nbest file, card equal to CPU (the tie rule of (a) on
+           n-best lists), ASRProcess equal to row 0.  fit_b keeps its
+           directory for (c); this phase removes it.  Prints a
+           {"decoders": ...} line; the kernel list gains
+           ``launches_decoders`` (K3 and K1 in (b)).
   stream   the streaming family at full width (tools/bench_streaming.py's
            E2E_Transformer_CTC_Online: d=320, 8 heads, 2048 units, 12
            blocks, chunks 64/64/64, decoder 6 x 320/8/8/2048, odim 5002,
@@ -166,9 +198,11 @@ It needs one CUDA device and fails without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -188,6 +222,11 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # training shape: 32 utterances x 15.6 s -> 388 encoder frames
 SERVED = dict(B=8, H=8, T=248, dk=40, M=320)
 TRAINING = dict(B=32, H=8, T=388, dk=40, M=320)
+# long-form shape: a batch of 4 encoder windows of 1,536 + 2 x 128 frames
+# (the decoders phase's 120 s recording)
+LONGFORM = dict(B=4, H=8, T=1791, dk=40, M=320)
+SHAPE_NAMES = {id(SERVED): "served", id(TRAINING): "training",
+               id(LONGFORM): "longform"}
 
 
 def log(msg: str) -> None:
@@ -466,7 +505,7 @@ def _kernel_specs():
     return [
         ("rot_attention_fwd", rot_attention_forward, rot_attention_reference,
          _rot_inputs, _rot_cost, _rot_library, src + "rot_attention.cu",
-         rot + ":85", (SERVED, TRAINING), "wmma-tf32x3"),
+         rot + ":85", (SERVED, TRAINING, LONGFORM), "wmma-tf32x3"),
         ("rot_attention_bwd", rot_attention_backward,
          rot_attention_backward_reference,
          _with_grad_inputs(_rot_inputs, rot_attention_forward),
@@ -474,7 +513,8 @@ def _kernel_specs():
          rot + ":216", (TRAINING,), "wmma-tf32x3"),
         ("rel_attention_fwd", rel_attention_forward, rel_attention_reference,
          _rel_inputs, _rel_cost, None, src + "rel_attention.cu",
-         rel + ":124", (SERVED, TRAINING), "wmma-tf32x3-warp-rows"),
+         rel + ":124", (SERVED, TRAINING, LONGFORM),
+         "wmma-tf32x3-warp-rows"),
         ("rel_attention_bwd", rel_attention_backward,
          rel_attention_backward_reference,
          _with_grad_inputs(_rel_inputs, rel_attention_forward),
@@ -492,7 +532,7 @@ def phase_kernels(state):
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": tpu, "status": "ported", "design": design}
         for shape in shapes:
-            where = "served" if shape is SERVED else "training"
+            where = SHAPE_NAMES[id(shape)]
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[-1]
                 args = make(rng, dtype, dev, shape)
@@ -563,9 +603,9 @@ DECODE = dict(decode_method="ctc_att", beam=10, ctc_beam=15, ctc_weight=0.5,
 SECS, BATCH, SR = 10.0, 8, 16000
 
 
-def _write_recipe(tmp, flags, seed):
-    """Seeded random weights as a reference-format .pt, and the configs of
-    ``_write_recipe_configs``."""
+def _seeded_recipe(seed):
+    """The recipe model's seeded random weights (BatchNorm statistics
+    drawn too), as a state_dict on the CPU."""
     import torch
     from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
     torch.manual_seed(seed)
@@ -576,7 +616,14 @@ def _write_recipe(tmp, flags, seed):
             buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
         elif name.endswith("running_var"):
             buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
-    torch.save(model.state_dict(), os.path.join(tmp, "model.pt"))
+    return model.state_dict()
+
+
+def _write_recipe(tmp, flags, seed):
+    """Seeded random weights as a reference-format .pt, and the configs of
+    ``_write_recipe_configs``."""
+    import torch
+    torch.save(_seeded_recipe(seed), os.path.join(tmp, "model.pt"))
     _write_recipe_configs(tmp, flags, DECODE["decode_method"])
 
 
@@ -1162,7 +1209,7 @@ def _fit_b(state, label, seed, blocks, process_groups):
                                               checkpoint_steps,
                                               load_model_weights,
                                               load_reference_checkpoint)
-    with tempfile.TemporaryDirectory() as tmp:
+    with _kept_dir(state, "fit_b_dir") as tmp:
         t0 = time.perf_counter()
         train_dir, dev_dir, dict_path = _fit_corpus(tmp, seed + 3)
         cfg, config, decode_cfg = _fit_configs(tmp, train_dir, dev_dir,
@@ -1368,6 +1415,435 @@ def _fit_b(state, label, seed, blocks, process_groups):
         print(json.dumps({"fit_b": summary}), flush=True)
         state["fit_launches"] = summary["launches"]
         state["timings"][label] = dict(run_a_s=wall_a, **summary)
+        # what the decoders phase decodes
+        state["fit_b_run"] = dict(hparams=hparams, ckpts=ckpts,
+                                  dev_dir=dev_dir, dict_path=dict_path,
+                                  ctc_att=outputs["ctc_att"])
+
+
+@contextlib.contextmanager
+def _kept_dir(state, key):
+    """A temporary directory that outlives its block when the block
+    succeeds (its path in ``state[key]``): the decoders phase decodes
+    fit_b's checkpoints and removes it, and ``main`` removes what is
+    left."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        yield tmp
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    state[key] = tmp
+
+
+# the decoders phase: served B with an RNNLM, long-form decoding, and the
+# other decode methods through the CLI and ASRProcess.  No config in the
+# repo gives an LM's width: a 2 x 1024 LSTM over the recipe's vocabulary.
+DEC_LM = dict(input_dim=RECIPE["odim"], output_dim=RECIPE["odim"],
+              n_layers=2, n_units=1024, typ="lstm")
+LM_RATE = 0.3
+DEC_NBEST = 4
+LONG_SECS, SHORT_SECS = 120.0, 20.0
+# encoder windows of 1,536 + 2 x 128 frames (T=1791, as segment_frames 768
+# makes them by default); the search's segments are 256 frames, 8 to a
+# call: random weights never end a hypothesis, so each search call runs
+# max_len token steps (at 768 and 4 to a call: 1,480 steps, 220 s on an
+# H100 80GB HBM3 at 700 W)
+SEGMENT, WINDOW, HALO, SEGMENT_BATCH = 256, 1536, 128, 8
+SCORE_TOL = 1e-3
+
+
+def _same_hyps(label, got, want, rows):
+    """The card's n-best lists against the CPU's, row by row: ids exact,
+    scores within SCORE_TOL.  A row whose lists differ passes only as a
+    tie: each side's best hypothesis is in the other's list with scores
+    within SCORE_TOL of each other (logged with both scores)."""
+    for b in rows:
+        g, w = got[b], want[b]
+        if [i for i, _ in g] == [i for i, _ in w]:
+            err = max((abs(x - y) for (_, x), (_, y) in zip(g, w)),
+                      default=0.0)
+            check(err <= SCORE_TOL, f"{label}: row {b} scores differ by "
+                  f"{err}")
+            continue
+        gd, wd = dict((tuple(i), s) for i, s in g), \
+            dict((tuple(i), s) for i, s in w)
+        a, c = tuple(g[0][0]), tuple(w[0][0])
+        tie = a in wd and c in gd and abs(gd[a] - wd[a]) <= SCORE_TOL \
+            and abs(gd[c] - wd[c]) <= SCORE_TOL \
+            and abs(gd[a] - gd[c]) <= SCORE_TOL
+        log(f"{label}: row {b} n-best lists differ; card best {gd[a]:.4f} "
+            f"(CPU {wd.get(a, float('nan')):.4f}), CPU best {wd[c]:.4f} "
+            f"(card {gd.get(c, float('nan')):.4f}): "
+            f"{'a tie' if tie else 'NOT a tie'}")
+        check(tie, f"{label}: row {b} decodes differently on the card")
+
+
+class _Stop(Exception):
+    pass
+
+
+def _stop_after(model, name, steps):
+    """Make ``model.name`` raise ``_Stop`` after ``steps`` calls (an
+    instance attribute; ``del model.name`` restores it)."""
+    fn, calls = getattr(model, name), [0]
+
+    def wrapped(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] > steps:
+            raise _Stop
+        return fn(*args, **kwargs)
+    setattr(model, name, wrapped)
+
+
+def _decoders_lm(state, tmp, model, sd):
+    """(a) served B, B=8 x 10 s, with and without the LM; the LM-fused
+    n-best list of row 0 against the same search on the CPU."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.modules.rnn import RNNLM, RNNCellStack
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    seed, label = state["seed"], "decoders (a)"
+    torch.manual_seed(seed + 7)
+    lm_cpu = RNNCellStack(**DEC_LM, device="cpu")
+    torch.save(lm_cpu.state_dict(), os.path.join(tmp, "lm.pt"))
+    lm = RNNCellStack(**DEC_LM)
+    lm.load_state_dict(lm_cpu.state_dict())
+    wav = torch.from_numpy(make_waves(seed + 1, BATCH)).cuda()
+    wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
+                         device=wav.device)
+    feats, feat_len = DeviceFrontend(["norm", "fbank:80"])(wav, wav_len)
+    kw = dict(beam=10, ctc_beam=15, ctc_weight=0.5, nbest=DEC_NBEST)
+    fused = CTCAttBeamDecoder(model, lm=RNNLM(lm), lm_weight=LM_RATE, **kw)
+    hs, hs_len, lpz = fused.encode(feats, feat_len)
+    hyps, t_lm, steps_lm = _search_timed(fused, model, "decoder_step", hs,
+                                         hs_len, lpz)
+    plain = CTCAttBeamDecoder(model, **kw)
+    hyps0, t0, steps0 = _search_timed(plain, model, "decoder_step", hs,
+                                      hs_len, lpz)
+    tok = torch.randint(0, RECIPE["odim"], (BATCH * kw["beam"],),
+                        device=wav.device)
+    lm_state = lm.zero_state(BATCH * kw["beam"])
+    with torch.no_grad():
+        lm_step_ms = time_ms(lambda: lm(lm_state, tok), iters=20)
+    ms_lm, ms0 = t_lm * 1e3 / steps_lm, t0 * 1e3 / steps0
+    log(f"{label}: B={BATCH} x {SECS:g} s (T={hs.shape[1]}), beam 10: with "
+        f"the LM ({DEC_LM['n_layers']} x {DEC_LM['n_units']} LSTM, rate "
+        f"{LM_RATE}) {steps_lm} token steps in {t_lm:.2f} s, {ms_lm:.2f} "
+        f"ms a step; without {steps0} steps in {t0:.2f} s, {ms0:.2f} ms a "
+        f"step; one LM step on {BATCH * kw['beam']} rows {lm_step_ms:.3f} "
+        f"ms ({100 * lm_step_ms / ms_lm:.1f}% of a fused step) "
+        f"[{state['card']}]")
+    nb = [hyps.nbest_ids(b) for b in range(BATCH)]
+    for b, lst in enumerate(nb):
+        scores = [s for _, s in lst]
+        check(1 <= len(lst) <= DEC_NBEST and scores == sorted(
+            scores, reverse=True) and lst[0][0] == hyps.best_ids(b)
+            and all(0 <= t < RECIPE["odim"] for i, _ in lst for t in i),
+            f"{label}: row {b}'s n-best list is not sorted or its head "
+            f"is not the 1-best")
+    # the same search on the CPU, on the card's features of row 0 (the
+    # search treats rows alone)
+    cpu_model = E2E_Conformer_CTC(**RECIPE, encoder_use_pallas_attention=True,
+                                  device="cpu")
+    load_model_weights(cpu_model, sd)
+    t = time.perf_counter()
+    cpu = CTCAttBeamDecoder(cpu_model, lm=RNNLM(lm_cpu), lm_weight=LM_RATE,
+                            device="cpu", **kw)(feats[:1].cpu(),
+                                                feat_len[:1].cpu())
+    log(f"{label}: the CPU's search of row 0 took "
+        f"{time.perf_counter() - t:.1f} s")
+    _same_hyps(label, nb, [cpu.nbest_ids(0)], range(1))
+    log(f"{label}: row 0 equals the CPU's n-best list (ids exact, scores "
+        f"within {SCORE_TOL:g}); n-best lists of {DEC_NBEST} sorted with "
+        f"the 1-best at their head")
+    return dict(ms_per_step_lm=ms_lm, ms_per_step=ms0, steps_lm=steps_lm,
+                steps=steps0, lm_step_ms=lm_step_ms,
+                lm_share=lm_step_ms / ms_lm)
+
+
+def _decoders_longform(state, model, sd):
+    """(b) a 120 s recording through LongFormCTCAttDecoder in
+    configuration B (K3), its windows in configuration A (K1) and on the
+    plain path, and a 20 s one that takes the full forward."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    from lasr_tpu_torch.decode.longform import LongFormCTCAttDecoder, _enc_len
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    seed, label, blocks = state["seed"], "decoders (b)", \
+        RECIPE["encoder_num_blocks"]
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+
+    def features(secs, s):
+        wav = torch.from_numpy(make_waves(s, 1, secs=secs)).cuda()
+        return frontend(wav, torch.tensor([wav.shape[1]], dtype=torch.int32,
+                                          device=wav.device))
+
+    def longform(m):
+        return LongFormCTCAttDecoder(
+            CTCAttBeamDecoder(m, beam=10, ctc_beam=15, ctc_weight=0.5),
+            segment_frames=SEGMENT, segment_batch=SEGMENT_BATCH,
+            encoder_window_frames=WINDOW, encoder_halo_frames=HALO)
+
+    feats, feat_len = features(LONG_SECS, seed + 5)
+    T_in = int(feat_len[0])
+    T_enc = _enc_len(T_in)
+    lf = longform(model)
+    n_windows = len(range(0, T_in, lf.encoder_window_frames * 4))
+    groups = -(-n_windows // lf.encoder_window_batch)
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    hs, T, lpz = lf.encode(feats, feat_len)
+    torch.cuda.synchronize()
+    k3 = counters["rel_attention_fwd"].launches
+    t = time.perf_counter()
+    lf.encode(feats, feat_len)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t
+    check(k3 == blocks * groups and hs.shape[0] == T == T_enc,
+          f"{label}: K3 launched {k3} times for {groups} window group(s), "
+          f"stitched {hs.shape[0]} frames of {T_enc}")
+    plain = E2E_Conformer_CTC(**RECIPE)
+    load_model_weights(plain, sd)
+    with torch.no_grad():
+        hs_p, _, lpz_p = longform(plain).encode_windowed(feats, feat_len)
+    err = float((hs - hs_p).abs().max())
+    win_T = int(_enc_len(lf.encoder_window_frames * 4
+                         + 2 * lf.encoder_halo_frames * 4 + 2))
+    log(f"{label}: {LONG_SECS:g} s, T_in {T_in}, T_enc {T_enc}: {n_windows} "
+        f"windows of T={win_T} in {groups} batch(es) of "
+        f"{lf.encoder_window_batch} (B*H={lf.encoder_window_batch * 8}), K3 "
+        f"{k3} launches; windowed encode {enc_s * 1e3:.1f} ms, "
+        f"{enc_s * 1e3 / (LONG_SECS / 60):.1f} ms per audio minute; K3 path "
+        f"vs plain attention max_abs {err:.3e} (tol 1e-3) [{state['card']}]")
+    check(err <= 1e-3, f"{label}: the windowed encoder through K3 is off "
+          f"the plain path by {err}")
+    del plain
+    # K1: the same windows in configuration A
+    model_a = E2E_Conformer_CTC(**RECIPE, encoder_rot_fold_pallas=True)
+    load_model_weights(model_a, sd)
+    counters = _kernel_counters()
+    with torch.no_grad():
+        hs_a, _, _ = longform(model_a).encode_windowed(feats, feat_len)
+    torch.cuda.synchronize()
+    k1 = counters["rot_attention_fwd"].launches
+    err_a = float((hs_a - hs_p).abs().max())
+    log(f"{label}: configuration A, the same windows: K1 {k1} launches, vs "
+        f"plain attention max_abs {err_a:.3e} (tol 1e-3)")
+    check(k1 == blocks * groups and err_a <= 1e-3,
+          f"{label}: K1 launched {k1} times, off the plain path by {err_a}")
+    del model_a, hs_a, hs_p, lpz_p
+    state["decoders_launches"] = {"rel_attention_fwd": k3,
+                                  "rot_attention_fwd": k1}
+
+    # the decode, its peak memory, and the search on the first call's
+    # padded segments run directly
+    steps = [0]
+    _counted(model, "decoder_step", steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tokens, per_seg = lf(feats, feat_len)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    delattr(model, "decoder_step")
+    peak_lf = torch.cuda.max_memory_allocated() / 1e9
+    segs = lf.segments(lpz, T)
+    group = segs[: lf.segment_batch]
+    hyp = lf.dec.search(*lf.padded_segments(hs, lpz, group),
+                        max_len=SEGMENT)
+    direct = [hyp.best_ids(i) for i in range(len(group))]
+    search_ms = (dec_s - enc_s) * 1e3 / max(steps[0], 1)
+    same = direct == per_seg[: len(group)]
+    log(f"{label}: {len(segs)} segments {[b - a for a, b in segs]} in "
+        f"{-(-len(segs) // lf.segment_batch)} search call(s) of B="
+        f"{lf.segment_batch}, max_len {SEGMENT}: {steps[0]} token steps, "
+        f"decode {dec_s:.2f} s ({search_ms:.2f} ms a step after the "
+        f"encode), {len(tokens)} tokens; the first call's segments "
+        f"searched directly give the same tokens: {same}")
+    check(same and tokens == [t for s in per_seg for t in s]
+          and len(per_seg) == len(segs),
+          f"{label}: the long-form decode differs from the search run "
+          f"directly on its segments")
+    # plain ctc_att on the same input: its full forward and the search's
+    # state at max_len = T (three token steps: the state is allocated
+    # before the first)
+    dec = CTCAttBeamDecoder(model, beam=10, ctc_beam=15, ctc_weight=0.5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _stop_after(model, "decoder_step", 3)
+    try:
+        dec(feats, feat_len)
+    except _Stop:
+        pass
+    delattr(model, "decoder_step")
+    torch.cuda.synchronize()
+    peak_full = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{label}: peak memory, long-form decode {peak_lf:.2f} GB against "
+        f"plain ctc_att (full forward + the search's first 3 steps) "
+        f"{peak_full:.2f} GB [{state['card']}]")
+    # a 20 s input takes the full forward
+    feats20, len20 = features(SHORT_SECS, seed + 6)
+    hs20, T20, lpz20 = lf.encode(feats20, len20)
+    hs_f, len_f, lpz_f = lf.dec.encode(feats20, len20)
+    same = torch.equal(hs20, hs_f[0]) and torch.equal(lpz20, lpz_f[0]) \
+        and T20 == int(len_f[0])
+    log(f"{label}: {SHORT_SECS:g} s (T_in {int(len20[0])}, one window): the "
+        f"full forward, hs and lpz bitwise equal to encode's: {same}")
+    check(same, f"{label}: the short input's long-form encode differs from "
+          f"the plain encode")
+    return dict(T_in=T_in, T_enc=T_enc, windows=n_windows, window_T=win_T,
+                k3_launches=k3, k1_launches=k1, kernel_vs_plain=err,
+                k1_vs_plain=err_a, encode_ms=enc_s * 1e3,
+                encode_ms_per_audio_min=enc_s * 1e3 / (LONG_SECS / 60),
+                segments=len(segs), token_steps=steps[0],
+                search_ms_per_step=search_ms, decode_s=dec_s,
+                peak_gb_longform=peak_lf, peak_gb_ctc_att=peak_full)
+
+
+def _decoders_cli(state, tmp):
+    """(c) fit_b's checkpoints through the decode CLI on the card and on
+    the CPU, and ASRProcess on the card: ctc_bs with the LM,
+    ctc_kenlm_lexcoin, wfst, ctc_att with nbest 2."""
+    import io
+    import torch
+    import yaml
+    from lasr_tpu_torch.bin import decode
+    from lasr_tpu_torch.data.reader import read_scp
+    from lasr_tpu_torch.data.tokenizer import CharTokenizer
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from tests.torch_port_decoders import write_word_resources
+    run, label = state["fit_b_run"], "decoders (c)"
+    dev = run["dev_dir"]
+    tok = CharTokenizer(run["dict_path"])
+    with open(os.path.join(dev, "text")) as f:
+        words = sorted({w for line in f for w in line.split()[1:]})
+    rng = np.random.default_rng(state["seed"] + 9)
+    words = sorted(set(words) | {"".join(rng.choice(list(LETTERS), n))
+                                 for n in rng.integers(1, 6, 40)})
+    kenlm, wfst = write_word_resources(
+        os.path.join(tmp, "words"), {c: tok.char_list.index(c)
+                                     for c in LETTERS},
+        words, space_id=tok.char_list.index(" "), seed=state["seed"])
+    lm = {"lm_rate": LM_RATE, "lm_path": os.path.join(tmp, "lm.pt"),
+          "lm_config": {"name": "lasr_tpu.modules.rnn:RNNCellStack",
+                        "kwargs": DEC_LM}}
+    methods = {"ctc_bs": dict(lm, decode_method="ctc_bs"),
+               "ctc_kenlm_lexcoin": dict(kenlm,
+                                         decode_method="ctc_kenlm_lexcoin"),
+               "wfst": dict(wfst, decode_method="wfst"),
+               "ctc_att_nbest2": dict(decode_method="ctc_att", nbest=2)}
+    uid, wav0 = read_scp(os.path.join(dev, "wav.scp"))[0]
+    out = {}
+    for name, keys in methods.items():
+        cfg = os.path.join(tmp, f"decode_{name}.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump({
+                "decode_config": dict(DECODE, **keys),
+                "test_data_config": {
+                    "name": "lasr_tpu.data.dataset:AudioDataSet",
+                    "kwargs": {"wav_list": [os.path.join(dev, "wav.scp")],
+                               "text_list": [os.path.join(dev, "text")],
+                               "audio_trans": ["norm", "fbank:80"]}}}, f)
+        res = {}
+        for device in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{name}_{device}.txt")
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = decode.main(["-train_config", run["hparams"],
+                                  "-decode_config", cfg, "-model_path",
+                                  run["ckpts"], "-choose", "last", "-avg",
+                                  "2", "-output_file", path, "-device",
+                                  device])
+            wall = time.perf_counter() - t
+            check(rc == 0, f"{label}: decode CLI {name} on {device} exited "
+                  f"{rc}")
+            lines = buf.getvalue().strip().splitlines()
+            with open(path) as f:
+                hyps = f.read().splitlines()
+            nbest = []
+            if os.path.exists(path + ".nbest"):
+                with open(path + ".nbest") as f:
+                    for line in f:
+                        key, sc, text = line.rstrip("\n").split(" ", 2)
+                        nbest.append((key, float(sc), text))
+            res[device] = dict(hyps=hyps, wer=[x for x in lines
+                                               if x.startswith("Totol")],
+                               nbest=nbest, wall=wall,
+                               rtf=json.loads(lines[-1])["rtf"])
+        card, cpu = res["cuda"], res["cpu"]
+        check(len(card["hyps"]) == FIT_DEV and len(card["wer"]) == 1,
+              f"{label}: {name} wrote {len(card['hyps'])} lines")
+        check((len(card["nbest"]) == 2 * FIT_DEV) == (name.endswith(
+            "nbest2")), f"{label}: {name}'s .nbest file has "
+            f"{len(card['nbest'])} lines")
+        if card["hyps"] != cpu["hyps"] or card["wer"] != cpu["wer"]:
+            # the tie rule of (a), on the n-best file where there is one
+            check(bool(card["nbest"]), f"{label}: {name} decodes "
+                  f"differently on the card and the CPU")
+        if card["nbest"]:
+            def lists(rows):
+                by = {}
+                for key, sc, text in rows:
+                    by.setdefault(key.rsplit("-", 1)[0], []).append(
+                        (text, sc))
+                return [by[k] for k in sorted(by)]
+            _same_hyps(f"{label} {name}", lists(card["nbest"]),
+                       lists(cpu["nbest"]), range(FIT_DEV))
+        asr = ASRProcess(run["hparams"], cfg, run["ckpts"], choose="last",
+                         avg=2)
+        _, text0 = asr(wav0)
+        row0 = card["hyps"][0].rsplit(" (", 1)
+        check(row0[1] == uid + ")" and text0 == row0[0],
+              f"{label}: {name}: ASRProcess gives {text0!r}, the CLI's row "
+              f"0 {row0[0]!r}")
+        del asr
+        log(f"{label}: {name}: {FIT_DEV} hypotheses {card['hyps']}, "
+            f"{card['wer'][0]}, card == CPU {card['hyps'] == cpu['hyps']}, "
+            f"ASRProcess == row 0; decode CLI {card['wall']:.1f} s on the "
+            f"card (RTF {card['rtf']}), {cpu['wall']:.1f} s on the CPU "
+            f"[{state['card']}]")
+        out[name] = dict(card_s=card["wall"], cpu_s=cpu["wall"],
+                         rtf=card["rtf"], same=card["hyps"] == cpu["hyps"])
+    return out
+
+
+def phase_decoders(state):
+    """(a) LM shallow fusion and n-best on served B, (b) long-form
+    decoding, (c) ctc_bs, ctc_kenlm_lexcoin, wfst and ctc_att's n-best
+    through the decode CLI and ASRProcess on fit_b's checkpoints."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    torch.cuda.empty_cache()
+    sd = _seeded_recipe(state["seed"])
+    model = E2E_Conformer_CTC(**RECIPE, encoder_use_pallas_attention=True)
+    load_model_weights(model, sd)
+    summary = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            summary["lm"] = _decoders_lm(state, tmp, model, sd)
+            summary["lm"]["phase_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            summary["longform"] = _decoders_longform(state, model, sd)
+            summary["longform"]["phase_s"] = time.perf_counter() - t
+            del model
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            summary["cli"] = _decoders_cli(state, tmp)
+            summary["cli"]["phase_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(state.pop("fit_b_dir", ""), ignore_errors=True)
+    summary["card"] = state["card"]
+    print(json.dumps({"decoders": summary}), flush=True)
+    state["timings"]["decoders"] = summary
 
 
 # the stream phase: tools/bench_streaming.py's online model at full width
@@ -2618,13 +3094,14 @@ def main(argv=None) -> int:
     state = {"seed": args.seed, "kernels": {}, "launches": {},
              "train_launches": {}, "fit_launches": {},
              "stream_launches": {}, "bf16_launches": {},
-             "family_launches": {}, "dp_launches": {}, "timings": {},
+             "family_launches": {}, "dp_launches": {},
+             "decoders_launches": {}, "timings": {},
              "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
               ("slice_b", phase_slice_b), ("train_a", phase_train_a),
               ("train_b", phase_train_b), ("fit_b", phase_fit_b),
-              ("stream", phase_stream), ("bf16", phase_bf16),
+              ("decoders", phase_decoders), ("stream", phase_stream), ("bf16", phase_bf16),
               ("train_tf", phase_train_tf),
               ("train_stream", phase_train_stream),
               ("fit_toy", phase_fit_toy), ("dp", phase_dp)]
@@ -2637,6 +3114,9 @@ def main(argv=None) -> int:
         except Failed as e:
             print(f"chip_smoke: phase {name} FAILED: {e}", file=sys.stderr)
             return 1
+        finally:
+            if name != "fit_b":
+                shutil.rmtree(state.pop("fit_b_dir", ""), ignore_errors=True)
         log(f"== phase {name} done in {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
@@ -2657,6 +3137,8 @@ def main(argv=None) -> int:
             entry[f"launches_{phase}"] = counts.get(name, 0)
         if name in state["dp_launches"]:
             entry["launches_dp"] = state["dp_launches"][name]
+        if name in state["decoders_launches"]:
+            entry["launches_decoders"] = state["decoders_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

@@ -17,14 +17,18 @@ Layer map (same as lasr_tpu):
              (CUDA + plain torch, forward and backward)
   modules/   nn.Modules (attention incl. monotonic, embeddings, conformer,
              Transformer encoder/decoder, the streaming chunk encoder and
-             decoder, generator-driven dropout, ...)
+             decoder, the LSTM stack and RNN LM, generator-driven
+             dropout, ...)
   models/    dict-in/dict-out joint CTC/attention models (Conformer,
              Transformer, streaming), losses
   data/      WAV reader, tokenizers, the frontend chain, pack_s2s
   train/     Adam/Noam (optax's update written out), EMA, the Trainer step
   parallel/  data parallelism over one process per GPU (torch.distributed)
   decode/    greedy CTC, the joint CTC/attention beam search (offline and
-             online), the chunk-incremental StreamingRecognizer
+             online, RNNLM fusion, n-best), long-form decoding, the host
+             searches (ctc_bs, the lexicon + ARPA decoder, WFST), the
+             decode-method dispatch, the chunk-incremental
+             StreamingRecognizer
   process/   one-call ASRProcess user API
 """
 

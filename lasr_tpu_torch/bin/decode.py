@@ -9,17 +9,23 @@ the ``-avg`` newest (``-choose last``) or best (``-choose best``)
 checkpoints of a checkpoints root (EMA shadow preferred; a single
 ``.ckpt``/``.pt`` file or a directory of reference ``.ckpt`` files works
 too), reads the test set with ``AudioDataSet`` and decodes it in batches
-of ``-batch`` utterances with ``ctc_att`` (joint CTC/attention beam
-search), ``ctc_att_online`` (its streaming form, for
-``E2E_Transformer_CTC_Online``) or ``ctc_greedy``.  Prints ``id/ref/hyp/dis`` per utterance, the
-total WER (as ``Totol WER is …``, the JAX CLI's spelling), the alignment
-summary and an RTF line of JSON; writes ``<hyp> (<id>)`` lines to
-``-output_file``.  Other decode methods, LM fusion, long-form decoding
-and n-best output raise ``NotImplementedError`` (ROADMAP A8).  ``-device``
-(default ``cuda``) picks the device.
+of ``-batch`` utterances with the decode config's ``decode_method``,
+the JAX CLI's set (``decode.dispatch``): ``ctc_att`` (joint
+CTC/attention beam search, with RNNLM shallow fusion, ``nbest`` and
+long-form decoding), ``ctc_att_online`` (its streaming form, for
+``E2E_Transformer_CTC_Online``), ``ctc_greedy``, ``ctc_bs``,
+``ctc_kenlm`` / ``ctc_kenlm_lexcoin`` and ``wfst``.  Prints
+``id/ref/hyp/dis`` per utterance, the total WER (as ``Totol WER is …``,
+the JAX CLI's spelling), the alignment summary and an RTF line of JSON;
+writes ``<hyp> (<id>)`` lines to ``-output_file`` and, with ``nbest`` >
+1, ``{id}-{rank} {score:.4f} {text}`` lines to ``-output_file.nbest``.
+The LM checkpoint (``lm_path``) is a ``.pt``/``.ckpt`` state_dict, not
+``lasr_tpu``'s orbax directory (``decode.lm``).  ``-device`` (default
+``cuda``) picks the device.
 """
 
 import argparse
+import contextlib
 import json
 import logging
 import sys
@@ -53,8 +59,7 @@ def main(argv=None):
 
     from lasr_tpu_torch import resolve_device
     from lasr_tpu_torch.data.frontend import DeviceFrontend
-    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
-    from lasr_tpu_torch.decode.greedy import ctc_greedy_decode
+    from lasr_tpu_torch.decode.dispatch import DecodeMethod
     from lasr_tpu_torch.utils.registry import BaseConfig
     from lasr_tpu_torch.utils.text import ErrorRateAccumulator
     from lasr_tpu_torch.utils.weights import (load_model_weights,
@@ -65,21 +70,6 @@ def main(argv=None):
         train_config = yaml.safe_load(f)
     with open(args.decode_config) as f:
         decode_config = yaml.safe_load(f)
-    cfg = decode_config["decode_config"]
-    method = cfg.get("decode_method", "ctc_att")
-    if method not in ("ctc_att", "ctc_att_online", "ctc_greedy"):
-        raise NotImplementedError(
-            f"decode_method {method!r} is not ported (ROADMAP A8); ctc_att, "
-            f"ctc_att_online and ctc_greedy are")
-    if float(cfg.get("lm_rate") or 0.0) > 0.0 and cfg.get("lm_path"):
-        raise NotImplementedError("LM shallow fusion is not ported "
-                                  "(ROADMAP A8)")
-    if int(cfg.get("longform_segment_frames", 0)) > 0:
-        raise NotImplementedError("long-form decoding is not ported "
-                                  "(ROADMAP A8)")
-    if int(cfg.get("nbest", 1)) > 1:
-        raise NotImplementedError("n-best output is not ported (ROADMAP A8)")
-
     tokenizer = BaseConfig(**train_config["tokenizer_config"]
                            ).generateExample()
     test_dataset = BaseConfig(**decode_config["test_data_config"]
@@ -92,13 +82,8 @@ def main(argv=None):
         args.model_path, args.choose, args.avg))
     frontend = DeviceFrontend([t for t in test_dataset.audio_trans
                                if not t.startswith("specaug")])
-    decoder = None
-    if method in ("ctc_att", "ctc_att_online"):
-        decoder = CTCAttBeamDecoder(
-            model, sos=tokenizer.ID_VALUE_SOS, eos=tokenizer.ID_VALUE_EOS,
-            beam=cfg["beam"], ctc_beam=cfg["ctc_beam"],
-            ctc_weight=cfg["ctc_weight"],
-            online=method == "ctc_att_online", device=device)
+    decoder = DecodeMethod(model, tokenizer, decode_config["decode_config"],
+                           device)
 
     acc = ErrorRateAccumulator()
     # per-batch timing; the first batch of each padded shape is left out
@@ -109,7 +94,9 @@ def main(argv=None):
     n_batches = 0
     items = list(test_dataset.train_set)
     with open(args.output_file, "w", encoding="utf-8") as out, \
-            torch.no_grad():
+            (open(args.output_file + ".nbest", "w", encoding="utf-8")
+             if decoder.nbest > 1 else contextlib.nullcontext()) \
+            as nbest_out, torch.no_grad():
         for lo in range(0, len(items), args.batch):
             chunk = items[lo: lo + args.batch]
             batch = test_dataset.merge_batch(chunk)
@@ -117,13 +104,7 @@ def main(argv=None):
             feats, feat_len = frontend(
                 torch.from_numpy(batch["wav_array"]).to(device),
                 torch.from_numpy(batch["wav_len"]).to(device))
-            if decoder is not None:
-                hyps = decoder(feats, feat_len)
-                hyp_ids = [hyps.best_ids(b) for b in range(len(chunk))]
-            else:
-                hs, hs_len = model.encode(feats, feat_len, solo_pad=True)
-                hyp_ids = ctc_greedy_decode(model.ctc_logits(hs),
-                                            hs_len)[: len(chunk)]
+            hyps = decoder(feats, feat_len, len(chunk))
             dt = time.perf_counter() - t_batch
             secs = float(np.sum(batch["wav_len"])) / 16000.0
             t_total += dt
@@ -138,10 +119,17 @@ def main(argv=None):
             for b, item in enumerate(chunk):
                 _, ref_id = tokenizer.encode(item["text"])
                 _, ref = tokenizer.decode(ref_id, no_special=True)
-                _, hyp = tokenizer.decode(hyp_ids[b], no_special=True)
+                hyp = hyps[b].text   # a wfst graph emits the word text
+                if hyp is None:
+                    _, hyp = tokenizer.decode(hyps[b].ids, no_special=True)
                 dist = acc.add(ref, hyp)
                 print(f"id {item['id']}\nref: {ref}\nhyp: {hyp}\ndis: {dist}")
                 out.write(f"{hyp} ({item['id']})\n")
+                if nbest_out is not None:
+                    for rank, (ids, sc) in enumerate(hyps[b].nbest):
+                        _, text = tokenizer.decode(ids, no_special=True)
+                        nbest_out.write(
+                            f"{item['id']}-{rank + 1} {sc:.4f} {text}\n")
     print(f"Totol WER is {acc.rate}")
     print(acc.report())
     print(json.dumps({

@@ -25,16 +25,24 @@ online end detection, and a final rescore of ended hypotheses whose
 frontier stopped short of the utterance (``w·ctc_full + att``, the length
 bonus dropped).
 
+Shallow RNNLM fusion (``lm``, ``lm_weight``): one LM step over the B·K
+hypotheses' last tokens each token step, its log-softmax (f32) at each
+candidate added as ``lm_weight·lm`` to the attention part of the joint
+score; the candidate prescreen stays attention-only, and the LM state is
+reordered by parent with the KV cache.  ``nbest`` hypotheses come back
+from the ended pool, best first.
+
 The CTC prefix recursion is the sequential form (the JAX package's
-default).  The step index is a host integer here, so the frames before
-the prefix length, which the JAX scan masks, are simply not visited.
+default; its ``parallel_scan`` option is not ported).  The step index is
+a host integer here, so the frames before the prefix length, which the
+JAX scan masks, are simply not visited.
 
 Ties: every top-k is a stable descending sort, so among equal scores the
 lower index wins — the rule of ``lax.top_k``.  Entries at ``LOG_ZERO`` tie
 often, and the order decides which hypotheses fill the pools.
 
-Not ported yet: shallow LM fusion (raises), and the incremental
-(mid-stream, resumable) online search of ``IncrementalBeamSession``.
+Not ported yet: the incremental (mid-stream, resumable) online search
+of ``IncrementalBeamSession``.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 
 from lasr_tpu_torch import resolve_device
+from lasr_tpu_torch.modules.rnn import select_state
 
 LOG_ZERO = -1e10
 D_END = -10.0
@@ -150,8 +159,10 @@ class CTCAttBeamDecoder:
     Constructor parameters mirror the JAX ``CTCAttBeamDecoder`` (which
     mirrors the reference ``CTC_ATT_Decoder``); the model carries its own
     weights.  ``online=True`` needs a streaming model (``encode_online``,
-    ``decoder_step_ep``).  ``device=None`` means CUDA (raises without a
-    GPU); the model is moved there."""
+    ``decoder_step_ep``).  ``lm`` is an ``RNNLM`` (or its
+    ``RNNCellStack``) for shallow fusion at ``lm_weight``.
+    ``device=None`` means CUDA (raises without a GPU); the model and the
+    LM are moved there."""
 
     def __init__(self, model, sos: int = 1, eos: int = 2, beam: int = 10,
                  ctc_beam: int = 15, nbest: int = 1, ctc_weight: float = 0.5,
@@ -161,10 +172,13 @@ class CTCAttBeamDecoder:
         if online and not hasattr(model, "encode_online"):
             raise ValueError(f"online decoding needs a streaming model; "
                              f"{type(model).__name__} has no encode_online")
-        if lm is not None or lm_weight:
-            raise NotImplementedError("LM shallow fusion is not ported yet")
+        if lm_weight and lm is None:
+            raise ValueError("lm_weight set but no lm provided")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        lm = getattr(lm, "module", lm)
+        self.lm = None if lm is None else lm.to(self.device).eval()
+        self.lm_weight = lm_weight if lm is not None else 0.0
         self.sos, self.eos, self.blank = sos, eos, blank
         self.beam, self.ctc_beam, self.nbest = beam, ctc_beam, nbest
         self.ctc_weight = ctc_weight
@@ -174,16 +188,18 @@ class CTCAttBeamDecoder:
         self.online = online
 
     @torch.no_grad()
-    def encode(self, feats, feat_len):
+    def encode(self, feats, feat_len, pos_offset=0):
         """Decode-time encoder forward → (hs, hs_len, lpz): per-row solo
         lengths (``solo_pad``) offline, the reference decoder's length
         convention (``ref_tail``) online; the CTC log-probs are f32
-        whatever the model's compute type."""
+        whatever the model's compute type.  ``pos_offset``: the offline
+        encoder's absolute start position(s) (long-form windows)."""
         if self.online:
             hs, hs_len = self.model.encode_online(feats, feat_len,
                                                   ref_tail=True)
         else:
-            hs, hs_len = self.model.encode(feats, feat_len, solo_pad=True)
+            hs, hs_len = self.model.encode(feats, feat_len, solo_pad=True,
+                                           pos_offset=pos_offset)
         lpz = torch.log_softmax(self.model.ctc_logits(hs).float(), dim=-1)
         return hs, hs_len, lpz
 
@@ -261,6 +277,7 @@ class CTCAttBeamDecoder:
         ended_need = torch.zeros(B, E, dtype=torch.bool, device=dev)
         parent_prev = torch.zeros(B, K, dtype=torch.long, device=dev)
         t_rng = torch.arange(1, T, device=dev)
+        lm_state = None if self.lm is None else self.lm.zero_state(B * K)
 
         i = 0
         while i < max_len and not bool(row_done.all()):
@@ -273,6 +290,11 @@ class CTCAttBeamDecoder:
                     last_tok.reshape(B * K), i, cache, mem_k, mem_v,
                     mem_mask)
             att_logp = logp.reshape(B, K, V).float()
+            if self.lm is not None:
+                lm_state, lm_logits = self.lm(lm_state,
+                                              last_tok.reshape(B * K))
+                lm_logp = torch.log_softmax(lm_logits.float(), dim=-1
+                                            ).reshape(B, K, V)
             if online:
                 cand_att, cand_ids = _top_k(att_logp, C)
             else:
@@ -306,7 +328,12 @@ class CTCAttBeamDecoder:
             # eos scores the prefix's complete-sequence CTC probability
             psi = torch.where(cand_ids == self.eos, eos_score[..., None], psi)
 
+            # the attention (+LM) part of the joint score; the online
+            # enders keep it as their att_lm score
             cand_attlm = (1.0 - w) * cand_att
+            if self.lm is not None:
+                cand_attlm = cand_attlm + self.lm_weight * torch.gather(
+                    lm_logp, 2, cand_ids)
             joint = cand_attlm + w * (psi - ctc_prev[..., None])
             total = torch.where(alive[..., None], score[..., None] + joint,
                                 LOG_ZERO)
@@ -377,6 +404,8 @@ class CTCAttBeamDecoder:
             flat_parent = (parent + rows * K).reshape(-1)
             cache = {k: v if k == "ep" else v.index_select(1, flat_parent)
                      for k, v in cache.items()}
+            if self.lm is not None:
+                lm_state = select_state(lm_state, flat_parent)
 
             if online:
                 # every live hypothesis's frontier reached hs_len, and the

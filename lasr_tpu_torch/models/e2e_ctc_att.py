@@ -69,11 +69,15 @@ class E2EBase(nn.Module):
         return (torch.arange(T, device=hs.device)[None, :]
                 < hs_len[:, None])[:, None, :]
 
-    def encode(self, x, xlen, solo_pad: bool = False):
+    def encode(self, x, xlen, solo_pad: bool = False, pos_offset=0):
         """``solo_pad=True``: decode-time semantics — each row's length and
-        conv padding behave as if the utterance were encoded alone."""
+        conv padding behave as if the utterance were encoded alone.
+        ``pos_offset``: the absolute encoding's start position(s) in
+        encoder frames, an int or a (B,) tensor (long-form windows); a
+        no-op under ``rel_pos``."""
         self._check_eval()
-        return self.encoder(x, xlen, solo_pad=solo_pad)
+        return self.encoder(x, xlen, solo_pad=solo_pad,
+                            pos_offset=pos_offset)
 
     def ctc_logits(self, hs, domain=None):
         return self.ctc(hs, domain=domain)

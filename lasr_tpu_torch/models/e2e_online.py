@@ -95,11 +95,12 @@ class E2E_Transformer_CTC_Online(E2EBase):
         self.to(device)
         self.eval()
 
-    def encode(self, x, xlen, solo_pad: bool = False):
+    def encode(self, x, xlen, solo_pad: bool = False, pos_offset=0):
         """The chunked forward.  ``solo_pad`` has nothing to act on here:
         every chunk is windowed and convolved alone, so a row's frames do
-        not depend on the batch's padding (``lasr_tpu``'s ``encode`` drops
-        the flag for this encoder too)."""
+        not depend on the batch's padding; nor has ``pos_offset``, the
+        chunks carrying their own positions (``lasr_tpu``'s ``encode``
+        drops both for this encoder too)."""
         self._check_eval()
         return self.encoder(x, xlen)
 

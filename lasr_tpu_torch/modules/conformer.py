@@ -209,13 +209,16 @@ class ConformerEncoder(nn.Module):
             for _ in range(num_blocks)])
         self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
-    def forward(self, x, x_len, solo_pad: bool = False):
+    def forward(self, x, x_len, solo_pad: bool = False, pos_offset=0):
         """x: (B, T, idim), x_len: (B,) → (hs (B, T', D), hs_len (B,)).
 
         ``solo_pad``: decode-time semantics — per-row lengths as if each
         utterance were encoded alone, and zeros past the valid length
-        before the conv module."""
-        out, h_len = self.embed(x, x_len, solo_len=solo_pad)
+        before the conv module.  ``pos_offset``: the absolute encoding's
+        start position(s) in encoder frames, an int or a (B,) tensor; a
+        no-op under ``rel_pos`` (translation-invariant)."""
+        out, h_len = self.embed(x, x_len, solo_len=solo_pad,
+                                offset=0 if self.rel else pos_offset)
         h, pos_emb = out if self.rel else (out, None)
         T = h.shape[1]
         pad = torch.arange(T, device=h.device)[None, :] < h_len[:, None]

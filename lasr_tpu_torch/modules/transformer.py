@@ -88,17 +88,19 @@ class Encoder(nn.Module):
             for _ in range(num_blocks)])
         self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
-    def embed_input(self, x, x_len, solo_len: bool = False):
+    def embed_input(self, x, x_len, solo_len: bool = False, pos_offset=0):
         if self.input_layer == "conv2d":
-            return self.embed(x, x_len, solo_len=solo_len)
+            return self.embed(x, x_len, solo_len=solo_len, offset=pos_offset)
         h = dropout(self.embed_norm(self.embed_linear(x)), self.dropout_rate,
                     self.training)
-        return self.embed_pos(torch.relu(h)), x_len
+        return self.embed_pos(torch.relu(h), pos_offset), x_len
 
-    def forward(self, x, x_len, solo_pad: bool = False):
+    def forward(self, x, x_len, solo_pad: bool = False, pos_offset=0):
         """``solo_pad``: per-row lengths as if each utterance were encoded
-        alone (decode time)."""
-        h, h_len = self.embed_input(x, x_len, solo_len=solo_pad)
+        alone (decode time).  ``pos_offset``: the positional encoding's
+        start position(s), an int or a (B,) tensor (long-form windows)."""
+        h, h_len = self.embed_input(x, x_len, solo_len=solo_pad,
+                                    pos_offset=pos_offset)
         mask = (torch.arange(h.shape[1], device=h.device)[None, :]
                 < h_len[:, None])[:, None, :]
         for layer in self.encoders:

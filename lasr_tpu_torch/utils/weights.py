@@ -129,6 +129,75 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_GATES = {"lstm": "ifgo", "gru": "rzn"}
+
+
+def _cell_state_dict(cell, typ: str, prefix: str, suffix: str = ""):
+    """One Flax ``OptimizedLSTMCell`` / ``GRUCell`` → torch's
+    ``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh`` (gates stacked
+    in torch's order).  Flax splits each gate into an input-side and a
+    hidden-side Dense: the LSTM's biases sit on the hidden side, the
+    GRU's on the input side except ``hn``'s."""
+    def kernel(name):
+        return np.asarray(cell[name]["kernel"]).T
+
+    def bias(name, like):
+        b = cell[name].get("bias")
+        return np.zeros(like.shape[0], like.dtype) if b is None \
+            else np.asarray(b)
+
+    gates = _GATES[typ]
+    w_ih = [kernel("i" + g) for g in gates]
+    w_hh = [kernel("h" + g) for g in gates]
+    out = {"weight_ih": np.concatenate(w_ih),
+           "weight_hh": np.concatenate(w_hh),
+           "bias_ih": np.concatenate([bias("i" + g, w)
+                                      for g, w in zip(gates, w_ih)]),
+           "bias_hh": np.concatenate([bias("h" + g, w)
+                                      for g, w in zip(gates, w_hh)])}
+    return {f"{prefix}{k}{suffix}": torch.tensor(v) for k, v in out.items()}
+
+
+def rnnlm_flax_to_state_dict(params, typ: str = "lstm"
+                             ) -> Dict[str, torch.Tensor]:
+    """``lasr_tpu``'s ``RNNCellStack`` params (numpy leaves) → the state
+    dict of ``modules.rnn.RNNCellStack``: ``embed`` (an Embed table or a
+    Dense), ``cell_N`` → ``rnn.N.*`` (four Flax leaves a gate group
+    become one torch tensor), ``lo``."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    embed = params["embed"]
+    if "embedding" in embed:
+        sd["embed.weight"] = torch.tensor(np.asarray(embed["embedding"]))
+    else:
+        sd["embed.weight"] = torch.tensor(np.asarray(embed["kernel"]).T)
+        sd["embed.bias"] = torch.tensor(np.asarray(embed["bias"]))
+    n = sum(1 for k in params if k.startswith("cell_"))
+    for i in range(n):
+        sd.update(_cell_state_dict(params[f"cell_{i}"], typ, f"rnn.{i}."))
+    sd["lo.weight"] = torch.tensor(np.asarray(params["lo"]["kernel"]).T)
+    sd["lo.bias"] = torch.tensor(np.asarray(params["lo"]["bias"]))
+    return sd
+
+
+def lstm_stack_flax_to_state_dict(params, bidirectional: bool = False
+                                  ) -> Dict[str, torch.Tensor]:
+    """``lasr_tpu``'s ``LSTMStack`` params → ``modules.rnn.LSTMStack``'s
+    state dict.  Flax names the cells ``OptimizedLSTMCell_k`` in creation
+    order: layer i's forward cell, then (bidirectional) its backward
+    one."""
+    params = params.get("params", params)
+    per_layer = 2 if bidirectional else 1
+    n = sum(1 for k in params if k.startswith("OptimizedLSTMCell_"))
+    sd: Dict[str, torch.Tensor] = {}
+    for k in range(n):
+        layer, direction = divmod(k, per_layer)
+        sd.update(_cell_state_dict(
+            params[f"OptimizedLSTMCell_{k}"], "lstm", f"layers.{layer}.",
+            "_l0" + ("_reverse" if direction else "")))
+    return sd
+
+
 def state_dict_to_numpy(state_dict: Dict) -> Dict[str, np.ndarray]:
     """A reference-named state_dict (after training: with its BatchNorm
     running statistics) as numpy arrays on the host, the form

@@ -8,9 +8,15 @@
     ``hparams.yaml`` equals the JAX CLI's for the same YAML;
   - the port's decode CLI on the checkpoints root and the JAX CLI on its
     ``last/`` directory (a directory of ``.ckpt`` files) give the same
-    hypotheses and the same ``Totol WER`` line, for ``ctc_att`` and
-    ``ctc_greedy``;
-  - flags and decode methods the port lacks raise.
+    hypotheses and the same ``Totol WER`` line for every decode method:
+    ``ctc_att`` (also with an RNNLM and nbest 2: the same ``.nbest``
+    lists, scores within 1e-3; and long-form, windowed and segmented), ``ctc_greedy``,
+    ``ctc_bs`` (with the RNNLM), ``ctc_kenlm``, ``ctc_kenlm_lexcoin`` and
+    ``wfst`` (a lexicon, ARPA and TLG built here), on a checkpoint
+    whose CTC head is made to emit letters (``write_emitting_checkpoint``).
+    The LM is written twice from one set of weights: orbax for
+    ``lasr_tpu``, ``.pt`` for the port;
+  - training flags the port lacks raise.
 
 This module imports no JAX at its top (the JAX CLIs load inside the
 tests): its corpus and config writers serve the card's tests too.
@@ -110,12 +116,14 @@ def write_config(path, train, valid, model_kwargs, chain=CHAIN,
     return path
 
 
-def write_decode_config(path, test, method, chain=CHAIN):
+def write_decode_config(path, test, method, chain=CHAIN, **keys):
+    """A decode YAML over the corpus ``test``; ``keys`` add to (or
+    replace) its decode_config."""
     with open(path, "w") as f:
         yaml.safe_dump({
             "decode_config": {"decode_method": method, "beam": 3,
                               "ctc_beam": 4, "ctc_weight": 0.5,
-                              "lm_path": None, "lm_rate": 0},
+                              "lm_path": None, "lm_rate": 0, **keys},
             "test_data_config": {
                 "name": "lasr_tpu.data.dataset:AudioDataSet",
                 "kwargs": {"wav_list": [test[0]], "text_list": [test[1]],
@@ -210,12 +218,115 @@ def _decode_lines(out):
     return hyps, wer
 
 
-@pytest.mark.parametrize("method", ["ctc_att", "ctc_greedy"])
-def test_decode_cli_matches_the_jax_cli(run, method, tmp_path, capsys):
-    cfg = write_decode_config(str(tmp_path / "decode.yaml"), run["valid"],
-                              method)
+def write_emitting_checkpoint(run, root):
+    """The run's last checkpoint (2 averaged) with the CTC head of
+    ``emitting_ctc_head`` over the dev set's encoder frames (2 epochs
+    leave blank first on every frame), as
+    ``root/last/step-000000001.ckpt``; returns ``root``."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.data.reader import read_scp, read_wav
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.utils.weights import (load_model_weights,
+                                              load_reference_checkpoint)
+    from tests.torch_port_decoders import emitting_ctc_head
+    sd = dict(load_reference_checkpoint(
+        os.path.join(run["exp"], "checkpoints"), "last", 2))
+    model = E2E_Conformer_CTC(**dict(TINY_CONFORMER, odim=15), device="cpu")
+    load_model_weights(model, sd)
+    frontend = DeviceFrontend(CHAIN)
+    frames = []
+    with torch.no_grad():
+        for _, path in read_scp(run["valid"][0]):
+            wav = torch.from_numpy(read_wav(path)[0][None])
+            feats, n = frontend(wav, torch.tensor([wav.shape[1]]))
+            frames.append(model.encode(feats, n, solo_pad=True)[0][0])
+    sd["ctc.1.weight"], sd["ctc.1.bias"] = emitting_ctc_head(
+        torch.cat(frames), 15)
+    os.makedirs(os.path.join(root, "last"))
+    torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}},
+               os.path.join(root, "last", "step-000000001.ckpt"))
+    return root
+
+
+@pytest.fixture(scope="module")
+def decoders(run, tmp_path_factory):
+    """The resources of the word-level decoders and an RNNLM over the
+    run's vocabulary, written for each package: its flax weights as an
+    orbax checkpoint (``lasr_tpu``) and as a ``.pt`` state_dict (the
+    port)."""
+    import jax
+    import jax.numpy as jnp
+    import orbax.checkpoint as ocp
+    import torch
+    from lasr_tpu.modules.rnn import RNNCellStack
+    from lasr_tpu_torch.data.tokenizer import CharTokenizer
+    from lasr_tpu_torch.utils.weights import rnnlm_flax_to_state_dict
+    from tests.torch_port_decoders import write_word_resources
+
+    root = tmp_path_factory.mktemp("decoders")
+    tok = CharTokenizer(run["valid"][2])
+    with open(run["valid"][1]) as f:
+        words = sorted({w.upper() for line in f
+                        for w in line.split()[1:]}
+                   | set(LETTERS) | {"AF", "FA", "AH", "HEAD"})
+    chars = {c: tok.char_list.index(c) for c in LETTERS}
+    kenlm, wfst = write_word_resources(str(root), chars, words,
+                                       space_id=tok.char_list.index(" "))
+    V = len(tok.char_list)
+    lm_kw = dict(input_dim=V, output_dim=V, n_layers=1, n_units=16)
+    params = jax.tree.map(np.asarray, RNNCellStack(**lm_kw).init(
+        jax.random.PRNGKey(3), None, jnp.zeros((1,), jnp.int32))["params"])
+    orbax_dir = str(root / "lm_orbax")
+    with ocp.StandardCheckpointer() as ckptr:
+        ckptr.save(orbax_dir, {"params": params})
+    torch.save(rnnlm_flax_to_state_dict(params), str(root / "lm.pt"))
+    lm = {"lm_rate": 0.3, "lm_config": {
+        "name": "lasr_tpu.modules.rnn:RNNCellStack", "kwargs": lm_kw}}
+    return dict(kenlm=kenlm, wfst=wfst, lm=lm, orbax=orbax_dir,
+                pt=str(root / "lm.pt"),
+                ckpts=write_emitting_checkpoint(run, str(root / "ckpts")))
+
+
+# decode-config keys of each case beyond the method: "lm" adds the RNNLM
+DECODE_CASES = {
+    "ctc_att": ("ctc_att", {}),
+    "ctc_greedy": ("ctc_greedy", {}),
+    "ctc_att_lm_nbest2": ("ctc_att", {"lm": True, "nbest": 2}),
+    "longform": ("ctc_att", {"longform_segment_frames": 4,
+                             "longform_encoder_window_frames": 4,
+                             "longform_encoder_halo_frames": 2}),
+    "ctc_bs_lm": ("ctc_bs", {"lm": True}),
+    "ctc_kenlm": ("ctc_kenlm", {"kenlm": True}),
+    "ctc_kenlm_lexcoin": ("ctc_kenlm_lexcoin", {"kenlm": True}),
+    "wfst": ("wfst", {"wfst": True}),
+}
+
+
+def _case_keys(case, decoders, lm_path):
+    method, extra = DECODE_CASES[case]
+    keys = {k: v for k, v in extra.items()
+            if k not in ("lm", "kenlm", "wfst")}
+    if extra.get("lm"):
+        keys.update(decoders["lm"], lm_path=lm_path)
+    for k in ("kenlm", "wfst"):
+        if extra.get(k):
+            keys.update(decoders[k])
+    return method, keys
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_cli_matches_the_jax_cli(run, decoders, case, tmp_path,
+                                        capsys):
+    valid = run["valid"]
+    method, keys = _case_keys(case, decoders, decoders["pt"])
+    cfg = write_decode_config(str(tmp_path / "decode.yaml"), valid, method,
+                              **keys)
+    method, keys = _case_keys(case, decoders, decoders["orbax"])
+    cfg_jax = write_decode_config(str(tmp_path / "decode_jax.yaml"), valid,
+                                  method, **keys)
     hparams = os.path.join(run["exp"], "hparams.yaml")
-    root = os.path.join(run["exp"], "checkpoints")
+    root = decoders["ckpts"]
     ours, theirs = str(tmp_path / "port.txt"), str(tmp_path / "jax.txt")
     assert port_decode.main(["-train_config", hparams, "-decode_config", cfg,
                              "-model_path", root, "-choose", "last",
@@ -223,7 +334,7 @@ def test_decode_cli_matches_the_jax_cli(run, method, tmp_path, capsys):
                              "-device", "cpu"]) == 0
     out_port = capsys.readouterr().out
     assert _jax_cli("decode").main([
-        "-train_config", hparams, "-decode_config", cfg,
+        "-train_config", hparams, "-decode_config", cfg_jax,
         "-model_path", os.path.join(root, "last"), "-choose", "last",
         "-avg", "2", "-output_file", theirs]) == 0
     out_jax = capsys.readouterr().out
@@ -235,6 +346,24 @@ def test_decode_cli_matches_the_jax_cli(run, method, tmp_path, capsys):
     assert len(hyps) == 3 and len(wer) == 1
     rtf = json.loads(out_port.strip().splitlines()[-1])
     assert rtf["decode_batches"] == 1 and rtf["audio_total_s"] > 0
+    nbest = keys.get("nbest", 1) > 1
+    assert os.path.exists(ours + ".nbest") == nbest
+    if nbest:
+        # "{id}-{rank} {score:.4f} {text}": ids, ranks and texts equal,
+        # scores within 1e-3 (the packages' scores differ by ~1e-5, which
+        # can move the fourth decimal)
+        got, want = (_nbest_lines(path + ".nbest") for path in (ours, theirs))
+        assert len(got) == 6
+        assert [(k, t) for k, _, t in got] == [(k, t) for k, _, t in want]
+        np.testing.assert_allclose([sc for _, sc, _ in got],
+                                   [sc for _, sc, _ in want], atol=1e-3)
+
+
+def _nbest_lines(path):
+    """(utterance-rank, score, text) of each line of a ``.nbest`` file."""
+    with open(path) as f:
+        rows = [line.rstrip("\n").split(" ", 2) for line in f]
+    return [(k, float(sc), text) for k, sc, text in rows]
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -247,12 +376,11 @@ def test_train_cli_refuses_unported_flags(flag, value, tmp_path):
                          "-device", "cpu"])
 
 
-@pytest.mark.parametrize("method", ["ctc_kenlm_lexcoin", "ctc_bs", "wfst",
-                                    "ctc_kenlm"])
-def test_decode_cli_refuses_unported_methods(run, method, tmp_path):
+def test_decode_cli_refuses_an_orbax_lm(run, decoders, tmp_path):
     cfg = write_decode_config(str(tmp_path / "decode.yaml"), run["valid"],
-                              method)
-    with pytest.raises(NotImplementedError, match=method):
+                              "ctc_att", lm_path=decoders["orbax"],
+                              **decoders["lm"])
+    with pytest.raises(NotImplementedError, match="orbax"):
         port_decode.main([
             "-train_config", os.path.join(run["exp"], "hparams.yaml"),
             "-decode_config", cfg, "-model_path",

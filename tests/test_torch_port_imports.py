@@ -69,7 +69,8 @@ def test_no_source_names_jax_or_lasr_tpu_in_an_import():
 @pytest.mark.parametrize("entry", ["resolve_device", "model", "decoder",
                                    "asrprocess", "trainer", "train_cli",
                                    "decode_cli", "transformer_model",
-                                   "online_model"])
+                                   "online_model", "longform", "lm",
+                                   "rnnlm"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from lasr_tpu_torch import resolve_device
@@ -78,6 +79,9 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
                                                    E2E_Transformer_CTC)
     from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
     from lasr_tpu_torch.bin import decode, train
+    from lasr_tpu_torch.decode.lm import build_lm
+    from lasr_tpu_torch.decode.longform import LongFormCTCAttDecoder
+    from lasr_tpu_torch.modules.rnn import RNNCellStack
     from lasr_tpu_torch.data.frontend import DeviceFrontend
     from lasr_tpu_torch.models.losses import E2E_Loss
     from lasr_tpu_torch.process.asrprocess import ASRProcess
@@ -113,6 +117,11 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             encoder_num_blocks=1, decoder_attention_dim=16,
             decoder_self_attention_heads=2, decoder_src_attention_heads=2,
             decoder_linear_units=32, decoder_num_block=1),
+        "longform": lambda: LongFormCTCAttDecoder(CTCAttBeamDecoder(
+            E2E_Conformer_CTC(**tiny, device="cpu"), device="cpu")),
+        "lm": lambda: build_lm({"lm_rate": 0.0}),
+        "rnnlm": lambda: RNNCellStack(input_dim=9, output_dim=9, n_layers=1,
+                                      n_units=8),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
