@@ -150,6 +150,38 @@ Phases, always all of them, in this order:
   train_stream the same for E2E_Transformer_CTC_Online (chunks 64/64/64,
            the layer-major chunked encoder; the sigmoid noise on in the
            timed steps, off in the card-vs-CPU step).
+  stream_rest the streaming family's remaining paths at the stream
+           phase's widths: (a) stream (b)'s 10 s stream in 160 ms pieces
+           through StreamingRecognizer with the online search (beam 10,
+           ctc_beam 15, ctc_weight 0.5, every 4 chunks, bucket 64; the
+           CTC head centred and sharpened x4, source biases 2.0 so the
+           search steps mid-stream), resumable (IncrementalBeamSession)
+           and from scratch: both finalize to the same tokens, the
+           incremental final equals the from-scratch search over the same
+           states (tokens, score within 1e-3; a differing token only as a
+           tie), the session's state stays on the card; ms and token steps
+           per refresh, device ops of one refresh, finalize and total
+           search ms; (b) E2E_Transformer_CTC_Univ_Dynamic (d=320, 12 + 6
+           blocks, chunk 16, odim 5002) trained as train_tf with
+           CTC_CE_Univ_Loss(rate 0.3, smoothing 0.1) (the batch halved if
+           the 2B-row batch runs out of memory; the card-vs-CPU step at
+           the nominal chunk); (c) its checkpoint through ``python -m
+           lasr_tpu_torch.bin.decode`` with ctc_greedy on 4 seeded 4 s
+           WAVs and ASRProcess giving row 0, ctc_att / ctc_att_online
+           refused with the ValueError naming the class, and
+           forward_per_chunk cut at chunk boundaries against
+           encode(online=True) within 1e-3 of its largest magnitude; (d)
+           one step (B=32 x 15.6 s, the Trainer's generators of step 0)
+           with encoder_remat against the same step without, at dropout
+           0.1, in train_stream's, train_tf's and train_b's models (K3
+           launched twice a block with remat, K4 once), and train_stream's
+           with remat, conv_once and layer_major_rows 64 at dropout 0 (the
+           two others draw dropout differently by design): loss within
+           1e-4 (relative), encoder gradients within 1e-3 of each one's
+           largest magnitude, decoder/CTC gradients within 1e-2 (L2),
+           BatchNorm statistics within 1e-5; peak memory of both.  K1-K4
+           are counted: none in (a)-(c).  Prints a {"stream_rest": ...}
+           line.
   fit_toy  the toy recipe's example/asr_toy/conf/config.yaml
            (E2E_Transformer_CTC) and config_online.yaml
            (E2E_Transformer_CTC_Online) as they stand, their data pointed
@@ -285,19 +317,24 @@ def _profile(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_us, end = 0.0, -math.inf
-    for e in sorted(dev, key=lambda e: e.time_range.start):
-        busy_us += max(e.time_range.end - max(e.time_range.start, end), 0.0)
-        end = max(end, e.time_range.end)
+    # the raw kineto events: prof.events() builds a Python object per
+    # event and its CPU-GPU links, ~70 us each (a train step's ~10^5
+    # ops took tens of seconds)
+    dev = [(e.start_ns(), e.end_ns(), e.name())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not e.is_user_annotation()]
+    busy_ns, end = 0.0, -math.inf
+    for start, stop, _ in sorted(dev):
+        busy_ns += max(stop - max(start, end), 0.0)
+        end = max(end, stop)
     kernels = {}
-    for e in dev:
+    for start, stop, name in dev:
         for label, parts in PORT_KERNELS.items():
-            if any(p in e.name for p in parts):
+            if any(p in name for p in parts):
                 kernels[label] = kernels.get(label, 0.0) \
-                    + e.time_range.elapsed_us() / 1e3
-    return out, dict(wall_ms=wall * 1e3, busy_ms=busy_us / 1e3, ops=len(dev),
+                    + (stop - start) / 1e6
+    return out, dict(wall_ms=wall * 1e3, busy_ms=busy_ns / 1e6, ops=len(dev),
                      kernels_ms=kernels)
 
 
@@ -788,14 +825,16 @@ def _train_batch(seed):
 
 
 def _trainer(model, chain, seed, log_interval=1, odim=RECIPE["odim"],
-             device=None):
+             device=None, criterion=None):
     """The Trainer of the training phases; ``log_interval=1`` computes the
-    greedy-CTC CER on every step."""
+    greedy-CTC CER on every step.  ``criterion``: a class taking (size,
+    smoothing=, rate=), E2E_Loss by default."""
     from lasr_tpu_torch.data.frontend import DeviceFrontend
     from lasr_tpu_torch.models.losses import E2E_Loss
     from lasr_tpu_torch.train.optimizer import Noam
     from lasr_tpu_torch.train.trainer import Trainer
-    return Trainer(model, E2E_Loss(size=odim, smoothing=0.1, rate=0.3),
+    criterion = criterion or E2E_Loss
+    return Trainer(model, criterion(size=odim, smoothing=0.1, rate=0.3),
                    Noam(320, 3, 25000), DeviceFrontend(chain), use_ema=True,
                    grad_clip=5.0, seed=seed, log_interval=log_interval,
                    device=device)
@@ -2481,41 +2520,62 @@ def _small_batch(seed):
                                      for i in range(SMALL_BATCH)], np.int32)}
 
 
-def _train_family(state, label, cls, kw):
+def _train_family(state, label, cls, kw, criterion=None, keep=False):
     """A model family the recipe Conformer's phases do not reach, trained
     by the port's Trainer at full width: ``TRAIN_STEPS`` timed steps on
     B=32 x 15.6 s in f32 and in bf16 (dropout, SpecAugment and, online,
     the sigmoid noise on), one more under the profiler; then one step at
     dropout 0 (no noise, no SpecAugment) on a B=4 x 4 s batch on the card
     against the same step on the CPU, in both dtypes.  No TPU kernel lies
-    on the path: K1-K4's launches are counted and must stay 0."""
+    on the path: K1-K4's launches are counted and must stay 0.
+    ``criterion``: the loss class (E2E_Loss); a batch that runs out of
+    device memory is halved (logged).  ``keep``: the trained f32 weights
+    go to ``state[label + "_weights"]``."""
     import torch
     from lasr_tpu_torch.utils.weights import load_model_weights
     seed, card = state["seed"], state["card"]
     odim = kw["odim"]
     chain = ["norm", "fbank:80", "specaug"]
     batch = _train_batch(seed + 2)
+    rows = TRAIN_BATCH
     counters = _kernel_counters()
     summary = {"card": card}
     for dtype in ("float32", "bfloat16"):
         torch.manual_seed(seed)
         model = cls(**kw, dtype=getattr(torch, dtype))
-        trainer = _trainer(model, chain, seed, odim=odim)
+        trainer = _trainer(model, chain, seed, odim=odim,
+                           criterion=criterion)
         tstate = trainer.init_state()
         torch.cuda.reset_peak_memory_stats()
         times, metrics = [], []
-        for _ in range(TRAIN_STEPS):
+        while len(times) < TRAIN_STEPS:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            tstate, m = trainer.train_step(tstate, batch)
+            try:
+                tstate, m = trainer.train_step(tstate, batch)
+                oom = False
+            except torch.cuda.OutOfMemoryError:
+                oom = True
+            if oom:
+                check(rows > 1 and not times,
+                      f"{label}: out of device memory at B={rows}")
+                rows //= 2
+                batch = {k: v[:rows] for k, v in batch.items()}
+                log(f"{label}: out of device memory at B={rows * 2}; "
+                    f"halved to B={rows}")
+                torch.cuda.empty_cache()
+                continue
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             metrics.append(m)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         (tstate, _), prof = _profile(
             lambda: trainer.train_step(tstate, batch))
+        if keep and dtype == "float32":
+            state[label + "_weights"] = {k: v.detach().cpu() for k, v
+                                         in model.state_dict().items()}
         log(f"{label}: {dtype}, {TRAIN_STEPS} train steps of "
-            f"B={TRAIN_BATCH} x {TRAIN_SECS:g} s, {trainer.param_count()} "
+            f"B={rows} x {TRAIN_SECS:g} s, {trainer.param_count()} "
             f"parameters: step times {', '.join(f'{t:.3f}' for t in times)}"
             f" s, peak memory {peak_gb:.2f} GB; profiled step "
             f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
@@ -2526,7 +2586,7 @@ def _train_family(state, label, cls, kw):
                 f"{k} {v:.4f}" for k, v in m.items()))
             check(all(math.isfinite(v) for v in m.values()),
                   f"{label}: {dtype} step {i} has a non-finite metric {m}")
-        summary[dtype] = dict(step_s=times, peak_gb=peak_gb,
+        summary[dtype] = dict(step_s=times, peak_gb=peak_gb, batch=rows,
                               profiled_wall_ms=prof["wall_ms"],
                               device_busy_ms=prof["busy_ms"],
                               device_ops=prof["ops"])
@@ -2542,19 +2602,27 @@ def _train_family(state, label, cls, kw):
     torch.manual_seed(seed)
     weights = {k: v.cpu() for k, v in cls(**nodrop).state_dict().items()}
     steps = {}
-    for device in ("cuda", "cpu"):
-        for dtype in ("float32", "bfloat16"):
-            m = cls(**nodrop, dtype=getattr(torch, dtype), device=device)
-            load_model_weights(m, weights)
-            tr = _trainer(m, ["norm", "fbank:80"], seed, odim=odim,
-                          device=device)
-            t0 = time.perf_counter()
-            met, grads = tr.loss_and_grads(small, 0)
-            steps[device, dtype] = (float(met["loss_main"].detach()),
-                                    [g.detach().cpu() for g in grads],
-                                    time.perf_counter() - t0)
-            names = tr.names
-            del m, tr
+    # the dual encoder's drawn chunk at its nominal size on both devices
+    # (their generators draw differently)
+    import lasr_tpu_torch.modules.streaming as streaming
+    draw, streaming.shared_randint = streaming.shared_randint, \
+        lambda high: high // 2
+    try:
+        for device in ("cuda", "cpu"):
+            for dtype in ("float32", "bfloat16"):
+                m = cls(**nodrop, dtype=getattr(torch, dtype), device=device)
+                load_model_weights(m, weights)
+                tr = _trainer(m, ["norm", "fbank:80"], seed, odim=odim,
+                              device=device, criterion=criterion)
+                t0 = time.perf_counter()
+                met, grads = tr.loss_and_grads(small, 0)
+                steps[device, dtype] = (float(met["loss_main"].detach()),
+                                        [g.detach().cpu() for g in grads],
+                                        time.perf_counter() - t0)
+                names = tr.names
+                del m, tr
+    finally:
+        streaming.shared_randint = draw
     launches = {name: fn.launches for name, fn in counters.items()}
     (l32, g32, _), (lc32, gc32, cpu_s) = (steps["cuda", "float32"],
                                           steps["cpu", "float32"])
@@ -2603,6 +2671,470 @@ def phase_train_tf(state):
 def phase_train_stream(state):
     from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
     _train_family(state, "train_stream", E2E_Transformer_CTC_Online, STREAM)
+
+
+# stream_rest: the streaming family's remaining paths at the stream
+# phase's widths: the resumable online search, the Univ dual-view model,
+# and the encoders' memory knobs
+UNIV = dict(
+    idim=80, odim=5002, encoder_attention_dim=320, encoder_attention_heads=8,
+    encoder_attention_chunk=16, encoder_linear_units=2048,
+    encoder_num_blocks=12, decoder_attention_dim=320,
+    decoder_self_attention_heads=8, decoder_src_attention_heads=8,
+    decoder_linear_units=2048, decoder_num_block=6)
+REST_INTERVAL, REST_BUCKET = 4, 64
+# the stream's model for the search: the CTC head centred on the stream
+# and sharpened, every source-attention bias at SRC_BIAS, so frontiers
+# stall and endpoints advance among the visible frames (random weights
+# otherwise pause every mid-stream refresh at its first step)
+CTC_SHARPEN, SRC_BIAS = 4.0, 2.0
+KNOB_ROWS = 64
+# loss (relative); encoder gradients entrywise against each one's largest
+# magnitude; decoder/CTC gradients in L2 (conv_once's reassociation flips
+# decoder ReLU units within rounding of 0, as in _train)
+KNOB_TOL = dict(loss=1e-4, entry=1e-3, l2=1e-2)
+
+
+def _tensors(x):
+    if hasattr(x, "is_cuda"):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def _stream_search(model, wave, incremental):
+    """``wave`` through a StreamingRecognizer with the online beam search
+    (beam 10, ctc_beam 15, ctc_weight 0.5) refreshed every REST_INTERVAL
+    chunks, incremental or from scratch: per mid-stream refresh its wall
+    ms and token steps (the first refresh profiled for its device ops
+    and left out of the times), finalize ms, tokens, and the final
+    search's hypotheses."""
+    import torch
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    from lasr_tpu_torch.decode.online import StreamingRecognizer
+    dec = CTCAttBeamDecoder(model, beam=DECODE["beam"],
+                            ctc_beam=DECODE["ctc_beam"],
+                            ctc_weight=DECODE["ctc_weight"], online=True)
+    rec = StreamingRecognizer(model, beam_decoder=dec,
+                              beam_interval=REST_INTERVAL,
+                              beam_bucket=REST_BUCKET,
+                              beam_incremental=incremental)
+    name = "_refresh_incremental" if incremental else "_run_beam"
+    inner = getattr(rec, name)
+    steps, out = [0], {"refreshes": [], "ops": None, "final": None}
+    _counted(model, "decoder_step_ep", steps)
+
+    def timed(*args, **kwargs):
+        if not incremental and kwargs.get("final", True):
+            return inner(*args, **kwargs)       # finalize's own search
+        steps[0] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if out["ops"] is None:
+            res, prof = _profile(lambda: inner(*args, **kwargs))
+            out["ops"], out["profiled_steps"] = prof["ops"], steps[0]
+            return res
+        res = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        out["refreshes"].append(((time.perf_counter() - t) * 1e3, steps[0]))
+        return res
+    setattr(rec, name, timed)
+    if incremental:
+        refresh = rec.beam_session.refresh
+
+        def keep(hs, final=False):
+            res = refresh(hs, final=final)
+            if final:
+                out["final"] = res
+            return res
+        rec.beam_session.refresh = keep
+    else:
+        search = dec.search
+
+        def keep_search(*args):
+            out["final"] = search(*args)     # the last one is finalize's
+            return out["final"]
+        dec.search = keep_search
+    piece = int(STREAM_PIECE_SECS * SR)
+    for off in range(0, len(wave), piece):
+        rec.accept_waveform(wave[off: off + piece])
+        rec.partial_result()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out["tokens"] = rec.finalize()[0]
+    torch.cuda.synchronize()
+    out["finalize_ms"] = (time.perf_counter() - t) * 1e3
+    delattr(model, "decoder_step_ep")
+    out["rec"], out["decoder"] = rec, dec
+    return out
+
+
+def _rest_search(state, label, card):
+    """(a): the resumable search against the from-scratch refresh on the
+    stream phase's 10 s stream."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    seed = state["seed"]
+    torch.manual_seed(seed)
+    model = E2E_Transformer_CTC_Online(**STREAM)
+    dev = next(model.parameters()).device
+    wave = make_waves(seed + 7, 1, STREAM_SECS)[0]
+    with torch.no_grad():
+        f1, l1 = DeviceFrontend(["fbank:80"])(
+            torch.from_numpy(wave[None]).to(dev),
+            torch.tensor([len(wave)], device=dev))
+        h1, n1 = model.encode_online(f1, l1)
+        head = model.ctc[1]
+        head.bias -= model.ctc_logits(h1)[0, : int(n1)].mean(0)
+        head.weight *= CTC_SHARPEN
+        head.bias *= CTC_SHARPEN
+        for layer in model.decoder.decoders:
+            layer.src_attn.src_att_bias.fill_(SRC_BIAS)
+    runs = {mode: _stream_search(model, wave, mode == "incremental")
+            for mode in ("from_scratch", "incremental")}
+    inc, full = runs["incremental"], runs["from_scratch"]
+
+    # the incremental final against the from-scratch recognizer's final
+    # search over the same accumulated states
+    rec = inc["rec"]
+    T = sum(h.shape[0] for h in rec._hs)
+    Tb = -(-T // REST_BUCKET) * REST_BUCKET
+    got, ref = inc["final"], full["final"]
+    same = got.best_ids(0) == ref.best_ids(0)
+    gap = abs(float(got.scores[0, 0]) - float(ref.scores[0, 0]))
+    on_card = all(t.is_cuda for t in _tensors(rec.beam_session._state))
+    summary = {}
+    for mode, r in runs.items():
+        ms = [m for m, _ in r["refreshes"]]
+        steps = [n for _, n in r["refreshes"]]
+        summary[mode] = dict(
+            refreshes=len(ms) + 1, refresh_ms_p50=float(np.median(ms)),
+            refresh_ms_max=max(ms), refresh_ms=ms, token_steps=steps,
+            profiled_refresh_steps=r["profiled_steps"],
+            refresh_device_ops=r["ops"], finalize_ms=r["finalize_ms"],
+            search_ms_total=sum(ms) + r["finalize_ms"],
+            tokens=len(r["tokens"]))
+        log(f"{label}: (a) {mode}: {len(ms) + 1} mid-stream refreshes of "
+            f"the {STREAM_SECS:g} s stream (every {REST_INTERVAL} chunks, "
+            f"bucket {REST_BUCKET}): ms each {', '.join(f'{m:.1f}' for m in ms)} "
+            f"(p50 {np.median(ms):.1f}, max {max(ms):.1f}; the first, "
+            f"profiled, left out), token steps each {steps}, one refresh "
+            f"{r['ops']} device ops ({r['profiled_steps']} steps); finalize "
+            f"{r['finalize_ms']:.1f} ms; search total "
+            f"{summary[mode]['search_ms_total']:.1f} ms; {len(r['tokens'])} "
+            f"tokens [{card}]")
+    log(f"{label}: (a) both modes finalize to the same tokens: "
+        f"{inc['tokens'] == full['tokens']}; incremental final vs the "
+        f"from-scratch search over the accumulated states (T={T}, bucket "
+        f"{Tb}): tokens equal {same}, score gap {gap:.3e} (tol 1e-3); the "
+        f"session's {len(list(_tensors(rec.beam_session._state)))} "
+        f"persisted tensors on the card: {on_card}")
+    check(inc["tokens"] == full["tokens"], f"{label}: (a) incremental "
+          f"finalize {inc['tokens']} != from-scratch {full['tokens']}")
+    # a differing token is allowed only as a beam tie
+    check(gap <= 1e-3, f"{label}: (a) incremental final differs from the "
+          f"from-scratch search beyond a tie (score gap {gap})")
+    if not same:
+        log(f"{label}: (a) a beam tie: {got.best_ids(0)} vs "
+            f"{ref.best_ids(0)}, scores {got.scores[0, 0]} / "
+            f"{ref.scores[0, 0]}")
+    check(on_card, f"{label}: (a) the session's state left the card")
+    summary.update(final_tokens_equal=same, final_score_gap=gap,
+                   session_on_card=on_card, stream_frames=T)
+    return summary
+
+
+def _rest_univ_serving(state, label, card):
+    """(c): a Univ checkpoint of (b) through the decode CLI (ctc_greedy)
+    and ASRProcess; forward_per_chunk against encode(online=True); the
+    joint search refused."""
+    import torch
+    import yaml
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.data.reader import read_scp
+    from lasr_tpu_torch.models.e2e_online import \
+        E2E_Transformer_CTC_Univ_Dynamic
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    seed = state["seed"]
+    weights = state.pop("stream_rest_univ_weights")
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(seed + 11)
+        dict_path = _char_dict(tmp, UNIV["odim"])
+        dev_dir = _write_split(tmp, "dev", STREAM_UTTS,
+                               lambda: STREAM_UTT_SECS, rng)
+        ckpt = os.path.join(tmp, "univ.pt")
+        torch.save(weights, ckpt)
+        hparams, decode = (os.path.join(tmp, f"{x}.yaml")
+                           for x in ("hparams", "decode"))
+        with open(hparams, "w") as f:
+            yaml.safe_dump({
+                "model_config": {
+                    "name": "lasr.model.e2e_ctc_att."
+                            "e2e_transformer_online_offline:"
+                            "E2E_Transformer_CTC_Univ_Dynamic",
+                    "kwargs": UNIV},
+                "tokenizer_config": {
+                    "name": "lasr_tpu.data.tokenizer:CharTokenizer",
+                    "kwargs": {"dict_path": dict_path}}}, f)
+
+        def write_decode(method):
+            with open(decode, "w") as f:
+                yaml.safe_dump({
+                    "decode_config": dict(DECODE, decode_method=method),
+                    "test_data_config": {
+                        "name": "lasr_tpu.data.dataset:AudioDataSet",
+                        "kwargs": {
+                            "wav_list": [os.path.join(dev_dir, "wav.scp")],
+                            "text_list": [os.path.join(dev_dir, "text")],
+                            "audio_trans": ["norm", "fbank:80"]}}}, f)
+        write_decode("ctc_greedy")
+        out = os.path.join(tmp, "univ.txt")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lasr_tpu_torch.bin.decode",
+             "-train_config", hparams, "-decode_config", decode,
+             "-model_path", ckpt, "-output_file", out], cwd=here,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=here))
+        wall = time.perf_counter() - t
+        check(proc.returncode == 0, f"{label}: (c) decode CLI exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            rows = f.read().splitlines()
+        uid, wav0 = read_scp(os.path.join(dev_dir, "wav.scp"))[0]
+        asr = ASRProcess(hparams, decode, ckpt)
+        _, hyp0 = asr(wav0)
+        row0 = rows[0].rsplit(" (", 1)
+        log(f"{label}: (c) python -m lasr_tpu_torch.bin.decode ctc_greedy "
+            f"on the Univ checkpoint: {len(rows)} hypotheses in {wall:.1f} "
+            f"s (its process included); ASRProcess on {uid} gives row 0: "
+            f"{hyp0 == row0[0]} ({len(hyp0)} characters) [{card}]")
+        check(len(rows) == STREAM_UTTS and row0[1] == uid + ")"
+              and hyp0 == row0[0],
+              f"{label}: (c) {len(rows)} hypotheses, or ASRProcess's "
+              f"differs from row 0")
+        model = asr.model
+        del asr
+        refused = {}
+        for method in ("ctc_att", "ctc_att_online"):
+            write_decode(method)
+            try:
+                ASRProcess(hparams, decode, ckpt)
+                refused[method] = False
+            except ValueError as e:
+                refused[method] = "E2E_Transformer_CTC_Univ_Dynamic" in str(e)
+        log(f"{label}: (c) ctc_att / ctc_att_online on it raise the "
+            f"ValueError naming the class: {refused}")
+        check(all(refused.values()), f"{label}: (c) the joint search on "
+              f"the Univ model was not refused: {refused}")
+
+        # forward_per_chunk cut at chunk boundaries against the online view
+        from lasr_tpu_torch.data.reader import read_audio
+        wav, _ = read_audio(wav0)
+        dev = next(model.parameters()).device
+        with torch.no_grad():
+            feats, feat_len = DeviceFrontend(["norm", "fbank:80"])(
+                torch.from_numpy(np.asarray(wav, np.float32)[None]).to(dev),
+                torch.tensor([len(wav)], device=dev))
+            hs, n = model.encode(feats, feat_len, online=True)
+            chunk = UNIV["encoder_attention_chunk"]
+            T = feats.shape[1]
+            # 4·rows + 3 raw frames give ``rows`` subsampled ones
+            cuts = [4 * chunk * k + 3 for k in (2, 4)
+                    if 4 * chunk * k + 3 < T] + [T]
+            caches, outs = None, []
+            for c in cuts:
+                o, caches = model.encoder.forward_per_chunk(feats[:, :c],
+                                                            caches)
+                outs.append(o)
+            cat = torch.cat(outs, dim=1)[0]
+        want = hs[0, : int(n[0])]
+        err = float((cat - want).abs().max()) / float(want.abs().max()) \
+            if cat.shape == want.shape else math.inf
+        log(f"{label}: (c) forward_per_chunk in {len(cuts)} calls (raw "
+            f"frames {cuts}) vs encode(online=True), {tuple(want.shape)}: "
+            f"max_abs {err:.3e} of the largest magnitude (tol 1e-3) "
+            f"[{card}]")
+        check(err <= 1e-3, f"{label}: (c) forward_per_chunk off by {err}")
+        summary.update(decode_cli_rows=len(rows), asr_row0=hyp0 == row0[0],
+                       per_chunk_max_abs=err, joint_search_refused=refused)
+    return summary
+
+
+def _knob_step(cls, kw, flags, weights, batch, seed):
+    """(loss, gradients, peak GB, BatchNorm buffers) of one train-mode
+    step of ``cls(**kw, **flags)`` on ``weights`` from the Trainer's
+    generators of step 0."""
+    import torch
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    model = cls(**kw, **flags)
+    load_model_weights(model, weights)
+    trainer = _trainer(model, ["norm", "fbank:80", "specaug"], seed,
+                       odim=kw["odim"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    met, grads = trainer.loss_and_grads(batch, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = (float(met["loss_main"].detach()), [g.detach() for g in grads],
+           peak, [b.detach().clone() for n, b in model.named_buffers()
+                  if "running" in n], trainer.names)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _knob_errors(names, got, want):
+    """{"entry": (worst encoder gradient's max_abs difference relative
+    to its own largest magnitude, its name), "l2": (worst decoder / CTC
+    gradient's relative L2, its name)}; the zero-gradient leaves against
+    the largest gradient of all."""
+    top = max(float(w.abs().max()) for w in want)
+    worst = {"entry": (0.0, None), "l2": (0.0, None)}
+    for n, g, w in zip(names, got, want):
+        if n.startswith("encoder.") or n.endswith(ZERO_GRADIENT_LEAVES):
+            kind = "entry"
+            scale = top if n.endswith(ZERO_GRADIENT_LEAVES) \
+                else max(float(w.abs().max()), 1e-30)
+            err = float((g - w).abs().max()) / scale
+        else:
+            kind = "l2"
+            err = float((g - w).norm()) / max(float(w.norm()), 1e-30)
+        if err > worst[kind][0]:
+            worst[kind] = (err, n)
+    return worst
+
+
+def _rest_knobs(state, label, card):
+    """(d): remat (and, streaming, conv_once and row groups) against the
+    same step with the knobs off."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import (E2E_Conformer_CTC,
+                                                   E2E_Transformer_CTC)
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    seed = state["seed"]
+    batch = _train_batch(seed + 2)
+    nodrop = dict(encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+                  ctc_dropout=0.0, decoder_src_attention_sigmoid_noise=0.0)
+    all3 = dict(encoder_remat=True, encoder_conv_once=True,
+                encoder_layer_major_rows=KNOB_ROWS)
+    cases = [
+        # (family, class, widths, knobs, dropout 0.1 or 0)
+        ("train_stream", E2E_Transformer_CTC_Online, STREAM,
+         dict(encoder_remat=True), True),
+        ("train_stream", E2E_Transformer_CTC_Online, dict(STREAM, **nodrop),
+         all3, False),
+        ("train_tf", E2E_Transformer_CTC, TRANSFORMER,
+         dict(encoder_remat=True), True),
+        ("train_b", E2E_Conformer_CTC,
+         dict(RECIPE, encoder_use_pallas_attention=True),
+         dict(encoder_remat=True), True)]
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    summary = {}
+    for family, cls, kw, knobs, dropout in cases:
+        torch.manual_seed(seed)
+        weights = {k: v.cpu() for k, v in cls(**kw).state_dict().items()} \
+            if family != "train_b" else _seeded_recipe(seed)
+        runs = {}
+        for name, flags in (("off", {}), ("on", knobs)):
+            rel_attention_forward.launches = 0
+            rel_attention_backward.launches = 0
+            runs[name] = _knob_step(cls, kw, flags, weights, batch, seed)
+            runs[name] += ({"rel_attention_fwd":
+                            rel_attention_forward.launches,
+                            "rel_attention_bwd":
+                            rel_attention_backward.launches},)
+        (l0, g0, p0, b0, names, k0), (l1, g1, p1, b1, _, k1) = \
+            runs["off"], runs["on"]
+        rel = abs(l1 - l0) / abs(l0)
+        worst = _knob_errors(names, g1, g0)
+        (entry, entry_name), (l2, l2_name) = worst["entry"], worst["l2"]
+        stats = max((float((a - b).abs().max()) for a, b in zip(b1, b0)),
+                    default=0.0)
+        key = f"{family} {'+'.join(sorted(knobs))} dropout " \
+            f"{'0.1' if dropout else '0'}"
+        log(f"{label}: (d) {key}, B={TRAIN_BATCH} x {TRAIN_SECS:g} s: loss "
+            f"{l1:.6f} vs {l0:.6f} off (rel {rel:.2e}, tol "
+            f"{KNOB_TOL['loss']:g}), worst encoder gradient {entry_name} "
+            f"{entry:.2e} of its largest magnitude (tol "
+            f"{KNOB_TOL['entry']:g}), worst decoder/CTC gradient {l2_name} "
+            f"{l2:.2e} in L2 (tol {KNOB_TOL['l2']:g}), BatchNorm statistics "
+            f"max_abs "
+            f"{stats:.2e}; peak memory {p1:.2f} GB on / {p0:.2f} GB off; "
+            f"K3/K4 launches on {k1}, off {k0} [{card}]")
+        check(rel <= KNOB_TOL["loss"] and entry <= KNOB_TOL["entry"]
+              and l2 <= KNOB_TOL["l2"] and stats <= 1e-5,
+              f"{label}: (d) {key}: loss {rel}, gradients {worst}, "
+              f"statistics {stats}")
+        if family == "train_b":
+            blocks = RECIPE["encoder_num_blocks"]
+            check(k0 == {"rel_attention_fwd": blocks,
+                         "rel_attention_bwd": blocks}
+                  and k1 == {"rel_attention_fwd": 2 * blocks,
+                             "rel_attention_bwd": blocks},
+                  f"{label}: (d) K3/K4 launches {k1} with remat, {k0} "
+                  f"without (want K3 once more per block in the recompute)")
+        summary[key] = dict(loss_rel=rel, worst_encoder_entry=entry,
+                            worst_decoder_l2=l2,
+                            statistics_max_abs=stats, peak_gb_on=p1,
+                            peak_gb_off=p0, launches_on=k1, launches_off=k0)
+        del runs, weights
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_stream_rest(state):
+    """The streaming family's remaining paths at the stream phase's
+    widths: (a) the resumable online search against the from-scratch
+    refresh on the 10 s stream; (b) the Univ dual-view model trained
+    (f32 and bf16, and a dropout-0 step against the CPU); (c) its
+    checkpoint through the decode CLI and ASRProcess with ctc_greedy, its
+    per-chunk forward against the online view, the joint search refused;
+    (d) the encoders' memory knobs against the same step without them."""
+    import torch
+    from lasr_tpu_torch.models.e2e_online import \
+        E2E_Transformer_CTC_Univ_Dynamic
+    from lasr_tpu_torch.models.losses_univ import CTC_CE_Univ_Loss
+    label, card = "stream_rest", state["card"]
+    kernels = _kernel_counters()
+    t0, parts = time.perf_counter(), {}
+
+    def lap(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+        log(f"{label}: ({part}) took {parts[part]:.1f} s")
+    summary = {"card": card, "search": _rest_search(state, label, card)}
+    lap("a")
+    torch.cuda.empty_cache()
+    _train_family(state, "stream_rest_univ",
+                  E2E_Transformer_CTC_Univ_Dynamic, UNIV,
+                  criterion=CTC_CE_Univ_Loss, keep=True)
+    summary["univ_train"] = state["timings"]["stream_rest_univ"]
+    lap("b")
+    summary["univ_serving"] = _rest_univ_serving(state, label, card)
+    lap("c")
+    torch.cuda.empty_cache()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"{label}: (a)-(c) kernel launches {launches} (this path reaches "
+        f"none of K1-K4)")
+    check(not any(launches.values()), f"{label}: K1-K4 launched {launches} "
+          f"on a path that has none of them")
+    summary["launches_a_to_c"] = launches
+    summary["knobs"] = _rest_knobs(state, label, card)
+    lap("d")
+    summary["seconds"] = parts
+    summary["launches"] = {name: fn.launches for name, fn in kernels.items()}
+    print(json.dumps({"stream_rest": summary}), flush=True)
+    state["family_launches"][label] = summary["launches"]
+    state["timings"][label] = summary
 
 
 # fit_toy: the toy recipe's two configs, each trained by the train CLI in
@@ -3104,6 +3636,7 @@ def main(argv=None) -> int:
               ("decoders", phase_decoders), ("stream", phase_stream), ("bf16", phase_bf16),
               ("train_tf", phase_train_tf),
               ("train_stream", phase_train_stream),
+              ("stream_rest", phase_stream_rest),
               ("fit_toy", phase_fit_toy), ("dp", phase_dp)]
     t_start = time.perf_counter()
     for name, run in phases:

@@ -16,11 +16,13 @@ Layer map (same as lasr_tpu):
   ops/       fbank, SpecAugment, the CTC loss, and the attention kernels
              (CUDA + plain torch, forward and backward)
   modules/   nn.Modules (attention incl. monotonic, embeddings, conformer,
-             Transformer encoder/decoder, the streaming chunk encoder and
-             decoder, the LSTM stack and RNN LM, generator-driven
-             dropout, ...)
+             Transformer encoder/decoder, the streaming chunk encoder,
+             the dual-view encoders and the streaming decoder, the LSTM
+             stack and RNN LM, generator-driven dropout, activation
+             checkpointing that replays it, ...)
   models/    dict-in/dict-out joint CTC/attention models (Conformer,
-             Transformer, streaming), losses
+             Transformer, streaming, the Univ dual-view model), losses
+             (E2E_Loss, the Univ model's CTC_CE_Univ_Loss)
   data/      WAV reader, tokenizers, the frontend chain, pack_s2s
   train/     Adam/Noam (optax's update written out), EMA, the Trainer step
   parallel/  data parallelism over one process per GPU (torch.distributed)
@@ -28,7 +30,7 @@ Layer map (same as lasr_tpu):
              online, RNNLM fusion, n-best), long-form decoding, the host
              searches (ctc_bs, the lexicon + ARPA decoder, WFST), the
              decode-method dispatch, the chunk-incremental
-             StreamingRecognizer
+             StreamingRecognizer and its resumable beam search
   process/   one-call ASRProcess user API
 """
 

@@ -12,12 +12,14 @@ chunk behind the dispatch front, so a mid-stream call only waits for a
 chunk the card has had a chunk's worth of audio to finish.
 
 With a ``beam_decoder`` (a ``CTCAttBeamDecoder(online=True)``) every
-``beam_interval`` chunks the encoder states so far are searched from
-scratch (the reference's ``decode_feat_online`` on the audio prefix,
-the hypothesis length capped at ``beam_maxlen_ratio`` of the frames),
-and ``finalize`` returns the full search.  The incremental, resumable
-search (``beam_incremental=True``, ``IncrementalBeamSession``) is not
-ported and raises; its final result equals the from-scratch one.
+``beam_interval`` chunks the encoder states so far are searched: by
+default (``beam_incremental=True``) through an ``IncrementalBeamSession``,
+which keeps the search's state on the decoder's device and extends it
+over only the frames that arrived since the last refresh, so the prefix
+is never decoded again; with ``beam_incremental=False`` from scratch (the
+reference's ``decode_feat_online`` on the audio prefix, the hypothesis
+length capped at ``beam_maxlen_ratio`` of the frames).  ``finalize``
+returns the full search over the stream, which both modes give.
 """
 
 from __future__ import annotations
@@ -41,6 +43,64 @@ class ServingEngine:
         self.cfg = cfg
 
 
+class IncrementalBeamSession:
+    """The resumable online joint beam search of one stream.
+
+    Wraps a ``CTCAttBeamDecoder(online=True)``: the search state lives on
+    the decoder's device between refreshes, and each ``refresh`` extends
+    it over only the new encoder frames, then runs token steps until the
+    frame horizon pauses the search (``CTCAttBeamDecoder._resume``).
+    ``refresh(..., final=True)`` completes it: the from-scratch search
+    over the whole stream's states.  A refresh costs the steps its new
+    frames allow over the frames so far, where the from-scratch refresh
+    re-runs every step.  The frames are padded to a multiple of
+    ``bucket`` (``Lmax`` = that + 2), so the partials equal
+    ``lasr_tpu``'s at the same refresh points."""
+
+    def __init__(self, decoder, bucket: int = 64):
+        if not decoder.online:
+            raise ValueError("IncrementalBeamSession needs online=True")
+        if decoder.maxlenratio != 0.0 or decoder.minlenratio != 0.0:
+            raise ValueError(
+                "incremental search supports maxlenratio == minlenratio "
+                "== 0 only (their row caps need the final length, which "
+                "is unknown mid-stream)")
+        self.decoder = decoder
+        self.bucket = max(1, bucket)
+        self._state = None
+        self._n = 0
+
+    def reset(self):
+        self._state = None
+        self._n = 0
+
+    @torch.no_grad()
+    def refresh(self, hs: torch.Tensor, final: bool = False):
+        """``hs``: (T, D) every encoder state of the stream so far (only
+        the frames past the previous refresh are new).  Returns (token ids
+        with sos (and eos when ended), score, from a live hypothesis)
+        mid-stream, or the ``BeamHypotheses`` at ``final``."""
+        dec = self.decoder
+        n_new, D = hs.shape
+        Tb = max(self.bucket, -(-n_new // self.bucket) * self.bucket)
+        hs_pad = hs.new_zeros(1, Tb, D, device=dec.device)
+        hs_pad[0, :n_new] = hs
+        if self._state is None:
+            K = dec.beam
+            self._state = dec._init_state(
+                1, K, 2 * K, Tb + 2,
+                torch.zeros(1, Tb, dec.blank + 1, device=dec.device),
+                track_bands=True)
+        self._state, out = dec._resume(self._state, hs_pad, self._n, n_new,
+                                       final=final)
+        self._n = n_new
+        if final:
+            return dec._hypotheses(*out)
+        tok, length, score, live = out
+        return (tok[0, : int(length[0])].tolist(), float(score[0]),
+                bool(live[0]))
+
+
 class StreamingRecognizer:
     """Greedy streaming CTC recognizer over an E2E_Transformer_CTC_Online
     model (one utterance per instance), on the model's device."""
@@ -52,12 +112,6 @@ class StreamingRecognizer:
                  beam_bucket: int = 64, beam_maxlen_ratio: float = 0.5,
                  beam_incremental: bool = True,
                  engine: Optional[ServingEngine] = None):
-        if beam_decoder is not None and beam_incremental:
-            raise NotImplementedError(
-                "beam_incremental=True (the resumable IncrementalBeamSession "
-                "search) is not ported (ROADMAP A8); pass "
-                "beam_incremental=False for the from-scratch refresh, whose "
-                "final result is the same")
         if engine is None:
             engine = ServingEngine(model, fbank or KaldiFbankConfig())
         elif engine.model is not model:
@@ -77,6 +131,10 @@ class StreamingRecognizer:
         self.beam_interval = max(1, beam_interval)
         self.beam_bucket = beam_bucket
         self.beam_maxlen_ratio = beam_maxlen_ratio
+        self.beam_session = None
+        if beam_decoder is not None and beam_incremental:
+            self.beam_session = IncrementalBeamSession(beam_decoder,
+                                                       bucket=beam_bucket)
         self._hs: List[torch.Tensor] = []     # per-chunk (cur/4, D) states
         self._lpz: List[torch.Tensor] = []    # per-chunk (cur/4, V) log-probs
         self._beam_tokens: Optional[List[int]] = None
@@ -162,8 +220,9 @@ class StreamingRecognizer:
             # emission below stays on the n_out real-audio frames
             n_ref = self.cur // 4
             self._hs.append(hs[0, :n_ref])
-            self._lpz.append(torch.log_softmax(logits[0, :n_ref].float(),
-                                               dim=-1))
+            if self.beam_session is None:
+                self._lpz.append(torch.log_softmax(
+                    logits[0, :n_ref].float(), dim=-1))
         toks: List[int] = []
         for t in logits[0].argmax(dim=-1)[:n_out].tolist():
             if t != self._prev_emit and t != self.blank:
@@ -176,9 +235,23 @@ class StreamingRecognizer:
         # follows
         if self.beam_decoder is not None and not draining and \
                 self._n_harvested % self.beam_interval == 0:
-            self._beam_tokens = self._run_beam(final=False)
+            if self.beam_session is not None:
+                self._beam_tokens = self._refresh_incremental()
+            else:
+                self._beam_tokens = self._run_beam(final=False)
             self._greedy_since_beam = []
         return toks
+
+    def _refresh_incremental(self) -> Optional[List[int]]:
+        """A mid-stream refresh of the persisted search over the new
+        chunks' states."""
+        if not self._hs:
+            return None
+        toks, _, live = self.beam_session.refresh(torch.cat(self._hs))
+        if len(toks) <= 1:
+            return None
+        # a live prefix carries sos only, an ended hypothesis sos...eos
+        return toks[1:] if live else toks[1:-1]
 
     def _run_beam(self, final: bool = True) -> Optional[List[int]]:
         """The online beam search over the encoder states so far, padded
@@ -217,7 +290,13 @@ class StreamingRecognizer:
         self._drain_chunks(final=True)
         tokens = list(self._tokens)
         if self.beam_decoder is not None:
-            beam_tokens = self._run_beam()
+            if self.beam_session is not None and self._hs:
+                hyp = self.beam_session.refresh(torch.cat(self._hs),
+                                                final=True)
+                beam_tokens = hyp.best_ids(0) if hyp.lengths[0, 0] > 0 \
+                    else None
+            else:
+                beam_tokens = self._run_beam()
             if beam_tokens is not None:
                 tokens = beam_tokens
         return tokens, self._text(tokens)

@@ -51,6 +51,9 @@ class CTCHead(nn.Sequential):
 class E2EBase(nn.Module):
     """Shared forward / decode-hook structure."""
 
+    # whether CTCAttBeamDecoder searches this model
+    joint_beam_search = True
+
     def _check_eval(self):
         if self.training:
             raise RuntimeError("the decode hooks run in eval mode; call "
@@ -125,9 +128,9 @@ class E2E_Transformer_CTC(E2EBase):
     """Transformer encoder + Transformer decoder + CTC head.
 
     Accepts every constructor kwarg of the JAX class.  The encoder's input
-    layer is conv2d or linear; ``encoder_remat`` (a TPU memory knob) and a
-    sharding object raise.  ``device=None`` means CUDA (raises without a
-    GPU); ``dtype`` is the compute dtype (float32, or bfloat16 with
+    layer is conv2d or linear; ``encoder_remat`` recomputes each encoder
+    block in the backward (``modules.remat``); a sharding object raises.
+    ``device=None`` means CUDA (raises without a GPU); ``dtype`` is the compute dtype (float32, or bfloat16 with
     float32 parameters, gradients and optimizer state: the casts of
     ``modules.layers``, as ``lasr_tpu``'s ``dtype=jnp.bfloat16``)."""
 
@@ -150,10 +153,6 @@ class E2E_Transformer_CTC(E2EBase):
                  ctc_dropout: float = 0.1, encoder_remat: bool = False,
                  encoder_act_sharding=None, dtype=None, device=None):
         super().__init__()
-        if encoder_remat:
-            raise NotImplementedError(
-                "encoder_remat of the Transformer encoder is not ported "
-                "(ROADMAP A8)")
         if encoder_act_sharding is not None:
             raise NotImplementedError(
                 "encoder_act_sharding (sequence parallelism) is not ported "
@@ -167,7 +166,7 @@ class E2E_Transformer_CTC(E2EBase):
             num_blocks=encoder_num_blocks, dropout_rate=encoder_dropout_rate,
             positional_dropout_rate=encoder_dropout_rate,
             attention_dropout_rate=encoder_attention_dropout_rate,
-            input_layer=encoder_input_layer)
+            input_layer=encoder_input_layer, remat=encoder_remat)
         self.decoder = Decoder(
             odim=odim, attention_dim=decoder_attention_dim,
             attention_heads=decoder_attention_heads,
@@ -192,9 +191,11 @@ class E2E_Conformer_CTC(E2EBase):
     under ``encoder_pos_dropout_mode="rotated"``),
     ``encoder_use_pallas_attention`` its rel-pos attention through the rel
     kernels; ``encoder_pos_dropout_mode`` places positional dropout as in
-    the JAX encoder.  Knobs that only shape TPU training
-    (``encoder_remat*``, ``encoder_scan_layers``, the pipeline microbatch
-    count and the sharding objects) are accepted and ignored;
+    the JAX encoder.  ``encoder_remat`` recomputes each Conformer block
+    in the backward (``modules.remat``; the kernels run again in the
+    recompute).  Knobs that only shape TPU training
+    (``encoder_remat_attend``, ``encoder_scan_layers``, the pipeline
+    microbatch count and the sharding objects) are accepted and ignored;
     ``encoder_pipeline_stages > 1`` changes the parameter layout and
     ``encoder_ff_int8`` the feed-forward's numbers (int8 GEMMs, at eval
     too), and both raise.  ``device=None`` means CUDA (raises without a
@@ -258,7 +259,7 @@ class E2E_Conformer_CTC(E2EBase):
             cnn_module_kernel=encoder_cnn_kernel,
             use_pallas_attention=encoder_use_pallas_attention,
             rot_fold_pallas=encoder_rot_fold_pallas,
-            pos_dropout_mode=encoder_pos_dropout_mode)
+            pos_dropout_mode=encoder_pos_dropout_mode, remat=encoder_remat)
         self.decoder = Decoder(
             odim=odim, attention_dim=decoder_attention_dim,
             attention_heads=decoder_attention_heads,

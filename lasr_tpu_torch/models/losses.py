@@ -101,12 +101,16 @@ class E2E_Loss:
         utt_valid = hs_len > 0   # bucket-padding rows have hs_len == 0
         n_valid = torch.clamp(global_sum(utt_valid.sum()), min=1)
         att = self.att_loss(att_out, att_label, utt_valid)
+        ctc = self.ctc_loss(ctc_out, ctc_label, hs_len, utt_valid, n_valid)
+        main = (1.0 - self.rate) * att + self.rate * ctc
+        return main, att, ctc
+
+    def ctc_loss(self, ctc_out, ctc_label, hs_len, utt_valid, n_valid):
+        """The CTC loss summed over the valid rows / their global count."""
         labels, label_len = ctc_labels_from_padded(ctc_label, self.ignore_id)
         ll = ctc_forward_from_logits(ctc_out, hs_len, labels, label_len,
                                      blank=self.blank_id)
-        ctc = -torch.where(utt_valid, ll, 0.0).sum() / n_valid
-        main = (1.0 - self.rate) * att + self.rate * ctc
-        return main, att, ctc
+        return -torch.where(utt_valid, ll, 0.0).sum() / n_valid
 
     def train_forward(self, input_dict: Dict) -> Dict:
         main, att, ctc = self(

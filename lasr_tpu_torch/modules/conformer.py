@@ -23,6 +23,7 @@ from lasr_tpu_torch.modules.embedding import (PositionalEncoding,
                                               RelPositionalEncoding)
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 from lasr_tpu_torch.modules.layers import Computes, Conv1d, LayerNorm
+from lasr_tpu_torch.modules.remat import checkpointed, recomputing
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
 from lasr_tpu_torch.parallel import dist
@@ -44,7 +45,8 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
     (Σx, Σx², count) summed over the ranks by a differentiable all-reduce,
     whose backward carries the cross-rank terms; the running statistics
     stay identical on every rank.  (``nn.SyncBatchNorm`` moves
-    ``running_var`` with the unbiased variance.)"""
+    ``running_var`` with the unbiased variance.)  A remat recompute
+    (``modules.remat``) normalizes again but moves nothing."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
@@ -61,9 +63,10 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
         else:
             mean, sq = x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
         var = torch.clamp(sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
+        if not recomputing():
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean[:, None]) * mul[:, None]
                 + self.bias[:, None]).to(self.dtype)
@@ -154,7 +157,8 @@ class ConformerEncoder(nn.Module):
     reference's semantics; training scores through the skewed-table fold
     for T <= 1024, else the per-layer rel-shift), ``"rotated"`` on the
     rotated position-query u, so training runs the rotated fold (and, with
-    ``rot_fold_pallas``, the rot kernels)."""
+    ``rot_fold_pallas``, the rot kernels).  ``remat`` recomputes each
+    block's activations in the backward (``modules.remat``)."""
 
     def __init__(self, idim: int, attention_dim: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -167,8 +171,9 @@ class ConformerEncoder(nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  use_pallas_attention: bool = False, rot_fold: bool = True,
                  rot_fold_pallas: bool = False,
-                 pos_dropout_mode: str = "table"):
+                 pos_dropout_mode: str = "table", remat: bool = False):
         super().__init__()
+        self.remat = remat
         if input_layer != "conv2d":
             raise NotImplementedError(
                 f"input_layer {input_layer!r}: only conv2d is ported")
@@ -231,5 +236,9 @@ class ConformerEncoder(nn.Module):
                 and pos_emb.shape[1] == 2 * T - 1 and T <= 1024):
             pos_table = build_skewed_pos_table(pos_emb)
         for layer in self.encoders:
-            h = layer(h, mask, pos_emb, conv_zero, pos_table)
+            if self.remat:
+                h = checkpointed(layer, h, mask, pos_emb, conv_zero,
+                                 pos_table)
+            else:
+                h = layer(h, mask, pos_emb, conv_zero, pos_table)
         return self.after_norm(h), h_len

@@ -8,29 +8,46 @@ step), never from torch's global RNG; a train-mode forward with a nonzero
 rate outside such a block raises.  A rate of 0, or eval mode, is the
 identity and draws nothing.  ``standard_normal`` draws the train-time
 Gaussian noise of the same stream (the monotonic attention's sigmoid
-noise) from the same generator, under the same rule.
+noise) from the same generator, under the same rule.  ``shared_randint``
+draws what must agree across data-parallel ranks (the dual encoder's
+chunk size) from the block's ``shared`` generator, which every rank
+holds in the same state (the ``Trainer``'s SpecAugment generator).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+from typing import Optional
 
 import torch
 from torch import nn
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
     "lasr_tpu_torch_dropout_generator", default=None)
+_SHARED: contextvars.ContextVar = contextvars.ContextVar(
+    "lasr_tpu_torch_shared_generator", default=None)
 
 
 @contextlib.contextmanager
-def dropout_generator(generator: torch.Generator):
-    """Train-mode dropout inside the block draws from ``generator``."""
+def dropout_generator(generator: torch.Generator,
+                      shared: Optional[torch.Generator] = None):
+    """Train-mode dropout inside the block draws from ``generator``, and
+    ``shared_randint`` from ``shared`` (or, without it, from
+    ``generator``)."""
     token = _GENERATOR.set(generator)
+    shared_token = _SHARED.set(shared)
     try:
         yield generator
     finally:
+        _SHARED.reset(shared_token)
         _GENERATOR.reset(token)
+
+
+def generator_states():
+    """(dropout generator, shared generator) of the innermost block, each
+    None where absent."""
+    return _GENERATOR.get(), _SHARED.get()
 
 
 def _generator() -> torch.Generator:
@@ -47,6 +64,15 @@ def standard_normal(like: torch.Tensor) -> torch.Tensor:
     block's generator."""
     return torch.randn(like.shape, generator=_generator(),
                        device=like.device, dtype=like.dtype)
+
+
+def shared_randint(high: int) -> int:
+    """An integer in [0, high) from the block's shared generator (its
+    dropout generator when it has none)."""
+    gen = _SHARED.get()
+    if gen is None:
+        gen = _generator()
+    return int(torch.randint(high, (1,), generator=gen, device=gen.device))
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:

@@ -15,7 +15,16 @@
     equal to its sequential chunk scan), ``encode_chunk`` serves one
     chunk against carried memories.  Each chunk keeps its first
     cur/4 outputs; the conv margin's extra trailing column is masked out
-    of the keys (``key_sub``).
+    of the keys (``key_sub``).  Its training knobs: ``remat`` (each
+    layer recomputed in the backward, ``modules.remat``),
+    ``layer_major_rows`` (the attention and feed-forward of a layer in
+    groups of at most that many chunk rows, each group recomputed in the
+    backward) and ``conv_once`` (the subsampling conv once over the
+    stream, each chunk's rows sliced from it).
+  - ``DualTransformerEncoder``: the offline view and the chunk-masked
+    online view over one Transformer encoder (``core``), and its
+    incremental per-chunk forward; ``ParallelDynamicDualEncoder`` runs
+    both views as one 2B-row batch with a chunk size drawn per step.
   - ``StreamDecoderLayer`` / ``StreamDecoder``: the Transformer decoder
     with monotonic truncated source attention
     (``MTMultiHeadedAttention``), its full forward (optionally returning
@@ -34,10 +43,8 @@ casting layers, so a model computes in its compute dtype (bf16 as
 ``lasr_tpu``'s ``dtype=jnp.bfloat16``); the memories and the decode
 caches are kept in it.
 
-Not ported: ``remat``, ``layer_major_rows > 0`` and ``conv_once`` of the
-``ChunkEncoder`` (they raise), its ``row_cap`` grouping, and the dual
-encoders of the Univ model.  Cached steps are eval-only and write the
-step's self-attention keys and values into the cache in place.
+Cached steps are eval-only and write the step's self-attention keys and
+values into the cache in place.
 """
 
 from __future__ import annotations
@@ -51,12 +58,14 @@ from torch import nn
 
 from lasr_tpu_torch.modules.attention import (MTMultiHeadedAttention,
                                               MultiHeadedAttention)
-from lasr_tpu_torch.modules.dropout import dropout
+from lasr_tpu_torch.modules.dropout import dropout, shared_randint
 from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 from lasr_tpu_torch.modules.layers import Embedding, LayerNorm, Linear
+from lasr_tpu_torch.modules.remat import checkpointed
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
-from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
+from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS, Encoder
+from lasr_tpu_torch.utils.masks import chunk_attention_mask
 
 
 class StreamEncoderLayer(nn.Module):
@@ -89,11 +98,15 @@ class StreamEncoderLayer(nn.Module):
         new_mem = torch.cat([mem, xh[:, : self.hop_sub]], dim=1)
         return out, new_mem[:, -self.mem_len_sub:].detach()
 
-    def forward_all_chunks(self, x, kmask, n: int):
+    def forward_all_chunks(self, x, kmask, n: int, row_cap: int = 0):
         """All n chunks at once.  x: (n·B, Tc, D) chunk-major; kmask:
         (n·B, 1, M+Tc).  Chunk c's memory is the normed hop regions of
         chunks < c, the last M frames of them (zeros before the stream).
-        Returns (n·B, Tc, D)."""
+        ``row_cap`` > 0: the attention and feed-forward (row-independent
+        once the memories are gathered) run over groups of at most
+        row_cap chunk rows, each recomputed in the backward, so the peak
+        of their temporaries scales with row_cap, not n·B.  Returns
+        (n·B, Tc, D)."""
         xh = self.norm1(x)
         NB, Tc, D = xh.shape
         B = NB // n
@@ -104,7 +117,13 @@ class StreamEncoderLayer(nn.Module):
         idx = (torch.arange(n, device=x.device) * hop)[:, None] \
             + torch.arange(M, device=x.device)[None, :]
         mem = stream[:, idx].transpose(0, 1).reshape(NB, M, D).detach()
-        return self._attend_ff(xh, torch.cat([mem, xh], dim=1), kmask, x)
+        kx = torch.cat([mem, xh], dim=1)
+        if row_cap and row_cap < NB:
+            return torch.cat([
+                checkpointed(self._attend_ff, *(a[lo: lo + row_cap]
+                                                for a in (xh, kx, kmask, x)))
+                for lo in range(0, NB, row_cap)])
+        return self._attend_ff(xh, kx, kmask, x)
 
 
 def _chunk_grid(T_raw: int, cur: int, right: int, hop: int) -> int:
@@ -122,10 +141,17 @@ class ChunkEncoder(nn.Module):
     """Streaming chunked encoder: x (B, T, idim), x_len (B,) → (hs (B,
     n·cur/4, D), hs_len (B,)).
 
-    ``remat`` is a TPU memory knob: training the full-width model (d=320,
-    12 blocks) on 32 × 15.6 s batches without it peaks at ~19 GB in f32
-    on an 80 GB H100 (``chip_smoke.py``'s ``train_stream``), so it is not
-    ported and raises, as do ``conv_once`` and ``layer_major_rows > 0``."""
+    Memory knobs of the training forward (``lasr_tpu``'s): ``remat``
+    recomputes each layer in the backward; ``layer_major_rows`` > 0
+    groups each layer's attention and feed-forward by at most that many
+    chunk rows (the same numbers as one group); ``conv_once`` runs the
+    subsampling conv once over the whole stream and slices each chunk's
+    rows from it: stream row c·hop/4 + j reads the raw taps and the
+    positional index of chunk c's row j, so the outputs match the
+    per-chunk form up to the conv's summation order, and in training
+    the overlapping rows share one positional-dropout draw where the
+    per-chunk form draws for each chunk.  With dropout on, ``remat``
+    alone keeps the draws of the plain forward."""
 
     def __init__(self, idim: int, attention_dim: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -141,12 +167,8 @@ class ChunkEncoder(nn.Module):
             raise NotImplementedError(
                 f"ChunkEncoder input_layer {input_layer!r}: conv2d only, as "
                 f"in lasr_tpu")
-        for flag, on in (("remat", remat), ("conv_once", conv_once),
-                         ("layer_major_rows > 0", layer_major_rows > 0)):
-            if on:
-                raise NotImplementedError(
-                    f"ChunkEncoder {flag} is not ported (ROADMAP A8: the "
-                    f"streaming family's training knobs)")
+        self.remat, self.conv_once = remat, conv_once
+        self.layer_major_rows = layer_major_rows
         # layer_major=False selects lasr_tpu's sequential chunk scan, the
         # same numbers as the layer-major form this forward runs
         del layer_major
@@ -178,20 +200,39 @@ class ChunkEncoder(nn.Module):
         return torch.arange(M, device=valid_mem.device) \
             >= (M - valid_mem[..., None])
 
-    def _forward_layer_major(self, chunks, offsets, valid_mem, key_valid):
+    def _forward_layer_major(self, chunks, offsets, valid_mem, key_valid,
+                             x_pad):
         """chunks: (n, B, chunk_raw, idim); offsets / valid_mem: (n,);
-        key_valid: (n, B, chunk_sub).  Returns (n, B, cur_sub, D)."""
+        key_valid: (n, B, chunk_sub); x_pad: the padded stream (B, T',
+        idim) the chunks were cut from.  Returns (n, B, cur_sub, D)."""
         n, B, chunk_raw, idim = chunks.shape
-        h, _ = self.embed(
-            chunks.reshape(n * B, chunk_raw, idim),
-            torch.full((n * B,), chunk_raw, dtype=torch.int32,
-                       device=chunks.device),
-            offset=offsets.repeat_interleave(B))
-        Tc, M = h.shape[1], self.mem_len_sub
+        dev = chunks.device
+        Tc = ((chunk_raw - 1) // 2 - 1) // 2
+        if self.conv_once:
+            # stream row c·hop_sub + j is chunk c's row j
+            h_full, _ = self.embed(x_pad, torch.full(
+                (B,), x_pad.shape[1], dtype=torch.int32, device=dev))
+            need = self.hop_sub * (n - 1) + Tc
+            h_full = F.pad(h_full, (0, 0, 0, max(0, need - h_full.shape[1])))
+            idx = (torch.arange(n, device=dev) * self.hop_sub)[:, None] \
+                + torch.arange(Tc, device=dev)
+            h = h_full[:, idx].transpose(0, 1).reshape(n * B, Tc, -1)
+        else:
+            h, _ = self.embed(
+                chunks.reshape(n * B, chunk_raw, idim),
+                torch.full((n * B,), chunk_raw, dtype=torch.int32,
+                           device=dev),
+                offset=offsets.repeat_interleave(B))
+        M = self.mem_len_sub
         kmask = torch.cat([self._mem_mask(valid_mem)[:, None, :].expand(
             n, B, M), key_valid], dim=2).reshape(n * B, 1, M + Tc)
         for layer in self.encoders:
-            h = layer.forward_all_chunks(h, kmask, n)
+            if self.remat:
+                h = checkpointed(layer.forward_all_chunks, h, kmask, n,
+                                 self.layer_major_rows)
+            else:
+                h = layer.forward_all_chunks(h, kmask, n,
+                                             self.layer_major_rows)
         return self.after_norm(h).reshape(n, B, Tc, -1)[:, :, : self.cur_sub]
 
     def forward(self, x, x_len, ref_tail: bool = False):
@@ -216,7 +257,8 @@ class ChunkEncoder(nn.Module):
                      & (j < self.key_sub)[None, None, :])
         outs = self._forward_layer_major(
             chunks.transpose(0, 1), starts // self.sub,
-            torch.clamp(starts // self.sub, max=self.mem_len_sub), key_valid)
+            torch.clamp(starts // self.sub, max=self.mem_len_sub), key_valid,
+            x_pad)
         hs = outs.transpose(0, 1).reshape(B, -1, self.attention_dim)
         if ref_tail:
             n_solo = torch.clamp((x_len + hop - cur - 1) // hop + 1, min=0)
@@ -264,6 +306,115 @@ class ChunkEncoder(nn.Module):
             h, m = layer(h, mem, kmask)
             new_mems.append(m)
         return self.after_norm(h)[:, : self.cur_sub], tuple(new_mems)
+
+
+class DualTransformerEncoder(nn.Module):
+    """The offline view and the chunk-masked online view of one
+    Transformer encoder (``core``: ``encoder.core.*``, ``lasr_tpu``'s
+    parameter tree).  The online view's attention is the block-chunk
+    mask of ``attention_chunk`` subsampled frames (and, when
+    ``attention_left`` >= 0, that many chunks to the left) under the
+    padding mask."""
+
+    def __init__(self, idim: int, attention_dim: int = 256,
+                 attention_heads: int = 4, attention_chunk: int = 16,
+                 attention_left: int = -1, linear_units: int = 2048,
+                 num_blocks: int = 6, dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0,
+                 input_layer: str = "conv2d"):
+        super().__init__()
+        self.attention_chunk, self.attention_left = attention_chunk, \
+            attention_left
+        self.core = Encoder(
+            idim, attention_dim, attention_heads, linear_units, num_blocks,
+            dropout_rate, positional_dropout_rate, attention_dropout_rate,
+            input_layer)
+
+    def _chunk_mask(self, size: int, device, chunk=None):
+        return chunk_attention_mask(
+            size, self.attention_chunk if chunk is None else chunk,
+            self.attention_left, device=device)
+
+    def _run(self, h, h_len, att_mask=None):
+        mask = (torch.arange(h.shape[1], device=h.device)[None, :]
+                < h_len[:, None])[:, None, :]
+        if att_mask is not None:
+            mask = mask & att_mask[None]
+        return self.core.after_norm(self.core.run_layers(h, mask))
+
+    def forward(self, x, x_len):
+        """(offline view, online view, hs_len)."""
+        h, h_len = self.core.embed_input(x, x_len)
+        return (self._run(h, h_len),
+                self._run(h, h_len, self._chunk_mask(h.shape[1], h.device)),
+                h_len)
+
+    def forward_offline(self, x, x_len):
+        h, h_len = self.core.embed_input(x, x_len)
+        return self._run(h, h_len), h_len
+
+    def forward_online(self, x, x_len):
+        h, h_len = self.core.embed_input(x, x_len)
+        return self._run(h, h_len, self._chunk_mask(h.shape[1], h.device)
+                         ), h_len
+
+    def forward_per_chunk(self, x_raw, caches=None, right: int = 0):
+        """Incremental chunk-masked inference (eval, conv2d input):
+        ``x_raw`` (B, T_raw, idim) is every raw frame received so far;
+        only the frames past the cached ones are embedded (with their
+        positional offset), and each layer takes just the new rows as
+        queries against its cached inputs.  ``caches``: the previous
+        call's (None to start); ``right``: raw right-context frames held
+        back and encoded again by the next call.  Returns (the new
+        outputs (B, chunk', D), the new caches).  Calls cut at chunk
+        boundaries (multiples of ``attention_chunk`` subsampled frames)
+        give, concatenated, the online view."""
+        right_sub = right // 4
+        B = x_raw.shape[0]
+        offset = 0 if caches is None else caches[0].shape[1]
+        new_raw = x_raw[:, 4 * offset:]
+        h, _ = self.core.embed_input(
+            new_raw, torch.full((B,), new_raw.shape[1], dtype=torch.int32,
+                                device=x_raw.device), pos_offset=offset)
+        if caches is not None:
+            h = torch.cat([caches[0], h], dim=1)
+        hlen = h.shape[1]
+        chunk, keep = hlen - offset, hlen - right_sub
+        mask = self._chunk_mask(hlen, h.device)[None, -chunk:]
+        new_caches = [h[:, :keep]]
+        rows = h[:, -chunk:]
+        for i, layer in enumerate(self.core.encoders):
+            full = rows if caches is None else torch.cat([caches[i + 1],
+                                                          rows], dim=1)
+            rows = layer(full, mask, q_rows=chunk)
+            new_caches.append(full[:, :keep])
+        return self.core.after_norm(rows[:, : chunk - right_sub]), \
+            new_caches
+
+
+class ParallelDynamicDualEncoder(DualTransformerEncoder):
+    """Both views in one forward over a 2B-row batch (offline rows, then
+    online rows).  In training the online chunk is ``attention_chunk`` +
+    U{0..16} - 8 (at least 1), drawn once per forward by
+    ``modules.dropout.shared_randint``: from the ``Trainer``'s shared
+    generator, in the same state on every data-parallel rank, so every
+    rank masks alike (``lasr_tpu`` draws it once for the global batch).
+    In eval the chunk is ``attention_chunk``."""
+
+    def forward(self, x, x_len):
+        h, h_len = self.core.embed_input(x, x_len)
+        B, T = h.shape[:2]
+        chunk = self.attention_chunk
+        if self.training:
+            chunk = max(1, chunk + shared_randint(17) - 8)
+        pad = (torch.arange(T, device=h.device)[None, :]
+               < h_len[:, None])[:, None, :]
+        masks = torch.cat([pad.expand(B, T, T),
+                           pad & self._chunk_mask(T, h.device, chunk)[None]])
+        h2 = self.core.after_norm(self.core.run_layers(
+            torch.cat([h, h]), masks))
+        return h2[:B], h2[B:], h_len
 
 
 class StreamDecoderLayer(nn.Module):

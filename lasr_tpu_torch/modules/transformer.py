@@ -4,8 +4,10 @@
 ``Encoder``: the conv2d subsampling (or, ``input_layer="linear"``,
 Linear → LayerNorm → dropout → ReLU) with the absolute positional
 encoding, pre-norm blocks of self-attention and a ReLU feed-forward, and
-an after-norm; ``remat`` and the other input layers of the JAX module are
-not ported.
+an after-norm; ``remat`` recomputes each block in the backward
+(``modules.remat``).  The other input layers of the JAX module are not
+ported.  ``EncoderLayer(..., q_rows=n)`` takes the last n rows alone as
+queries (the per-chunk streaming forward of the dual encoder).
 
 Decoder: pre-norm residual blocks (LayerNorm eps 1e-12) of self-attention,
 source attention and a ReLU feed-forward, each branch dropped out before
@@ -29,6 +31,7 @@ from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 from lasr_tpu_torch.modules.layers import Embedding, LayerNorm, Linear
+from lasr_tpu_torch.modules.remat import checkpointed
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 
 LAYERNORM_EPS = 1e-12  # reference layer_norm.py eps
@@ -52,9 +55,16 @@ class EncoderLayer(nn.Module):
     def _drop(self, x):
         return dropout(x, self.dropout_rate, self.training)
 
-    def forward(self, x, mask):
-        y = self.norm1(x)
-        x = x + self._drop(self.self_attn(y, y, y, mask))
+    def forward(self, x, mask, q_rows=None):
+        """``q_rows``: only the last q_rows positions are queries (keys
+        and values span all of x), and only those rows come back; a
+        (B, T, T) mask keeps its last q_rows rows."""
+        y = q = self.norm1(x)
+        if q_rows is not None:
+            x, q = x[:, -q_rows:], y[:, -q_rows:]
+            if mask is not None and mask.ndim == 3 and mask.shape[1] > 1:
+                mask = mask[:, -q_rows:]
+        x = x + self._drop(self.self_attn(q, y, y, mask))
         return x + self._drop(self.feed_forward(self.norm2(x)))
 
 
@@ -66,9 +76,10 @@ class Encoder(nn.Module):
                  num_blocks: int = 6, dropout_rate: float = 0.1,
                  positional_dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0,
-                 input_layer: str = "conv2d"):
+                 input_layer: str = "conv2d", remat: bool = False):
         super().__init__()
         self.input_layer = input_layer
+        self.remat = remat
         pos_enc = PositionalEncoding(attention_dim, positional_dropout_rate)
         if input_layer == "conv2d":
             self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc,
@@ -103,9 +114,13 @@ class Encoder(nn.Module):
                                     pos_offset=pos_offset)
         mask = (torch.arange(h.shape[1], device=h.device)[None, :]
                 < h_len[:, None])[:, None, :]
+        return self.after_norm(self.run_layers(h, mask)), h_len
+
+    def run_layers(self, h, mask):
+        """The blocks over h (B, T, D) under a (B, 1 or T, T) mask."""
         for layer in self.encoders:
-            h = layer(h, mask)
-        return self.after_norm(h), h_len
+            h = checkpointed(layer, h, mask) if self.remat else layer(h, mask)
+        return h
 
 
 class DecoderLayer(nn.Module):

@@ -5,9 +5,9 @@
 One ``train_step`` is, as ``lasr_tpu``'s jitted ``_train_step``: the device
 frontend with SpecAugment, ``pack_s2s``, the model forward in train mode,
 ``E2E_Loss``, the backward, clipping to a global norm of ``grad_clip``,
-Adam with its schedule, and the EMA update, with the metrics
-``loss_main``, ``att_loss``, ``ctc_loss``, ``att_corr``, ``ctc_cer`` and
-``grad_norm`` (of the unclipped gradient).  ``acc_grads = k`` has
+Adam with its schedule, and the EMA update, with the criterion's metrics
+(``loss_main``, ``att_loss``, ``ctc_loss``, ``att_corr``, ``ctc_cer``
+for ``E2E_Loss``) and ``grad_norm`` (of the unclipped gradient).  ``acc_grads = k`` has
 ``optax.MultiSteps`` semantics: the gradients of k calls are averaged, and
 the k-th call clips and updates once; BatchNorm statistics and the EMA
 move on every call.
@@ -76,6 +76,8 @@ from lasr_tpu_torch.train.ema import ema_init, ema_update
 from lasr_tpu_torch.train.optimizer import clip_by_global_norm, global_norm
 from lasr_tpu_torch.utils.weights import checkpoint_name, checkpoint_steps
 
+# a step's metrics under E2E_Loss (a criterion's own keys and grad_norm
+# in general)
 METRICS = ("loss_main", "att_loss", "ctc_loss", "att_corr", "ctc_cer",
            "grad_norm")
 # best/'s index: {file name: valid_loss_main}
@@ -185,7 +187,9 @@ class Trainer:
                                             rows=self._rows(batch))
         ys_in, att_label, ctc_label = pack_s2s(token_id, token_len, self.sos,
                                                self.eos, self.ignore)
-        with dropout_generator(g_drop):
+        # the shared draws (the dual encoder's chunk size) come from the
+        # SpecAugment generator, in the same state on every rank
+        with dropout_generator(g_drop, shared=g_spec):
             out = self.model(feats, feat_len, ys_in.long())
         data = dict(out, att_label=att_label, ctc_label=ctc_label)
         if step is not None:
@@ -267,9 +271,10 @@ class Trainer:
         if self.use_ema:
             ema_update(state.ema, self.params, self.ema_decay)
         state.step += 1
+        keys = list(metrics)
         values = torch.stack([metrics[k].detach().float().reshape(())
-                              for k in METRICS]).tolist()
-        return state, dict(zip(METRICS, values))
+                              for k in keys]).tolist()
+        return state, dict(zip(keys, values))
 
     @torch.no_grad()
     def valid_step(self, state: TrainState, batch: Dict) -> Dict[str, float]:

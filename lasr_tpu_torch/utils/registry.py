@@ -27,6 +27,11 @@ REFERENCE_NAME_ALIASES: Dict[str, str] = {
         "lasr_tpu_torch.models.e2e_online:E2E_Transformer_CTC_Online",
     "lasr.model.e2e_ctc_att.e2e_conformer:E2E_Conformer_CTC":
         "lasr_tpu_torch.models.e2e_ctc_att:E2E_Conformer_CTC",
+    "lasr.model.e2e_ctc_att.e2e_transformer_online_offline:"
+    "E2E_Transformer_CTC_Univ_Dynamic":
+        "lasr_tpu_torch.models.e2e_online:E2E_Transformer_CTC_Univ_Dynamic",
+    "lasr.model.e2e_ctc_att.e2e_loss_univ:CTC_CE_Univ_Loss":
+        "lasr_tpu_torch.models.losses_univ:CTC_CE_Univ_Loss",
     "lasr.data.tokenizer:CharTokenizer":
         "lasr_tpu_torch.data.tokenizer:CharTokenizer",
     "lasr.data.tokenizer:HuggingTokenizer":

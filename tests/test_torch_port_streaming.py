@@ -10,7 +10,8 @@ test_streaming.py's widths (d=16, chunks 16/16/16):
   - ``StreamDecoder``: full forward with the attention maps and every
     step form within 2e-4, the chained endpoints exact;
   - the state_dict round-trips through ``torch_compat.torch_to_flax``;
-  - unported options raise (of both new models), a train-mode forward
+  - the memory knobs and the resumable search build (the session's
+    refusals hold), what stays unported raises, a train-mode forward
     with sigmoid noise outside ``dropout_generator`` raises, the Trainer
     takes both models (one step each), and the registry resolves their
     reference names.
@@ -26,7 +27,8 @@ from lasr_tpu.modules.embedding import PositionalEncoding as JaxPE
 from lasr_tpu.modules.streaming import _chunk_grid as jax_chunk_grid
 from lasr_tpu.utils.masks import target_mask as jax_target_mask
 from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
-from lasr_tpu_torch.decode.online import ServingEngine, StreamingRecognizer
+from lasr_tpu_torch.decode.online import (IncrementalBeamSession,
+                                          ServingEngine, StreamingRecognizer)
 from lasr_tpu_torch.models.e2e_ctc_att import E2E_Transformer_CTC
 from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
 from lasr_tpu_torch.models.losses import E2E_Loss
@@ -182,14 +184,18 @@ def test_state_dict_round_trips_through_torch_compat():
     round_trip(v, pm)
 
 
-def test_unported_options_raise():
+def test_ported_options_build_and_the_rest_raise():
+    """The memory knobs and the resumable search, once refused, build;
+    what stays unported still raises."""
     kw = dict(ONLINE, device="cpu")
-    for flag, value in (("encoder_remat", True), ("encoder_conv_once", True),
-                        ("encoder_layer_major_rows", 64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            E2E_Transformer_CTC_Online(**dict(kw, **{flag: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E2E_Transformer_CTC(**OFFLINE, encoder_remat=True, device="cpu")
+    for flag, attr, value in (("encoder_remat", "remat", True),
+                              ("encoder_conv_once", "conv_once", True),
+                              ("encoder_layer_major_rows",
+                               "layer_major_rows", 64)):
+        model = E2E_Transformer_CTC_Online(**dict(kw, **{flag: value}))
+        assert getattr(model.encoder, attr) == value
+    assert E2E_Transformer_CTC(**OFFLINE, encoder_remat=True,
+                               device="cpu").encoder.remat
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         E2E_Transformer_CTC(**OFFLINE, encoder_input_layer="embed",
                             device="cpu")
@@ -206,8 +212,15 @@ def test_unported_options_raise():
                                         t(x[:, :9, :16]))
     pm.eval()
     dec = CTCAttBeamDecoder(pm, online=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="beam_incremental"):
-        StreamingRecognizer(pm, beam_decoder=dec)
+    rec = StreamingRecognizer(pm, beam_decoder=dec)
+    assert isinstance(rec.beam_session, IncrementalBeamSession)
+    assert StreamingRecognizer(pm, beam_decoder=dec,
+                               beam_incremental=False).beam_session is None
+    with pytest.raises(ValueError, match="maxlenratio"):
+        StreamingRecognizer(pm, beam_decoder=CTCAttBeamDecoder(
+            pm, online=True, maxlenratio=0.5, device="cpu"))
+    with pytest.raises(ValueError, match="online=True"):
+        IncrementalBeamSession(CTCAttBeamDecoder(pm, device="cpu"))
     with pytest.raises(ValueError, match="different model"):
         other = E2E_Transformer_CTC_Online(**kw)
         StreamingRecognizer(pm, engine=ServingEngine(other,

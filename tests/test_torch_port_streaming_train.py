@@ -17,7 +17,13 @@ port against lasr_tpu, f32, at test_streaming.py's widths (d=16, chunks
     mean ~0 and std ~``sigmoid_noise``, repeatable from a seed, none in
     eval mode, and a RuntimeError outside ``dropout_generator``;
   - ``safe_exclusive_cumprod``'s gradient at its clip's boundaries
-    (x == 1, the tie) equal to ``jnp.clip``'s.
+    (x == 1, the tie) equal to ``jnp.clip``'s;
+  - the chunked encoder's ``encoder_layer_major_rows`` and
+    ``encoder_conv_once`` against lasr_tpu with the same knobs and
+    against the knob-off forward (dropout 0), and ``encoder_remat`` in
+    the Transformer, Conformer (rel kernels' plain path) and streaming
+    encoders at dropout 0.1 against the plain forward under the same
+    generator.
 """
 
 import jax
@@ -255,3 +261,119 @@ def test_cumprod_gradient_at_the_clip_boundaries(dtype, rtol):
     (safe_exclusive_cumprod(xt.to(tdt)).float() * t(w)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=rtol,
                                atol=1e-30)
+
+
+# ---- the encoders' memory knobs ----
+
+KNOBS = dict(encoder_layer_major_rows=5, encoder_conv_once=True)
+
+
+def _train_grads(model, x, xlen, ys_in, att_label, ctc_label, seed=0):
+    """(att_out, ctc_out, loss, {name: gradient}) of one train-mode
+    forward and E2E_Loss backward, dropout from generator ``seed``."""
+    model.train()
+    model.zero_grad()
+    with dropout_generator(torch.Generator().manual_seed(seed)):
+        out = model(t(x), t(xlen), t(ys_in).long())
+    loss = E2E_Loss(model.ctc[1].out_features, smoothing=0.1, rate=0.3)(
+        out["att_out"], out["ctc_out"], t(att_label), t(ctc_label),
+        out["hs_len"])[0]
+    loss.backward()
+    model.eval()
+    return (out["att_out"].detach(), out["ctc_out"].detach(),
+            float(loss.detach()),
+            {n: p.grad.clone() for n, p in model.named_parameters()})
+
+
+def _same_grads(got, want, tol):
+    top = max(float(w.abs().max()) for w in want.values())
+    for n, w in want.items():
+        err = float((got[n] - w).abs().max())
+        assert err <= tol * top, (n, err, top)
+
+
+def test_row_groups_and_conv_once_equal_jax_and_the_plain_forward():
+    """``encoder_layer_major_rows`` (5 of 24 chunk rows a group) and
+    ``encoder_conv_once`` together, train mode at dropout 0: forward and
+    gradients within 2e-4 / 1e-4 of the largest gradient of lasr_tpu
+    with the same knobs, and of the port's plain forward; each knob alone
+    too."""
+    fm, v, pm = pair(JaxOnline, E2E_Transformer_CTC_Online,
+                     dict(NODROP, **KNOBS), seed=5, src_bias=0.3, jit=True)
+    x, xlen, ys = batch(odim=NODROP["odim"], seed=15)
+    ys_in, att_label, ctc_label = labels(ys)
+    jcrit = jax_losses.E2E_Loss(NODROP["odim"], smoothing=0.1, rate=0.3)
+
+    def jax_loss(params):
+        out = fm.apply({"params": params}, x, xlen, ys_in,
+                       deterministic=False,
+                       rngs={"dropout": jax.random.PRNGKey(0)})
+        return jcrit(out["att_out"], out["ctc_out"], jnp.asarray(att_label),
+                     jnp.asarray(ctc_label), out["hs_len"])[0], out
+    (want_loss, want), grads = jax.jit(jax.value_and_grad(
+        jax_loss, has_aux=True))(v["params"])
+    att, ctc, loss, got_g = _train_grads(pm, x, xlen, ys_in, att_label,
+                                         ctc_label)
+    np.testing.assert_allclose(att.numpy(), np.asarray(want["att_out"]),
+                               atol=TOL)
+    np.testing.assert_allclose(ctc.numpy(), np.asarray(want["ctc_out"]),
+                               atol=TOL)
+    np.testing.assert_allclose(loss, float(want_loss), rtol=TOL)
+    _same_grads(got_g, flax_state_dict(grads), STEP_TOL)
+    for knobs in ({}, {"encoder_layer_major_rows": 5},
+                  {"encoder_conv_once": True}):
+        other = E2E_Transformer_CTC_Online(**dict(NODROP, **knobs),
+                                           device="cpu")
+        other.load_state_dict(pm.state_dict())
+        o_att, _, o_loss, o_g = _train_grads(other, x, xlen, ys_in,
+                                             att_label, ctc_label)
+        np.testing.assert_allclose(o_att.numpy(), att.numpy(), atol=1e-5)
+        np.testing.assert_allclose(o_loss, loss, rtol=1e-5)
+        _same_grads(o_g, got_g, 1e-5)
+
+
+def _remat_models(family):
+    """(model without remat, the same weights with it, its output
+    dimension) at dropout 0.1 in ``family``."""
+    from lasr_tpu_torch.models.e2e_ctc_att import (E2E_Conformer_CTC,
+                                                   E2E_Transformer_CTC)
+    from tests.torch_port_common import OFFLINE, TINY
+    drop = dict(encoder_dropout_rate=0.1, decoder_dropout_rate=0.1,
+                ctc_dropout=0.1)
+    cls, kw = {"transformer": (E2E_Transformer_CTC, OFFLINE),
+               "conformer": (E2E_Conformer_CTC,
+                             dict(TINY, idim=80, odim=11,
+                                  encoder_use_pallas_attention=True)),
+               "streaming": (E2E_Transformer_CTC_Online,
+                             dict(ONLINE, decoder_src_attention_sigmoid_noise
+                                  =1.0))}[family]
+    torch.manual_seed(0)
+    plain = cls(**kw, **drop, device="cpu")
+    remat = cls(**kw, **drop, encoder_remat=True, device="cpu")
+    remat.load_state_dict(plain.state_dict())
+    return plain, remat
+
+
+@pytest.mark.parametrize("family", ["transformer", "conformer", "streaming"])
+def test_remat_with_dropout_replays_the_draws(family):
+    """``encoder_remat`` at dropout 0.1 (and, streaming, the sigmoid
+    noise): the loss and every gradient equal the plain forward's under
+    the same generator (within 1e-5 of the largest gradient; the
+    recompute replays the forward's draws), and BatchNorm's running
+    statistics move once."""
+    plain, remat = _remat_models(family)
+    x, xlen, ys = batch(odim=11, seed=17)
+    ys_in, att_label, ctc_label = labels(ys)
+    _, _, loss, grads = _train_grads(plain, x, xlen, ys_in, att_label,
+                                     ctc_label, seed=3)
+    _, _, r_loss, r_grads = _train_grads(remat, x, xlen, ys_in, att_label,
+                                         ctc_label, seed=3)
+    np.testing.assert_allclose(r_loss, loss, rtol=1e-6)
+    _same_grads(r_grads, grads, 1e-5)
+    for (n, a), b in zip(plain.named_buffers(), remat.buffers()):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
+                                   err_msg=n)
+    # a different generator draws other masks
+    _, _, other, _ = _train_grads(remat, x, xlen, ys_in, att_label,
+                                  ctc_label, seed=4)
+    assert abs(other - loss) > 1e-4 * abs(loss)

@@ -97,14 +97,18 @@ def batch(B=3, T=120, D=80, L=5, odim=11, seed=0):
     return x, xlen, ys
 
 
-def pair(cls_jax, cls_port, kw, seed=0, src_bias=0.0, ctc_scale=1.0):
+def pair(cls_jax, cls_port, kw, seed=0, src_bias=0.0, ctc_scale=1.0,
+         jit=False):
     """(flax model, numpy variables, port model on the CPU with the same
     weights).  ``src_bias`` sets every ``src_att_bias``, ``ctc_scale``
-    sharpens the CTC head (so greedy decoding emits tokens)."""
+    sharpens the CTC head (so greedy decoding emits tokens); ``jit``
+    compiles the init (faster than tracing it eagerly for the chunked
+    encoder)."""
     x, xlen, ys = batch(odim=kw["odim"], seed=seed)
     fm = cls_jax(**kw)
-    v = numpy_tree(fm.init(jax.random.PRNGKey(seed), x, xlen,
-                           np.maximum(ys, 1)))
+    init = jax.jit(fm.init) if jit else fm.init
+    v = numpy_tree(init(jax.random.PRNGKey(seed), x, xlen,
+                        np.maximum(ys, 1)))
     params = jax.tree_util.tree_map_with_path(
         lambda p, a: (np.full_like(a, src_bias)
                       if jax.tree_util.keystr(p).endswith("['src_att_bias']")
