@@ -220,6 +220,34 @@ Phases, always all of them, in this order:
            unbroken run's, every rank bitwise equal at the end, K3 / K4
            launches per rank.  Prints a {"dp": ...} line; the kernel list
            gains ``launches_dp`` (rank 0's in (a)).
+  stretch_1b the 1B stretch config (example/pretrain_1b/conf/config.yaml
+           from the checkout; odim 50,000, its tokenizer not being in the
+           repo; configuration B): (a) K3 / K4 against their plain
+           versions at dk 40, 64, 80, 96, 128 (B=3, 4 heads, T=300,
+           ragged kv_len) in f32 and bf16 (1e-4 / 2e-2), K1 / K2 at the
+           1B geometry and K3 at dk 136 refused before a launch, K3 / K4
+           timed at the 1B training shape (BH = 32 x 16, T=388, dk=80)
+           beside the plain versions and the bounds; (b) the model at full
+           width and depth (24 + 12 blocks, 1.18e9 parameters) trained by
+           the Trainer in bf16 with remat on B=32 x 15.6 s: 3 timed steps,
+           one profiled (busy ms, device ops), peak memory, K3 48 / K4 24
+           launches a step; a dropout-0 step without SpecAugment, kernel
+           path against the skewed-table fold, in bf16 (loss 2e-2) and
+           f32 (loss 1e-4, encoder gradients 1e-3 of their largest,
+           decoder/CTC 1e-2 in L2); B=8 x 10 s served through K3 (f32),
+           8 token steps of the beam search equal to the plain path's;
+           (c) full width, 2 + 1 blocks, B=4 x 15.6 s, f32: two gloo
+           ranks sharing the card with FSDP and with model_parallel 2,
+           each against the one-process gradient (loss 1e-4, gradients
+           1e-3 relative L2) and one step, with each rank's resident
+           parameters + moments + EMA (one spawn, the layouts in turn);
+           (d) ``lasr_tpu_torch.bin.train -fp16 16`` (a process of its
+           own, run beside (c)) on a copy of the 1B YAML (full width, 2 +
+           1 blocks) pointed at 8 seeded utterances and a 5000-entry
+           CharTokenizer, then ``lasr_tpu_torch.bin.decode`` and
+           ASRProcess (ctc_att) on its checkpoint.  Prints a {"stretch_1b": ...} line; the kernel
+           list gains ``launches_stretch_1b`` (K3 / K4 over (b)'s 3 steps)
+           and K3 / K4's ``stretch_1b_float32`` / ``_bfloat16`` numbers.
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -825,10 +853,10 @@ def _train_batch(seed):
 
 
 def _trainer(model, chain, seed, log_interval=1, odim=RECIPE["odim"],
-             device=None, criterion=None):
+             device=None, criterion=None, fsdp=False):
     """The Trainer of the training phases; ``log_interval=1`` computes the
     greedy-CTC CER on every step.  ``criterion``: a class taking (size,
-    smoothing=, rate=), E2E_Loss by default."""
+    smoothing=, rate=), E2E_Loss by default; ``fsdp`` as the Trainer's."""
     from lasr_tpu_torch.data.frontend import DeviceFrontend
     from lasr_tpu_torch.models.losses import E2E_Loss
     from lasr_tpu_torch.train.optimizer import Noam
@@ -837,7 +865,7 @@ def _trainer(model, chain, seed, log_interval=1, odim=RECIPE["odim"],
     return Trainer(model, criterion(size=odim, smoothing=0.1, rate=0.3),
                    Noam(320, 3, 25000), DeviceFrontend(chain), use_ema=True,
                    grad_clip=5.0, seed=seed, log_interval=log_interval,
-                   device=device)
+                   device=device, fsdp=fsdp)
 
 
 # the gates of a kernel-path step against the plain path (see _train)
@@ -3605,6 +3633,618 @@ def phase_dp(state):
     state["timings"]["dp"] = summary
 
 
+# the 1B stretch config (example/pretrain_1b/conf/config.yaml, read from
+# the checkout) at full width and depth, configuration B (the rel kernels);
+# its 50k multilingual tokenizer is not in the repo, so odim is 50,000
+STRETCH_CONFIG = os.path.join("example", "pretrain_1b", "conf",
+                              "config.yaml")
+STRETCH_ODIM = 50000
+# K3 / K4 at the 1B training shape: B=32 x 15.6 s -> T=388, 16 heads of 80
+STRETCH_SHAPE = dict(B=32, H=16, T=388, dk=80)
+STRETCH_DKS = (40, 64, 80, 96, 128)
+# (c)'s model: full width, 2 + 1 blocks; B=4 x 15.6 s
+STRETCH_RANK_BLOCKS = (2, 1)
+STRETCH_RANK_ROWS = 4
+STRETCH_TOL = dict(loss=1e-4, entry=1e-3, l2=1e-2, noise=1e-4,
+                   bf16_loss=2e-2, rank_loss=1e-4, rank_l2=1e-3)
+
+
+def _stretch_kwargs(**over):
+    import yaml
+    with open(STRETCH_CONFIG) as f:
+        kw = dict(yaml.safe_load(f)["model_config"]["kwargs"])
+    kw.update(odim=STRETCH_ODIM, encoder_use_pallas_attention=True, **over)
+    return kw
+
+
+def _stretch_batch(seed, rows):
+    rng = np.random.default_rng(seed)
+    wav = make_waves(seed, rows, TRAIN_SECS)
+    return {"wav_array": wav,
+            "wav_len": np.full((rows,), wav.shape[1], np.int32),
+            "token_id": rng.integers(6, STRETCH_ODIM,
+                                     (rows, TRAIN_TOKENS)).astype(np.int32),
+            "token_len": np.full((rows,), TRAIN_TOKENS, np.int32)}
+
+
+def _stretch_kernels(state):
+    """(a) K3 / K4 against their plain versions at every head width up to
+    128, ragged kv_len; their times at the 1B training shape; K1 / K2 and
+    a head above 128 refused before a launch."""
+    import torch
+    from lasr_tpu_torch.ops.rel_attention import (
+        rel_attention_backward, rel_attention_backward_reference,
+        rel_attention_forward, rel_attention_reference)
+    from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
+                                                  rot_attention_forward)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(state["seed"] + 15)
+    card = state["card"]
+    fwd_in = _rel_inputs
+    bwd_in = _with_grad_inputs(_rel_inputs, rel_attention_forward)
+    worst = {}
+    for dk in STRETCH_DKS:
+        shape = dict(B=3, H=4, T=300, dk=dk)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            for kind, kern, plain, make in (
+                    ("fwd", rel_attention_forward, rel_attention_reference,
+                     fwd_in),
+                    ("bwd", rel_attention_backward,
+                     rel_attention_backward_reference, bwd_in)):
+                args = make(rng, dtype, dev, shape)
+                got = kern(*args)
+                torch.cuda.synchronize()
+                errs = _errors(got, plain(*_f32(args)))
+                err = max(r for _, r in errs) if kind == "bwd" \
+                    else max(e for e, _ in errs)
+                worst[f"{kind} dk={dk} {dn}"] = err
+                k = 3 if kind == "fwd" else 4
+                check(err <= TOL[dn], f"stretch_1b: K{k} dk={dk} {dn}: "
+                      f"error {err} > {TOL[dn]}")
+    log(f"stretch_1b (a): K3 / K4 against their plain versions at dk "
+        f"{STRETCH_DKS}, f32 / bf16 (tol 1e-4 / 2e-2; fwd abs, bwd rel): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+
+    # refused before a launch: K1 / K2 at the 1B geometry, K3 above 128
+    z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    kv = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    refused = []
+    for fn, args in (
+            (rot_attention_forward, (z(2, 8, 80), z(2, 8, 1280),
+                                     z(2, 8, 80), z(2, 8, 80), z(8, 1280),
+                                     kv)),
+            (rot_attention_backward, (z(2, 8, 64), z(2, 8, 1280),
+                                      z(2, 8, 64), z(2, 8, 64), z(8, 1280),
+                                      kv, z(2, 8, 64), z(2, 8), z(2, 8, 64))),
+            (rel_attention_forward, (z(2, 8, 136), z(2, 8, 136),
+                                     z(2, 8, 136), z(2, 8, 136),
+                                     z(1, 15, 136), kv))):
+        before = fn.launches
+        try:
+            fn(*args)
+        except (NotImplementedError, ValueError) as e:
+            refused.append(f"{fn.__name__}: {type(e).__name__}")
+        check(fn.launches == before, f"stretch_1b: {fn.__name__} launched")
+    check(len(refused) == 3, f"stretch_1b: refusals {refused}")
+    log(f"stretch_1b (a): refused before launch: {refused}")
+
+    # times at the 1B training shape
+    for name, kern, plain, make, cost in (
+            ("rel_attention_fwd", rel_attention_forward,
+             rel_attention_reference, fwd_in, _rel_cost),
+            ("rel_attention_bwd", rel_attention_backward,
+             rel_attention_backward_reference, bwd_in, _rel_bwd_cost)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            args = make(rng, dtype, dev, STRETCH_SHAPE)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            errs = _errors(got, plain(*_f32(args)))
+            abs_err = max(e for e, _ in errs)
+            rel_err = max(r for _, r in errs)
+            err = rel_err if "bwd" in name else abs_err
+            check(err <= TOL[dn], f"stretch_1b: {name} {dn} at the 1B shape: "
+                  f"error {err}")
+            ms = time_ms(lambda: kern(*args), iters=10, repeats=3)
+            plain_ms = time_ms(lambda: plain(*args), iters=2, warmup=1,
+                               repeats=3)
+            nbytes, flops = cost(args)
+            bound, bound_by = _bound_ms(nbytes, flops, dn)
+            bound_tc = max(nbytes / HBM_BPS, flops / TC_FLOPS[dn]) * 1e3
+            log(f"stretch_1b (a): {name} {dn} at the 1B training shape "
+                f"(BH={args[0].shape[0]}, T={args[0].shape[1]}, dk=80): "
+                f"max_abs_err {abs_err:.3e}, max_rel_err {rel_err:.3e}, "
+                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                f"{bound * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP), tensor-core bound "
+                f"{bound_tc * 1e3:.2f} us [{card}]")
+            state["kernels"][name][f"stretch_1b_{dn}"] = dict(
+                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                bound_tc_ms=bound_tc, library_ms=None)
+            del args, got
+
+
+def _resident_gb(trainer, tstate):
+    """GB a rank holds between steps: its parameters (the module's and,
+    under FSDP, the shards), Adam's moments and the EMA shadow."""
+    seen, total = set(), 0
+    tensors = list(trainer.params) + list(trainer.masters)
+    if tstate is not None:
+        tensors += list(tstate.opt_state["mu"]) + list(tstate.opt_state["nu"])
+        if tstate.ema is not None:
+            tensors += list(tstate.ema["shadow"])
+    for t in tensors:
+        if t.numel() and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.numel() * t.element_size()
+    return total / 1e9
+
+
+def _stretch_compare(model, trainer, batch, dtype, names):
+    """(loss, gradients) of the kernel path and the plain path (the
+    skewed-table fold) of ``model`` at dropout 0 in ``dtype``."""
+    from lasr_tpu_torch.modules.layers import set_compute_dtype
+    set_compute_dtype(model, dtype)
+    out = []
+    for kernels in (True, False):
+        for layer in model.encoder.encoders:
+            layer.self_attn.use_pallas = kernels
+        model.encoder.table_fold = not kernels
+        m, g = trainer.loss_and_grads(batch, 0)
+        out.append((float(m["loss_main"].detach()), g))
+    return out
+
+
+def _stretch_train(state):
+    """(b) the 1B model trained in bf16 with remat: 3 timed steps, one
+    profiled; kernel path against plain path at dropout 0 in bf16 and
+    f32; B=8 x 10 s decoded through K3, the search against the plain
+    path's."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
+                                                  rel_attention_forward)
+    from lasr_tpu_torch.utils.weights import load_model_weights
+
+    seed, card, tol = state["seed"], state["card"], STRETCH_TOL
+    kw = _stretch_kwargs()
+    blocks = kw["encoder_num_blocks"]
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = E2E_Conformer_CTC(**kw, dtype=torch.bfloat16)
+    trainer = _trainer(model, ["norm", "fbank:80", "specaug"], seed,
+                       odim=STRETCH_ODIM)
+    tstate = trainer.init_state()
+    build_s = time.perf_counter() - t0
+    batch = _stretch_batch(seed + 2, TRAIN_BATCH)
+    counters = (rel_attention_forward, rel_attention_backward)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tstate, m = trainer.train_step(tstate, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        metrics.append(m)
+    fwd, bwd = (c.launches for c in counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    resident = _resident_gb(trainer, tstate)
+    log(f"stretch_1b (b): {trainer.param_count()} parameters, built in "
+        f"{build_s:.1f} s; {TRAIN_STEPS} bf16 steps with remat of "
+        f"B={TRAIN_BATCH} x {TRAIN_SECS:g} s: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, peak "
+        f"{peak_gb:.2f} GB, parameters + moments + EMA {resident:.2f} GB; "
+        f"K3 / K4 launches {fwd} / {bwd} [{card}]")
+    for i, m in enumerate(metrics):
+        log(f"stretch_1b (b): step {i} " + ", ".join(
+            f"{k} {v:.4f}" for k, v in m.items()))
+        check(all(math.isfinite(v) for v in m.values()),
+              f"stretch_1b: step {i} has a non-finite metric {m}")
+    # remat runs each block's forward again in the backward
+    check(fwd == 2 * blocks * TRAIN_STEPS and bwd == blocks * TRAIN_STEPS,
+          f"stretch_1b: K3 / K4 launched {fwd} / {bwd} times over "
+          f"{TRAIN_STEPS} steps, expected {2 * blocks} / {blocks} a step")
+    state["stretch_launches"] = {"rel_attention_fwd": fwd,
+                                 "rel_attention_bwd": bwd}
+    (tstate, _), prof = _profile(lambda: trainer.train_step(tstate, batch))
+    log(f"stretch_1b (b): profiled step {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['busy_ms']:.1f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}), {prof['ops']} device "
+        f"ops; port kernels, device ms "
+        f"{ {k: round(v, 2) for k, v in prof['kernels_ms'].items()} } "
+        f"[{card}]")
+    summary = dict(params=trainer.param_count(), step_ms=[
+        t * 1e3 for t in times], peak_gb=peak_gb, resident_gb=resident,
+        busy_ms=prof["busy_ms"], profiled_ms=prof["wall_ms"],
+        device_ops=prof["ops"], kernels_ms=prof["kernels_ms"],
+        launches_per_step=dict(K3=fwd // TRAIN_STEPS, K4=bwd // TRAIN_STEPS))
+    weights = model.state_dict()
+    del tstate, trainer, model
+    torch.cuda.empty_cache()
+
+    # the same weights at dropout 0, no SpecAugment: kernel vs plain path
+    with torch.device("cuda"):
+        model = E2E_Conformer_CTC(**dict(kw, encoder_dropout_rate=0.0,
+                                         decoder_dropout_rate=0.0,
+                                         ctc_dropout=0.0),
+                                  dtype=torch.bfloat16)
+    load_model_weights(model, weights)
+    del weights
+    trainer = _trainer(model, ["norm", "fbank:80"], seed, odim=STRETCH_ODIM)
+    names = trainer.names
+    (lk, _), (lp, _) = _stretch_compare(model, trainer, batch,
+                                        torch.bfloat16, names)
+    bf16_err = abs(lk - lp) / abs(lp)
+    log(f"stretch_1b (b): dropout 0, bf16: loss kernel path {lk:.6f} vs "
+        f"plain path {lp:.6f} (rel {bf16_err:.2e}, tol {tol['bf16_loss']:g})")
+    check(bf16_err <= tol["bf16_loss"], f"stretch_1b: bf16 loss differs by "
+          f"{bf16_err}")
+    (lk, gk), (lp, gp) = _stretch_compare(model, trainer, batch,
+                                          torch.float32, names)
+    loss_err = abs(lk - lp) / abs(lp)
+    top = max(float(g.abs().max()) for g in gp)
+    entry, l2, noise = {}, {}, {}
+    for n, a, b in zip(names, gk, gp):
+        if n.endswith(ZERO_GRADIENT_LEAVES):
+            noise[n] = max(float(a.abs().max()), float(b.abs().max())) / top
+        elif n.startswith("encoder."):
+            entry[n] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+        else:
+            l2[n] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    we, wl, wn = (max(d, key=d.get) for d in (entry, l2, noise))
+    log(f"stretch_1b (b): dropout 0, f32: loss {lk:.6f} vs {lp:.6f} (rel "
+        f"{loss_err:.2e}, tol {tol['loss']:g}); {len(entry)} encoder "
+        f"gradients, worst entrywise {we} {entry[we]:.2e} (tol "
+        f"{tol['entry']:g}); {len(l2)} decoder/CTC gradients, worst L2 {wl} "
+        f"{l2[wl]:.2e} (tol {tol['l2']:g}); zero-gradient leaves at most "
+        f"{noise[wn]:.2e} of the largest ({wn}, tol {tol['noise']:g})")
+    check(loss_err <= tol["loss"], f"stretch_1b: f32 loss differs by "
+          f"{loss_err}")
+    check(entry[we] <= tol["entry"], f"stretch_1b: gradient of {we} differs "
+          f"by {entry[we]}")
+    check(l2[wl] <= tol["l2"], f"stretch_1b: gradient of {wl} differs by "
+          f"{l2[wl]} (L2)")
+    check(noise[wn] <= tol["noise"], f"stretch_1b: gradient of {wn} is not "
+          f"~0: {noise[wn]}")
+    summary.update(bf16_loss_err=bf16_err, f32_loss_err=loss_err,
+                   f32_worst_entry=entry[we], f32_worst_l2=l2[wl])
+    del gk, gp, trainer
+
+    # served: B=8 x 10 s through K3 (f32), the search against the plain
+    # path's on the same weights
+    model.eval()
+    for layer in model.encoder.encoders:
+        layer.self_attn.use_pallas = True
+    model.encoder.table_fold = False
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+    decoder = CTCAttBeamDecoder(model, beam=10, ctc_beam=15, ctc_weight=0.5)
+    wav = torch.from_numpy(make_waves(seed + 1, BATCH)).cuda()
+    wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
+                         device=wav.device)
+    rel_attention_forward.launches = 0
+    with torch.no_grad():
+        feats, feat_len = frontend(wav, wav_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hs, hs_len, lpz = decoder.encode(feats, feat_len)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        served = rel_attention_forward.launches
+        steps = 8
+        hyps = decoder.search(hs, hs_len, lpz, steps)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for layer in model.encoder.encoders:
+            layer.self_attn.use_pallas = False
+        hs_p, hs_len_p, lpz_p = decoder.encode(feats, feat_len)
+        hyps_p = decoder.search(hs_p, hs_len_p, lpz_p, steps)
+    enc_err = float((hs - hs_p).abs().max())
+    same = all(hyps.best_ids(b) == hyps_p.best_ids(b) for b in range(BATCH))
+    log(f"stretch_1b (b): served B={BATCH} x {SECS:g} s (T={hs.shape[1]}): "
+        f"encode {(t2 - t1) * 1e3:.1f} ms, K3 launches {served}, search of "
+        f"{steps} token steps {(t3 - t2) * 1e3:.1f} ms; encoder output vs "
+        f"plain path {enc_err:.3e} (tol 1e-3); the same hypotheses: {same} "
+        f"[{card}]")
+    check(served == blocks, f"stretch_1b: K3 launched {served} times in a "
+          f"served forward, expected {blocks}")
+    check(enc_err <= 1e-3 and torch.equal(hs_len, hs_len_p),
+          f"stretch_1b: served encoder output differs by {enc_err}")
+    check(same, "stretch_1b: the search differs from the plain path's")
+    summary.update(encode_ms=(t2 - t1) * 1e3, search_ms=(t3 - t2) * 1e3,
+                   served_enc_err=enc_err)
+    state["timings"]["stretch_1b"] = summary
+    del model, decoder, hs, hs_p
+    torch.cuda.empty_cache()
+
+
+def _stretch_rank(rendezvous, root, inits):
+    """A rank of stretch_1b (c) on cuda:0 (gloo): each layout of the spec
+    in turn, in a process group of its own (``inits``: one rendezvous
+    address each)."""
+    import torch
+    from lasr_tpu_torch.parallel import dist
+    spec = torch.load(os.path.join(root, "spec.pt"), weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for layout, init in zip(spec["layouts"], inits):
+        _stretch_layout(dist.Rendezvous(rendezvous.rank,
+                                        rendezvous.world_size, init),
+                        root, spec, layout)
+
+
+def _stretch_layout(rendezvous, root, spec, layout):
+    """The global gradient of the batch under ``layout``
+    (``model_parallel`` / ``fsdp``), then one step; writes
+    root/<layout>_rank<r>.pt."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.parallel import dist
+    grid = spec["layouts"][layout]
+    dev = torch.device("cuda", 0)
+    dist.init(dev, "gloo", rendezvous, timeout_s=DP_TIMEOUT_S,
+              model_parallel=grid["model_parallel"])
+    try:
+        rank = dist.rank()
+        torch.manual_seed(1000 + rank)
+        with torch.device(dev):
+            model = E2E_Conformer_CTC(**spec["kw"])
+        if rank == 0:
+            model.load_state_dict(spec["init"])
+        trainer = _trainer(model, ["norm", "fbank:80"], spec["seed"],
+                           odim=STRETCH_ODIM, device=dev, fsdp=grid["fsdp"])
+        rows = dist.shard_rows(spec["batch"], dist.data_rank(),
+                               dist.data_size())
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        m0, g0 = trainer.loss_and_grads(rows, 0)
+        model.load_state_dict(start)
+        full = [g.cpu() for g in trainer.layout.full_list(g0)]
+        del g0
+        tstate = trainer.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tstate, m = trainer.train_step(tstate, rows)
+        torch.cuda.synchronize()
+        out = dict(loss0=float(m0["loss_main"].detach()), step=m,
+                   step_ms=(time.perf_counter() - t0) * 1e3,
+                   resident_gb=_resident_gb(trainer, tstate),
+                   sharded=sum(s.fsdp is not None or s.tp is not None
+                               for s in trainer.layout.specs))
+        if rank == 0:
+            out.update(grads0=full, names=trainer.names)
+        torch.save(out, os.path.join(root, f"{layout}_rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def _free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _stretch_ranks(state):
+    """(c) two gloo ranks sharing the card, once FSDP (-fsdp 1) and once
+    tensor-parallel (-model_parallel 2), against the one-process step."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.parallel import dist
+    seed, card, tol = state["seed"], state["card"], STRETCH_TOL
+    enc, dec = STRETCH_RANK_BLOCKS
+    kw = _stretch_kwargs(encoder_num_blocks=enc, decoder_num_block=dec,
+                         encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+                         ctc_dropout=0.0, encoder_remat=False)
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        model = E2E_Conformer_CTC(**kw)
+    batch = _stretch_batch(seed + 5, STRETCH_RANK_ROWS)
+    layouts = {"fsdp": dict(model_parallel=1, fsdp=True),
+               "tp": dict(model_parallel=2, fsdp=False)}
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(kw=kw, seed=seed, batch=batch, layouts=layouts,
+                        init={k: v.cpu() for k, v in
+                              model.state_dict().items()}),
+                   os.path.join(tmp, "spec.pt"))
+        trainer = _trainer(model, ["norm", "fbank:80"], seed,
+                           odim=STRETCH_ODIM)
+        tstate = trainer.init_state()
+        one_gb = _resident_gb(trainer, tstate)
+        del tstate
+        t0 = time.perf_counter()
+        dist.spawn(_stretch_rank, 2, (tmp, [
+            f"tcp://127.0.0.1:{_free_port()}" for _ in layouts]))
+        wall = time.perf_counter() - t0
+        for layout, grid in layouts.items():
+            ranks = [torch.load(os.path.join(tmp, f"{layout}_rank{r}.pt"),
+                                weights_only=False) for r in range(2)]
+            data = 2 // grid["model_parallel"]
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+            m1, g1 = trainer.loss_and_grads(dist.pad_rows(batch, data), 0)
+            model.load_state_dict(start)
+            loss1 = float(m1["loss_main"].detach())
+            r0 = ranks[0]
+            loss_err = abs(r0["loss0"] - loss1) / abs(loss1)
+            l2 = {n: float((a.cuda() - b).norm()) / max(float(b.norm()),
+                                                        1e-30)
+                  for n, a, b in zip(r0["names"], r0["grads0"], g1)
+                  if not n.endswith(ZERO_GRADIENT_LEAVES)}
+            worst = max(l2, key=l2.get)
+            same = ranks[0]["loss0"] == ranks[1]["loss0"]
+            log(f"stretch_1b (c) {layout}: 2 gloo ranks sharing the card "
+                f"(both layouts {wall:.1f} s with start-up), "
+                f"{r0['sharded']} leaves "
+                f"split; loss {r0['loss0']:.6f} vs one process {loss1:.6f} "
+                f"(rel {loss_err:.2e}, tol {tol['rank_loss']:g}); worst "
+                f"gradient {worst} {l2[worst]:.2e} (relative L2, tol "
+                f"{tol['rank_l2']:g}); ranks' losses equal: {same}; a "
+                f"rank's step {[round(r['step_ms'], 1) for r in ranks]} ms, "
+                f"resident parameters + moments + EMA "
+                f"{[round(r['resident_gb'], 3) for r in ranks]} GB against "
+                f"one process's {one_gb:.3f} GB [{card}]")
+            check(loss_err <= tol["rank_loss"], f"stretch_1b: {layout} loss "
+                  f"differs by {loss_err}")
+            check(l2[worst] <= tol["rank_l2"], f"stretch_1b: {layout} "
+                  f"gradient of {worst} differs by {l2[worst]}")
+            check(same and r0["sharded"] > 0, f"stretch_1b: {layout} ranks "
+                  f"disagree or split nothing")
+            check(all(math.isfinite(v) for r in ranks
+                      for v in r["step"].values()),
+                  f"stretch_1b: {layout} step not finite")
+            summary[layout] = dict(loss_err=loss_err, worst_l2=l2[worst],
+                                   step_ms=[r["step_ms"] for r in ranks],
+                                   resident_gb=[r["resident_gb"]
+                                                for r in ranks],
+                                   one_process_gb=one_gb)
+            del g1
+    state["timings"].setdefault("stretch_1b", {})["ranks"] = summary
+
+
+def _stretch_cli_start(state, tmp):
+    """(d) the train CLI on a copy of the 1B YAML (full width, 2 + 1
+    blocks) pointed at a seeded corpus and a 5000-entry CharTokenizer,
+    -fp16 16, started in a process of its own (it runs beside (c));
+    returns what ``_stretch_cli_finish`` needs."""
+    import yaml
+    seed = state["seed"]
+    enc, dec = STRETCH_RANK_BLOCKS
+    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(seed + 7)
+    dict_path = _char_dict(tmp, RECIPE["odim"])
+    train = _write_split(tmp, "train", 8, lambda: rng.uniform(4.0, 8.0), rng)
+    dev = _write_split(tmp, "dev", 2, lambda: FIT_DEV_SECS, rng)
+    with open(STRETCH_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model_config"]["kwargs"].update(
+        encoder_num_blocks=enc, decoder_num_block=dec,
+        encoder_use_pallas_attention=True)
+    cfg["tokenizer_config"] = {
+        "name": "lasr_tpu.data.tokenizer:CharTokenizer",
+        "kwargs": {"dict_path": dict_path}}
+    for key, d in (("train_data_config", train), ("valid_data_config", dev)):
+        cfg[key]["kwargs"]["wav_list"] = [os.path.join(d, "wav.scp")]
+        cfg[key]["kwargs"]["text_list"] = [os.path.join(d, "text")]
+    config = os.path.join(tmp, "pretrain_1b.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    exp = os.path.join(tmp, "exp")
+    log_path = os.path.join(tmp, "train.log")
+    logf = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lasr_tpu_torch.bin.train", "-config",
+         config, "-exp_dir", exp, "-num_epochs", "1", "-ema", "1", "-fp16",
+         "16", "-log_interval", "1", "-seed", str(seed), "-num_workers",
+         "2"], cwd=here, stdout=logf, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=here))
+    return dict(proc=proc, logf=logf, log=log_path, exp=exp, dev=dev,
+                t0=time.perf_counter())
+
+
+def _stretch_cli_finish(state, tmp, run):
+    """(d) after the train CLI: its metrics and float32 checkpoint, the
+    decode CLI and ASRProcess (ctc_att) on it."""
+    import contextlib
+    import io
+    import torch
+    import yaml
+    from lasr_tpu_torch.bin import decode
+    from lasr_tpu_torch.ops.rel_attention import rel_attention_forward
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    from lasr_tpu_torch.utils.weights import checkpoint_steps
+    card = state["card"]
+    enc, dec = STRETCH_RANK_BLOCKS
+    exp, dev = run["exp"], run["dev"]
+    try:
+        rc = run["proc"].wait(timeout=600)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+        run["logf"].close()
+    train_s = time.perf_counter() - run["t0"]
+    with open(run["log"]) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0, f"stretch_1b (d): train CLI exited {rc}: {tail}")
+    dcfg = os.path.join(tmp, "decode.yaml")
+    with open(dcfg, "w") as f:
+        yaml.safe_dump({
+            "decode_config": dict(DECODE),
+            "test_data_config": {
+                "name": "lasr_tpu.data.dataset:AudioDataSet",
+                "kwargs": {"wav_list": [os.path.join(dev, "wav.scp")],
+                           "text_list": [os.path.join(dev, "text")],
+                           "audio_trans": ["norm", "fbank:80"]}}}, f)
+    lines = _metrics(exp)
+    check(any("loss_main" in x for x in lines)
+          and any("valid_loss_main" in x for x in lines)
+          and all(math.isfinite(v) for x in lines for v in x.values()
+                  if isinstance(v, float)),
+          f"stretch_1b (d): metrics {lines}")
+    last = os.path.join(exp, "checkpoints", "last")
+    steps = checkpoint_steps(last)
+    ckpt = os.path.join(last, steps[max(steps)])
+    _check_float32_checkpoint("stretch_1b (d)", ckpt)
+    out = os.path.join(tmp, "decode.txt")
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = decode.main(["-train_config", os.path.join(exp, "hparams.yaml"),
+                          "-decode_config", dcfg, "-model_path",
+                          os.path.join(exp, "checkpoints"), "-choose",
+                          "last", "-avg", "1", "-output_file", out])
+    decode_s = time.perf_counter() - t1
+    with open(out) as f:
+        hyps = [line for line in f if line.strip()]
+    check(rc in (0, None) and len(hyps) == 2,
+          f"stretch_1b (d): decode CLI rc {rc}, {len(hyps)} lines")
+    rel_attention_forward.launches = 0
+    asr = ASRProcess(os.path.join(exp, "hparams.yaml"), dcfg, ckpt)
+    with open(os.path.join(dev, "wav.scp")) as f:
+        wav_path = f.readline().split()[1]
+    tokens, _ = asr(wav_path)
+    launched = rel_attention_forward.launches
+    log(f"stretch_1b (d): train CLI on the 1B YAML (full width, {enc} + "
+        f"{dec} blocks, -fp16 16, 8 utterances, 1 epoch; beside (c)) "
+        f"{train_s:.1f} s, {sum('loss_main' in x for x in lines)} steps; "
+        f"checkpoint {os.path.getsize(ckpt) / 1e9:.2f} GB float32; decode "
+        f"CLI (ctc_att) {decode_s:.1f} s, {len(hyps)} hypotheses; "
+        f"ASRProcess -> {len(tokens)} tokens, K3 {launched} launches "
+        f"[{card}]")
+    check(launched == enc, f"stretch_1b (d): K3 launched {launched} times "
+          f"in ASRProcess, expected {enc}")
+    state["timings"].setdefault("stretch_1b", {})["cli"] = dict(
+        train_s=train_s, decode_s=decode_s,
+        checkpoint_gb=os.path.getsize(ckpt) / 1e9)
+    del asr
+    torch.cuda.empty_cache()
+
+
+def phase_stretch_1b(state):
+    _stretch_kernels(state)
+    _stretch_train(state)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = _stretch_cli_start(state, tmp)
+        try:
+            _stretch_ranks(state)
+        except BaseException:
+            run["proc"].kill()
+            run["proc"].wait()
+            run["logf"].close()
+            raise
+        _stretch_cli_finish(state, tmp, run)
+    summary = dict(state["timings"]["stretch_1b"], card=state["card"])
+    print(json.dumps({"stretch_1b": summary}, default=float), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3627,7 +4267,8 @@ def main(argv=None) -> int:
              "train_launches": {}, "fit_launches": {},
              "stream_launches": {}, "bf16_launches": {},
              "family_launches": {}, "dp_launches": {},
-             "decoders_launches": {}, "timings": {},
+             "decoders_launches": {}, "stretch_launches": {},
+             "timings": {},
              "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
               ("kernels", phase_kernels), ("slice_a", phase_slice_a),
@@ -3637,7 +4278,8 @@ def main(argv=None) -> int:
               ("train_tf", phase_train_tf),
               ("train_stream", phase_train_stream),
               ("stream_rest", phase_stream_rest),
-              ("fit_toy", phase_fit_toy), ("dp", phase_dp)]
+              ("fit_toy", phase_fit_toy), ("dp", phase_dp),
+              ("stretch_1b", phase_stretch_1b)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -3672,6 +4314,8 @@ def main(argv=None) -> int:
             entry["launches_dp"] = state["dp_launches"][name]
         if name in state["decoders_launches"]:
             entry["launches_decoders"] = state["decoders_launches"][name]
+        if name in state["stretch_launches"]:
+            entry["launches_stretch_1b"] = state["stretch_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

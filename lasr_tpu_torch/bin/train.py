@@ -32,10 +32,20 @@ itself; under ``torchrun --nproc_per_node N -m lasr_tpu_torch.bin.train
 on a host (the JAX CLI pads to its data axis), a step equals the one-GPU
 step on the global batch (``lasr_tpu_torch/parallel/dist.py``), rank 0
 writes, and a rank that fails ends the run with a non-zero exit.  At one
-rank the group is one process and nothing is communicated.  Flags of the
-other kinds of parallelism raise ``NotImplementedError`` naming ROADMAP
-A8 when set away from their defaults: ``-model_parallel``,
-``-seq_parallel``, ``-pipeline_parallel`` > 1 and ``-fsdp 1``.
+rank the group is one process and nothing is communicated.
+
+The (data x model) grid, as the JAX CLI's mesh: ``-model_parallel N``
+makes N ranks a model group that splits the attention and feed-forward
+layers, the token embedding and the logits heads (tensor parallelism,
+``parallel/tensor.py``), and ``-num_devices`` counts the data ranks, so a
+run has ``num_devices x N`` ranks (rank r: data index r // N, model index
+r % N; ``-num_devices -1`` takes every GPU's worth of model groups).
+``-fsdp 1`` shards the large leaves' parameters, gradients, Adam moments,
+accumulated gradient and EMA shadow over the data ranks
+(``parallel/sharding.py``).  Checkpoints stay whole reference ``.ckpt``
+files, so a run resumes at any layout.  ``-seq_parallel`` and
+``-pipeline_parallel`` > 1 raise ``NotImplementedError`` naming ROADMAP
+A8.
 """
 
 import argparse
@@ -49,8 +59,7 @@ import yaml
 _PROC_T0 = time.time()
 
 # flag -> (its default, the ROADMAP item of the feature it selects)
-_UNPORTED = {"model_parallel": (1, "A8"), "seq_parallel": (1, "A8"),
-             "pipeline_parallel": (1, "A8"), "fsdp": (0, "A8")}
+_UNPORTED = {"seq_parallel": (1, "A8"), "pipeline_parallel": (1, "A8")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,16 +67,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-exp_dir", default="exp", type=str)
     parser.add_argument("-config", required=True)
     parser.add_argument("-num_devices", default=-1, type=int,
-                        help="data-parallel devices (one rank each); -1 "
-                             "= every local GPU (one process on the CPU)")
+                        help="data-parallel ranks (each with "
+                             "-model_parallel devices); -1 = every local "
+                             "GPU (one data rank on the CPU)")
     parser.add_argument("-model_parallel", default=1, type=int,
-                        help="tensor parallelism (not ported)")
+                        help="tensor-parallel ranks of a model group")
     parser.add_argument("-seq_parallel", default=1, type=int,
                         help="sequence parallelism (not ported)")
     parser.add_argument("-pipeline_parallel", default=1, type=int,
                         help="pipeline parallelism (not ported)")
     parser.add_argument("-fsdp", default=0, type=int,
-                        help="1 = FSDP/ZeRO sharding (not ported)")
+                        help="1 = FSDP/ZeRO: shard params, gradients, "
+                             "optimizer moments, the grad accumulator and "
+                             "the EMA over the data ranks")
     parser.add_argument("-num_epochs", default=50, type=int)
     parser.add_argument("-fp16", default=32, type=int,
                         help="32 = float32 compute; 16 = bfloat16 "
@@ -112,7 +124,8 @@ def refuse_unported(args) -> None:
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"-{flag} {getattr(args, flag)}: not ported (ROADMAP "
-                f"{item}); the port trains data-parallel only")
+                f"{item}); the port trains data- and tensor-parallel, "
+                f"with or without FSDP")
 
 
 def _log_config(rank: int) -> None:
@@ -121,22 +134,26 @@ def _log_config(rank: int) -> None:
 
 
 def num_ranks(args) -> int:
-    """The ranks ``-num_devices`` asks for on this host: -1 means every
-    local GPU (one process on the CPU); more GPUs than there are raise."""
+    """The ranks ``-num_devices`` and ``-model_parallel`` ask for on this
+    host: data ranks times model ranks, -1 data ranks meaning every local
+    GPU (one data rank on the CPU); more GPUs than there are raise."""
     import torch
 
     from lasr_tpu_torch import resolve_device
     device = resolve_device(args.device)
-    n = args.num_devices
+    n, mp = args.num_devices, args.model_parallel
     if n == 0 or n < -1:
         raise ValueError(f"-num_devices {n}: expected -1 or a count >= 1")
+    if mp < 1:
+        raise ValueError(f"-model_parallel {mp}: expected a count >= 1")
     if device.type != "cuda":
-        return 1 if n == -1 else n
+        return (1 if n == -1 else n) * mp
     count = torch.cuda.device_count()
-    n = count if n == -1 else n
-    if n > count:
-        raise ValueError(f"-num_devices {n} exceeds the {count} available "
-                         f"GPUs")
+    n = count // mp if n == -1 else n
+    if n < 1 or n * mp > count:
+        raise ValueError(f"-num_devices {n} x -model_parallel {mp} exceeds "
+                         f"the {count} available GPUs")
+    n *= mp
     if n > 1 and device.index is not None:
         raise ValueError(f"-device {args.device}: with -num_devices {n} "
                          f"rank i takes cuda:i; pass -device cuda")
@@ -151,9 +168,11 @@ def main(argv=None):
         _log_config(int(os.environ["RANK"]))
         local = int(os.environ.get("LOCAL_WORLD_SIZE",
                                    os.environ["WORLD_SIZE"]))
-        if args.num_devices not in (-1, local):
-            raise ValueError(f"-num_devices {args.num_devices}: torchrun "
-                             f"started {local} ranks on this host")
+        if args.num_devices != -1 and \
+                args.num_devices * args.model_parallel != local:
+            raise ValueError(f"-num_devices {args.num_devices} x "
+                             f"-model_parallel {args.model_parallel}: "
+                             f"torchrun started {local} ranks on this host")
         return run(args)
     _log_config(0)
     n = num_ranks(args)
@@ -189,10 +208,13 @@ def run(args, rendezvous=None, wall_t0=None) -> int:
     if device.type == "cpu" and rendezvous is not None:
         torch.set_num_threads(max(1, torch.get_num_threads()
                                   // rendezvous.world_size))
-    backend = dist.init(device, rendezvous=rendezvous)
+    backend = dist.init(device, rendezvous=rendezvous,
+                        model_parallel=args.model_parallel)
     try:
-        logging.info("data parallel: backend %s, world size %d, device %s",
-                     backend, dist.world_size(), device)
+        logging.info("data parallel: backend %s, world size %d, device %s; "
+                     "%d data x %d model ranks, fsdp %d", backend,
+                     dist.world_size(), device, dist.data_size(),
+                     dist.model_size(), args.fsdp)
         fit(args, *build(args, device),
             wall_t0=_PROC_T0 if wall_t0 is None else wall_t0)
         return 0
@@ -223,8 +245,8 @@ def build(args, device):
     tokenizer_config = config["tokenizer_config"]
 
     tokenizer = BaseConfig(**tokenizer_config).generateExample()
-    # batch rows divide over the host's ranks (the JAX CLI pads to its
-    # data axis)
+    # batch rows divide over the host's data ranks (the JAX CLI pads to
+    # its data axis)
     local_world = dist.layout()[3]
     for dc in (train_data_config, valid_data_config):
         dc.setdefault("kwargs", {}).setdefault("batch_pad_multiple",
@@ -255,7 +277,7 @@ def build(args, device):
         model, criterion, optimizer, frontend, tokenizer=tokenizer,
         exp_dir=args.exp_dir, schedule=schedule, use_ema=args.ema == 1,
         acc_grads=args.acc_grads, seed=args.seed,
-        log_interval=args.log_interval, device=device)
+        log_interval=args.log_interval, device=device, fsdp=args.fsdp == 1)
 
     logging.info("loading + checking data")
     train_dataset.load_check_data()

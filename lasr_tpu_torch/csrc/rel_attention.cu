@@ -77,6 +77,15 @@
 //  - the TPU kernel's barrel-shifter rolls, its 128-lane dk padding and
 //    its p_off alignment offset are Mosaic layout devices, not carried
 //    over.
+//  - wide heads (64 < dk <= 128, the 1B config's dk = 80): the q
+//    fragments of 10-16 depth steps do not fit in registers, nor the
+//    tiles above in shared memory.  There a warp reloads its q_u / q_v
+//    fragments from the resident tiles at each key tile, keeps its AC / P
+//    and W scratch (and a 16-column PV tile, one output column tile at a
+//    time) apart from the q tiles, and the k, v and window tiles stream
+//    through two buffers, copied one tile ahead (f32) or as for bf16
+//    above: ~225 KB at dk = 128 in f32, one block per SM.  bf16 whose raw
+//    staging would not fit (dk > 80) loads its tiles through registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,17 +111,21 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 2;      // blocks per SM
 constexpr int LS = BK + 4;         // row stride of a warp's AC (P) tile
 constexpr int WCOLS = 48;          // columns of a warp's W tile: 47 used
-constexpr int DK_MAX = 64;
+constexpr int LW = WCOLS + 4;      // row stride of a wide warp's W / PV
+constexpr int DK_MAX = 128;
 static_assert(BQ % CH == 0 && TM * 2 == BK, "2 lanes a row, 16 keys each");
 
-// f32 k, v tiles stream through three buffers (copied two tiles ahead);
-// bf16 through two (staged raw two tiles ahead, widened one tile ahead).
-// The window ring holds the NWIN chunks in use and those loading.
-template <typename T>
+// f32 k, v tiles stream through three buffers (copied two tiles ahead),
+// or two for wide heads (copied one tile ahead); bf16 through two (staged
+// raw two tiles ahead, widened one tile ahead).  The window ring holds the
+// NWIN chunks in use and those loading.
+template <typename T, bool WIDE>
 struct Pipe {
   static constexpr bool f32 = std::is_same<T, float>::value;
-  static constexpr int NBUF = f32 ? 3 : 2;
+  static constexpr int NBUF = f32 && !WIDE ? 3 : 2;
   static constexpr int NRING = NWIN + NBUF - 1;
+  // tiles ahead that a step starts copying (bf16: staging raw)
+  static constexpr int AHEAD = f32 && WIDE ? 1 : 2;
 };
 
 struct Dims {
@@ -129,33 +142,38 @@ struct Dims {
 };
 
 // Shared memory: the resident q_u and q_v tiles (Qu, Qv; warp w's 16 rows
-// of each become its AC / P and W / PV scratch), NBUF buffers of k (K) and
-// of v (V), the window ring, and (bf16 by cp.async) raw staging for k, v
-// and a window chunk in two parities (RK, RV, RP), each row KW wide.
+// of each become its AC / P and W / PV scratch, or, for wide heads, stay
+// and the warp's scratch is its own part of S: 16 x LS, then 16 x LW),
+// NBUF buffers of k (K) and of v (V), the window ring, and (bf16 by
+// cp.async) raw staging for k, v and a window chunk in two parities (RK,
+// RV, RP), each row KW wide.
 struct Smem {
-  float *Qu, *Qv, *K, *V, *ring;
+  float *Qu, *Qv, *K, *V, *ring, *S;
   __nv_bfloat16 *RK, *RV, *RP;
 };
 
-template <typename T>
+template <typename T, bool WIDE>
 __host__ __device__ __forceinline__ size_t smem_bytes(const Dims& D) {
-  using P = Pipe<T>;
+  using P = Pipe<T, WIDE>;
   const size_t floats = 2 * (size_t)BQ * D.LQ +
                         2 * (size_t)P::NBUF * BK * D.LD +
-                        (size_t)P::NRING * CH * D.LD;
+                        (size_t)P::NRING * CH * D.LD +
+                        (WIDE ? (size_t)WARPS * TM * (LS + LW) : 0);
   return 4 * floats + (D.raw ? 2 * 2 * (size_t)(2 * BK + CH) * D.KW : 0);
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 __device__ __forceinline__ Smem carve(float* p, const Dims& D) {
-  using P = Pipe<T>;
+  using P = Pipe<T, WIDE>;
   Smem s;
   s.Qu = p;
   s.Qv = s.Qu + BQ * D.LQ;
   s.K = s.Qv + BQ * D.LQ;
   s.V = s.K + P::NBUF * BK * D.LD;
   s.ring = s.V + P::NBUF * BK * D.LD;
-  s.RK = reinterpret_cast<__nv_bfloat16*>(s.ring + P::NRING * CH * D.LD);
+  s.S = s.ring + P::NRING * CH * D.LD;
+  s.RK = reinterpret_cast<__nv_bfloat16*>(
+      s.S + (WIDE ? WARPS * TM * (LS + LW) : 0));
   s.RV = s.RK + 2 * BK * D.KW;
   s.RP = s.RV + 2 * BK * D.KW;
   return s;
@@ -199,19 +217,58 @@ __device__ __forceinline__ void scores(
                             wmma::mem_row_major);
 }
 
+// The same for wide heads: the q fragments of each depth step are loaded
+// and split from the warp's resident rows qu / qv (row stride LQ) at every
+// key tile, and W goes to the warp's scratch at row stride LW.
+template <int NS>
+__device__ __forceinline__ void scores_wide(const float* qu, const float* qv,
+                                            const float* K,
+                                            const float* const (&pw)[3],
+                                            float* ac, float* w,
+                                            const Dims& D) {
+  FragC acc[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) wmma::fill_fragment(acc[c], 0.f);
+#pragma unroll 2
+  for (int ks = 0; ks < D.NDS; ++ks) {
+    Split<FragA<RowMajor>, NS> fu, fv;
+    load_split(fu, qu + ks * TK, D.LQ);
+    load_split(fv, qv + ks * TK, D.LQ);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      Split<FragB<ColMajor>, NS> b;
+      load_split(b, K + c * TN * D.LD + ks * TK, D.LD);
+      mma_split(acc[c], fu, b);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      Split<FragB<ColMajor>, NS> b;
+      load_split(b, pw[c] + ks * TK, D.LD);
+      mma_split(acc[2 + c], fv, b);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    wmma::store_matrix_sync(ac + c * TN, acc[c], LS, wmma::mem_row_major);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    wmma::store_matrix_sync(w + c * TN, acc[2 + c], LW, wmma::mem_row_major);
+}
+
 // The online softmax of the warp's 16 rows over keys k0 .. k0+31: lane
 // (r, h) = (lane / 2, lane % 2) takes row r, keys 16h .. 16h+15:
 // s = AC[r][j] + W[r][15-r+j] (the rel-shift), scaled and masked at
 // kv_len.  m, l and the rescale alpha of the row are updated in registers
-// (the same in both lanes); P, rounded to T, replaces AC.
+// (the same in both lanes); P, rounded to T, replaces AC.  W's row
+// stride is ldw.
 template <typename T>
 __device__ __forceinline__ void softmax_step(float* ac, const float* w,
-                                             float& m, float& l,
+                                             int ldw, float& m, float& l,
                                              float& alpha, int k0, int kvl,
                                              const Dims& D) {
   const int lane = threadIdx.x & 31, r = lane >> 1, j0 = (lane & 1) * 16;
   float* a = ac + r * LS + j0;
-  const float* wr = w + r * D.LQ + (TM - 1) - r + j0;
+  const float* wr = w + r * ldw + (TM - 1) - r + j0;
   float x[16], mx = -INFINITY;
 #pragma unroll
   for (int c = 0; c < 16; c += 4) {
@@ -270,6 +327,41 @@ __device__ __forceinline__ void pv_step(const float* P, const float* V,
   }
 }
 
+// Wide heads: PV one 16-column tile at a time into the warp's scratch pv
+// (row stride LW), each followed by O = O·alpha + PV of its columns (o's
+// layout as o_update's: element 8 dt + i is column 16 dt + lane % 2 + 2i).
+template <int NS, int NDTX>
+__device__ __forceinline__ void pv_o_wide(const float* P, const float* V,
+                                          float* pv, float (&o)[NDTX * 8],
+                                          float alpha, const Dims& D) {
+  const int lane = threadIdx.x & 31;
+  const int ndt = D.DKP / TN;
+  const float* row = pv + (lane >> 1) * LW + (lane & 1);
+  Split<FragA<RowMajor>, NS> a[BK / TK];
+#pragma unroll
+  for (int ks = 0; ks < BK / TK; ++ks) load_split(a[ks], P + ks * TK, LS);
+#pragma unroll
+  for (int dt = 0; dt < NDTX; ++dt) {
+    if (dt < ndt) {
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int ks = 0; ks < BK / TK; ++ks) {
+        Split<FragB<RowMajor>, NS> b;
+        load_split(b, V + ks * TK * D.LD + dt * TN, D.LD);
+        mma_split(acc, a[ks], b);
+      }
+      wmma::store_matrix_sync(pv, acc, LW, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (dt * TN + (lane & 1) + 2 * i < D.dk)
+          o[dt * 8 + i] = fmaf(o[dt * 8 + i], alpha, row[2 * i]);
+      __syncwarp();
+    }
+  }
+}
+
 // O = O·alpha + PV for the lane's elements: row lane / 2, columns
 // lane % 2 + 2i below dk.
 template <int OPL>
@@ -282,9 +374,10 @@ __device__ __forceinline__ void o_update(float (&o)[OPL], const float* pv,
     if ((lane & 1) + 2 * i < D.dk) o[i] = fmaf(o[i], alpha, row[2 * i]);
 }
 
-// NDSX: depth steps the q fragments are held for (ceil(dk / 8) <= NDSX).
+// NDSX: depth steps the q fragments are held for (ceil(dk / 8) <= NDSX);
+// above 8 (dk > 64) the wide-head form, which reloads them per key tile.
 template <typename T, int NDSX>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, NDSX > 8 ? 1 : MIN_BLOCKS)
     rel_attention_fwd_kernel(const T* __restrict__ qu,
                              const T* __restrict__ qv,
                              const T* __restrict__ k, const T* __restrict__ v,
@@ -293,11 +386,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                              T* __restrict__ out, float* __restrict__ lse,
                              Dims D) {
   constexpr int NS = SplitsFor<T>::value;
-  constexpr bool f32 = Pipe<T>::f32;
-  constexpr int NBUF = Pipe<T>::NBUF, NRING = Pipe<T>::NRING;
+  constexpr bool WIDE = NDSX > 8;
+  using Pp = Pipe<T, WIDE>;
+  constexpr bool f32 = Pp::f32;
+  constexpr int NBUF = Pp::NBUF, NRING = Pp::NRING, AHEAD = Pp::AHEAD;
   constexpr int OPL = NDSX * TK / 2;  // O elements a lane: 16 rows x dk
   extern __shared__ __align__(128) float smem[];
-  const Smem sm = carve<T>(smem, D);
+  const Smem sm = carve<T, WIDE>(smem, D);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -335,9 +430,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
   // resident q tiles, the first key tile and window (f32 by cp.async,
   // bf16 through registers), then tile 1: f32 in its own group (so a
-  // step waits for its tile only), bf16 staged raw.  The cp.async copies
-  // and the widening take tile_io.cuh's spread forms: the tiles are
-  // narrow.
+  // step waits for its tile only), bf16 staged raw; f32 of wide heads
+  // copies tile 1 in step 0.  The cp.async copies and the widening take
+  // tile_io.cuh's spread forms: the tiles are narrow.
   constexpr bool SP = true;
   load_resident<BQ, T, Dims, WARPS, SP>(su, q0, sm.Qu, D);
   load_resident<BQ, T, Dims, WARPS, SP>(sv, q0, sm.Qv, D);
@@ -345,7 +440,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   load_resident<BK, T, Dims, WARPS, SP>(sn, 0, vbuf(0), D);
   load_resident<NWIN * CH, T, Dims, WARPS, SP>(sp, grow(0), slot(0), D);
   if constexpr (f32) cp_async_commit();
-  if (ntiles > 1) {
+  if (AHEAD == 2 && ntiles > 1) {
     issue<BK, T, Dims, WARPS, SP>(sk, BK, kbuf(1), rk(1), D);
     issue<BK, T, Dims, WARPS, SP>(sn, BK, vbuf(1), rv(1), D);
     issue<CH, T, Dims, WARPS, SP>(sp, grow(NWIN), slot(NWIN), rp(1), D);
@@ -355,24 +450,28 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   // the warp's rows, its scratch and its window's column tiles: window
   // rows 16c.. of warp w lie at 16 (WARPS-1-w) + 16c in the block's
   const bool active = q0 + warp * TM < D.T;
-  float* sac = sm.Qu + warp * TM * D.LQ;  // AC, then P
-  float* sw = sm.Qv + warp * TM * D.LQ;   // W, then PV, then the output
+  float* const qu_w = sm.Qu + warp * TM * D.LQ;
+  float* const qv_w = sm.Qv + warp * TM * D.LQ;  // last: the output
+  float* sac = WIDE ? sm.S + warp * TM * (LS + LW) : qu_w;  // AC, then P
+  float* sw = WIDE ? sac + TM * LS : qv_w;  // W, then PV
   int wofs[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) wofs[c] = TM * (WARPS - 1 - warp) + TN * c;
-  Split<FragA<RowMajor>, NS> fu[NDSX], fv[NDSX];
+  // the q fragments, held in registers (narrow heads only)
+  Split<FragA<RowMajor>, NS> fu[WIDE ? 1 : NDSX], fv[WIDE ? 1 : NDSX];
   float o[OPL], m = -INFINITY, l = 0.f;
 #pragma unroll
   for (int i = 0; i < OPL; ++i) o[i] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * BK;
-    // f32: tile t's group has landed, tile t+1's may be in flight; bf16:
-    // tile t was widened in step t-1, tile t+1's raw copy has landed
-    cp_async_wait(f32 ? 1 : 0);
+    // f32: tile t's group has landed, tile t+1's may be in flight (wide
+    // heads: none is); bf16: tile t was widened in step t-1, tile t+1's
+    // raw copy has landed
+    cp_async_wait(f32 && !WIDE ? 1 : 0);
     __syncthreads();  // tile t has landed; step t-1's readers are done
     // the next tiles' copies run while this one is computed: f32 copies
-    // tile t+2 into the buffer step t-1 read; bf16 widens (or loads
+    // tile t+AHEAD into the buffer step t-1 read; bf16 widens (or loads
     // through registers) tile t+1 and stages tile t+2 raw
     if (!f32 && t + 1 < ntiles) {
       const int n = t + 1;
@@ -381,25 +480,27 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       land<CH, T, Dims, WARPS, SP>(sp, grow(n + NWIN - 1),
                                    slot(n + NWIN - 1), rp(n), D);
     }
-    if (t + 2 < ntiles) {
-      const int n = t + 2;
-      issue<BK, T, Dims, WARPS, SP>(sk, k0 + 2 * BK, kbuf(n), rk(n), D);
-      issue<BK, T, Dims, WARPS, SP>(sn, k0 + 2 * BK, vbuf(n), rv(n), D);
+    if (t + AHEAD < ntiles) {
+      const int n = t + AHEAD;
+      issue<BK, T, Dims, WARPS, SP>(sk, n * BK, kbuf(n), rk(n), D);
+      issue<BK, T, Dims, WARPS, SP>(sn, n * BK, vbuf(n), rv(n), D);
       issue<CH, T, Dims, WARPS, SP>(sp, grow(n + NWIN - 1),
                                     slot(n + NWIN - 1), rp(n), D);
     }
     cp_async_commit();
     if (!active) continue;
-    if (t == 0) {
-      // the q fragments, split once; the tiles then serve as scratch
+    if constexpr (!WIDE) {
+      if (t == 0) {
+        // the q fragments, split once; the tiles then serve as scratch
 #pragma unroll
-      for (int ks = 0; ks < NDSX; ++ks) {
-        if (ks < D.NDS) {
-          load_split(fu[ks], sac + ks * TK, D.LQ);
-          load_split(fv[ks], sw + ks * TK, D.LQ);
+        for (int ks = 0; ks < NDSX; ++ks) {
+          if (ks < D.NDS) {
+            load_split(fu[ks], sac + ks * TK, D.LQ);
+            load_split(fv[ks], sw + ks * TK, D.LQ);
+          }
         }
+        __syncwarp();
       }
-      __syncwarp();
     }
     const float* Kc = kbuf(t);
     const float* Vc = vbuf(t);
@@ -408,13 +509,21 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     for (int c = 0; c < 3; ++c)
       pw[c] = slot(t + wofs[c] / CH) + (wofs[c] % CH) * D.LD;
     float alpha;
-    scores<NS, NDSX>(fu, fv, Kc, pw, sac, sw, D);
-    __syncwarp();
-    softmax_step<T>(sac, sw, m, l, alpha, k0, kvl, D);
-    __syncwarp();
-    pv_step<NS, NDSX>(sac, Vc, sw, D);
-    __syncwarp();
-    o_update(o, sw, alpha, D);
+    if constexpr (WIDE) {
+      scores_wide<NS>(qu_w, qv_w, Kc, pw, sac, sw, D);
+      __syncwarp();
+      softmax_step<T>(sac, sw, LW, m, l, alpha, k0, kvl, D);
+      __syncwarp();
+      pv_o_wide<NS, NDSX / 2>(sac, Vc, sw, o, alpha, D);
+    } else {
+      scores<NS, NDSX>(fu, fv, Kc, pw, sac, sw, D);
+      __syncwarp();
+      softmax_step<T>(sac, sw, D.LQ, m, l, alpha, k0, kvl, D);
+      __syncwarp();
+      pv_step<NS, NDSX>(sac, Vc, sw, D);
+      __syncwarp();
+      o_update(o, sw, alpha, D);
+    }
   }
 
   if (!active) return;
@@ -426,7 +535,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
   for (int i = 0; i < OPL; ++i) {
     const int e = (lane & 1) + 2 * i;
-    if (e < D.dk) sw[r * D.LQ + e] = o[i] * inv;
+    if (e < D.dk) qv_w[r * D.LQ + e] = o[i] * inv;
   }
   if ((lane & 1) == 0 && row0 + r < D.T) lse[base + row0 + r] = m + logf(l);
   __syncwarp();
@@ -434,7 +543,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   T* dst = out + (base + row0) * D.dk;
   for (int idx = lane; idx < n; idx += 32) {
     const int rr = idx / D.dk;
-    dst[idx] = from_f32<T>(sw[rr * D.LQ + (idx - rr * D.dk)]);
+    dst[idx] = from_f32<T>(qv_w[rr * D.LQ + (idx - rr * D.dk)]);
   }
 }
 
@@ -460,13 +569,30 @@ Dims make_dims(int T_, int dk, int H, bool f32, int chunk) {
 }
 
 template <typename T, int NDSX>
-int launch_as(const Dims& D, const void* qu, const void* qv, const void* k,
+int launch_as(Dims D, const void* qu, const void* qv, const void* k,
               const void* v, const void* p, const int* kv_len, void* out,
               float* lse, int BH, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(D);
+  constexpr bool WIDE = NDSX > 8;
+  cudaError_t err = cudaSuccess;
+  if constexpr (WIDE) {
+    // (narrow heads always fit)
+    int dev = 0, smem_max = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    // bf16 whose raw staging does not fit loads its tiles through
+    // registers
+    if (D.raw && smem_bytes<T, WIDE>(D) > (size_t)smem_max)
+      D.chunk = D.raw = 0;
+    if (smem_bytes<T, WIDE>(D) > (size_t)smem_max)
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes<T, WIDE>(D);
   auto kern = rel_attention_fwd_kernel<T, NDSX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((D.T + BQ - 1) / BQ, BH);
   kern<<<grid, THREADS, smem, stream>>>(
@@ -494,10 +620,13 @@ int launch(const void* qu, const void* qv, const void* k, const void* v,
                     : dk % pair == 0 && all(4) ? pair
                                                : 0;
   const Dims D = make_dims(T_, dk, H, std::is_same<T, float>::value, chunk);
-  // q fragments held for 5 depth steps (dk <= 40, the model's) or 8
+  // q fragments held for 5 depth steps (dk <= 40, the recipe's) or 8;
+  // wide heads (dk > 64) reload them per key tile
   if (D.NDS <= 5)
     return launch_as<T, 5>(D, qu, qv, k, v, p, kv_len, out, lse, BH, stream);
-  return launch_as<T, 8>(D, qu, qv, k, v, p, kv_len, out, lse, BH, stream);
+  if (D.NDS <= 8)
+    return launch_as<T, 8>(D, qu, qv, k, v, p, kv_len, out, lse, BH, stream);
+  return launch_as<T, 16>(D, qu, qv, k, v, p, kv_len, out, lse, BH, stream);
 }
 
 }  // namespace
@@ -522,20 +651,32 @@ extern "C" int lasr_rel_attention_fwd(const void* qu, const void* qv,
 
 // The launch's dynamic shared memory and resident blocks per SM for a
 // (T, dk, type) with 16-byte copies (for reports; not on the path).
-extern "C" int lasr_rel_attention_fwd_occupancy(int T_, int dk, int is_bf16,
-                                                int* smem, int* blocks) {
-  if (dk < 1 || dk > DK_MAX || T_ < 1) return (int)cudaErrorInvalidValue;
-  const Dims D = make_dims(T_, dk, 1, !is_bf16, is_bf16 ? 8 : 4);
-  *smem = (int)(is_bf16 ? smem_bytes<__nv_bfloat16>(D) : smem_bytes<float>(D));
-  const void* kern =
-      is_bf16 ? (D.NDS <= 5
-                     ? (const void*)rel_attention_fwd_kernel<__nv_bfloat16, 5>
-                     : (const void*)rel_attention_fwd_kernel<__nv_bfloat16, 8>)
-              : (D.NDS <= 5 ? (const void*)rel_attention_fwd_kernel<float, 5>
-                            : (const void*)rel_attention_fwd_kernel<float, 8>);
+namespace {
+
+template <typename T, int NDSX>
+int occupancy_as(const Dims& D, int* smem, int* blocks) {
+  *smem = (int)smem_bytes<T, (NDSX > 8)>(D);
+  const void* kern = (const void*)rel_attention_fwd_kernel<T, NDSX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
                                                             THREADS, *smem);
+}
+
+template <typename T>
+int occupancy(const Dims& D, int* smem, int* blocks) {
+  if (D.NDS <= 5) return occupancy_as<T, 5>(D, smem, blocks);
+  if (D.NDS <= 8) return occupancy_as<T, 8>(D, smem, blocks);
+  return occupancy_as<T, 16>(D, smem, blocks);
+}
+
+}  // namespace
+
+extern "C" int lasr_rel_attention_fwd_occupancy(int T_, int dk, int is_bf16,
+                                                int* smem, int* blocks) {
+  if (dk < 1 || dk > DK_MAX || T_ < 1) return (int)cudaErrorInvalidValue;
+  const Dims D = make_dims(T_, dk, 1, !is_bf16, is_bf16 ? 8 : 4);
+  return is_bf16 ? occupancy<__nv_bfloat16>(D, smem, blocks)
+                 : occupancy<float>(D, smem, blocks);
 }

@@ -70,6 +70,12 @@
 //    92 KB of dynamic shared memory per block in f32, so two 8-warp blocks
 //    share an SM (at most 128 registers a thread): one block's copies,
 //    barriers and element work overlap the other's products.
+//  - wide heads (64 < dk <= 128, the 1B config's dk = 80): the score
+//    products run 10-16 depth steps, and the 2 x ceil(dk/16) output tiles
+//    of each pass (10 at dk = 80, 16 at 128) outnumber the 8 warps, so a
+//    warp owns two (its running sums for both in registers: one block per
+//    SM, up to 255 registers a thread); ~204 KB of shared memory at
+//    dk = 128 in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,7 +99,7 @@ constexpr int THREADS = 32 * NWARPS;
 constexpr int MIN_BLOCKS = 2;    // blocks per SM: at most 128 registers
 constexpr int LS = BK + 4;       // row stride of the AC / dPa (P, dz) tiles
 constexpr int LW = 2 * HALF + 4; // row stride of the W (dW) tile
-constexpr int DK_MAX = 64;       // at most 2 x 4 output tiles, one a warp
+constexpr int DK_MAX = 128;      // at most 2 x 8 output tiles, two a warp
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -216,7 +222,7 @@ __device__ __forceinline__ void add_to(FragC& acc, const FragC& x) {
 // w < 4 takes column tile w of W, warps 4-5 a column tile of AC, warps
 // 6-7 one of DP, each over both row tiles: a B fragment loaded and split
 // once feeds two products.
-template <int NS>
+template <int NS, int NDSX>
 __device__ __forceinline__ void scores(const float* Qu, const float* Qv,
                                        const float* DO, const float* K,
                                        const float* V, const float* Plo,
@@ -232,7 +238,7 @@ __device__ __forceinline__ void scores(const float* Qu, const float* Qv,
   wmma::fill_fragment(x0, 0.f);
   wmma::fill_fragment(x1, 0.f);
 #pragma unroll
-  for (int ks = 0; ks < DK_MAX / TK; ++ks) {
+  for (int ks = 0; ks < NDSX; ++ks) {
     if (ks < D.NDS) {
       Split<FragB<ColMajor>, NS> bf;
       Split<FragA<RowMajor>, NS> a0, a1;
@@ -294,8 +300,10 @@ __device__ __forceinline__ void flush_rows(const FragC& f, float* stage,
 // window of query tile t is rows G(t+1) (lower half) and G(t) (upper) with
 // G(h) = p rows from T + k0 - 32h; G(h) lives in ring slot 2 - h % 3, so
 // G(1), G(0) sit in slots 1, 2 in row order for the first 64-row copy.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+// NDSX: depth steps of the score products (ceil(dk / 8) <= NDSX); above 8
+// a warp owns two output tiles.
+template <typename T, int NDSX>
+__global__ void __launch_bounds__(THREADS, NDSX > 8 ? 1 : MIN_BLOCKS)
     rel_bwd_dkdv_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                         const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ p,
@@ -305,6 +313,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                         const float* __restrict__ delta, T* __restrict__ dk_,
                         T* __restrict__ dv_, Dims D) {
   constexpr int NS = SplitsFor<T>::value;
+  constexpr int NOWN = NDSX > 8 ? 2 : 1;  // output tiles a warp owns
   constexpr bool f32 = std::is_same<T, float>::value;
   extern __shared__ __align__(128) float smem[];
   const Smem sm = carve(smem, D, false, f32);
@@ -314,12 +323,19 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const size_t base = (size_t)bh * D.T;
   const int kvl = max(0, min(kv_len[bh], D.T));
   const int tile = BQ * D.LD;
-  // warp w < 2 * ndt owns column tile dt of dv (w < ndt) or of dk, both
-  // row tiles: one B fragment feeds two products
+  // tile u < 2 * ndt is column tile u % ndt of dv (u < ndt) or of dk,
+  // both row tiles (one B fragment feeds two products); warp w owns tiles
+  // w + 8s, s < NOWN
   const int ndt = D.DKP / TN;
-  const bool owner = warp < 2 * ndt;
-  const bool is_dk = warp >= ndt;
-  const int dt = warp % ndt;
+  bool owner[NOWN], is_dk[NOWN];
+  int dt[NOWN];
+#pragma unroll
+  for (int s = 0; s < NOWN; ++s) {
+    const int u = warp + NWARPS * s;
+    owner[s] = u < 2 * ndt;
+    is_dk[s] = u >= ndt;
+    dt[s] = u % ndt;
+  }
   const Src<T> su{qu + base * D.dk, qu, D.dk, 0, D.T, D.DKP, D.LD};
   const Src<T> sv{qv + base * D.dk, qv, D.dk, 0, D.T, D.DKP, D.LD};
   const Src<T> sg{dout + base * D.dk, dout, D.dk, 0, D.T, D.DKP, D.LD};
@@ -330,9 +346,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   auto slot = [&](int h) { return sm.ring + (2 - h % 3) * tile; };
   auto grow = [&](int h) { return D.T + k0 - HALF * h; };
 
-  FragC acc0, acc1;  // rows 0-15 and 16-31 of the warp's dv or dk tile
-  wmma::fill_fragment(acc0, 0.f);
-  wmma::fill_fragment(acc1, 0.f);
+  // rows 0-15 and 16-31 of each of the warp's dv or dk tiles
+  FragC acc0[NOWN], acc1[NOWN];
+#pragma unroll
+  for (int s = 0; s < NOWN; ++s) {
+    wmma::fill_fragment(acc0[s], 0.f);
+    wmma::fill_fragment(acc1[s], 0.f);
+  }
   if (k0 < kvl) {
     load_resident<BK>(sk, k0, sm.K[0], D);
     load_resident<BK>(sn, k0, sm.V[0], D);
@@ -378,16 +398,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                         (t & 1) ? sm.Dl[0] : sm.Dl[1]);
         cp_async_commit();
       }
-      scores<NS>(Quc, Qvc, DOc, sm.K[0], sm.V[0], slot(t + 1), slot(t),
-                 sm.AC, sm.W, sm.DP, D);
+      scores<NS, NDSX>(Quc, Qvc, DOc, sm.K[0], sm.V[0], slot(t + 1),
+                       slot(t), sm.AC, sm.W, sm.DP, D);
       __syncthreads();
       softmax_step<false>(sm.AC, sm.W, sm.DP, Lc, Dlc, k0, kvl, D.T - q0,
                           D.scale);
       __syncthreads();
-      if (owner) {
+#pragma unroll
+      for (int s = 0; s < NOWN; ++s) {
+        if (!owner[s]) continue;
         // dv += P^T·dout or dk += dz^T·q_u over the tile's 32 query rows
-        const float* at = is_dk ? sm.AC : sm.DP;
-        const float* bt = (is_dk ? Quc : DOc) + dt * TN;
+        const float* at = is_dk[s] ? sm.AC : sm.DP;
+        const float* bt = (is_dk[s] ? Quc : DOc) + dt[s] * TN;
         FragC t0, t1;
         wmma::fill_fragment(t0, 0.f);
         wmma::fill_fragment(t1, 0.f);
@@ -401,8 +423,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
           mma_split(t0, a0, bf);
           mma_split(t1, a1, bf);
         }
-        add_to(acc0, t0);
-        add_to(acc1, t1);
+        add_to(acc0[s], t0);
+        add_to(acc1[s], t1);
       }
     }
   }
@@ -410,10 +432,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   __syncthreads();
   float* sdv = sm.Qu[0];
   float* sdk = sm.Qv[0];
-  if (owner) {
-    float* o = (is_dk ? sdk : sdv) + dt * TN;
-    wmma::store_matrix_sync(o, acc0, D.LD, wmma::mem_row_major);
-    wmma::store_matrix_sync(o + TM * D.LD, acc1, D.LD, wmma::mem_row_major);
+#pragma unroll
+  for (int s = 0; s < NOWN; ++s) {
+    if (!owner[s]) continue;
+    float* o = (is_dk[s] ? sdk : sdv) + dt[s] * TN;
+    wmma::store_matrix_sync(o, acc0[s], D.LD, wmma::mem_row_major);
+    wmma::store_matrix_sync(o + TM * D.LD, acc1[s], D.LD,
+                            wmma::mem_row_major);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < BK * D.dk; idx += THREADS) {
@@ -429,8 +454,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 // row T - 32 - q0 + m).  The window of key tile t is rows G(t) (lower
 // half) and G(t+1) (upper) with G(h) = p rows from T - 32 - q0 + 32h, in
 // ring slot h % 3.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <typename T, int NDSX>
+__global__ void __launch_bounds__(THREADS, NDSX > 8 ? 1 : MIN_BLOCKS)
     rel_bwd_dq_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                       const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ p, const int* __restrict__ kv_len,
@@ -440,6 +465,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
                       T* __restrict__ dqv_, float* __restrict__ part,
                       Dims D) {
   constexpr int NS = SplitsFor<T>::value;
+  constexpr int NOWN = NDSX > 8 ? 2 : 1;  // output tiles a warp owns
   constexpr bool f32 = std::is_same<T, float>::value;
   extern __shared__ __align__(128) float smem[];
   const Smem sm = carve(smem, D, true, f32);
@@ -449,12 +475,19 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const size_t base = (size_t)bh * D.T;
   const int kvl = max(0, min(kv_len[bh], D.T));
   const int tile = BQ * D.LD;
-  // warp w < 2 * ndt owns the 16 x 16 tile (rt, ct) of dq_u and of dq_v,
-  // and rows rt and rt + 2 (16 each) of the rolling dp window in column
-  // tile ct
+  // tile u < 2 * ndt is the 16 x 16 tile (rt, ct) = (u / ndt, u % ndt) of
+  // dq_u and of dq_v, with rows rt and rt + 2 (16 each) of the rolling dp
+  // window in column tile ct; warp w owns tiles w + 8s, s < NOWN
   const int ndt = D.DKP / TN;
-  const bool owner = warp < (BQ / TM) * ndt;
-  const int rt = warp / ndt, ct = warp % ndt;
+  bool owner[NOWN];
+  int rt[NOWN], ct[NOWN];
+#pragma unroll
+  for (int s = 0; s < NOWN; ++s) {
+    const int u = warp + NWARPS * s;
+    owner[s] = u < (BQ / TM) * ndt;
+    rt[s] = u / ndt;
+    ct[s] = u % ndt;
+  }
   const Src<T> su{qu + base * D.dk, qu, D.dk, 0, D.T, D.DKP, D.LD};
   const Src<T> sv{qv + base * D.dk, qv, D.dk, 0, D.T, D.DKP, D.LD};
   const Src<T> sg{dout + base * D.dk, dout, D.dk, 0, D.T, D.DKP, D.LD};
@@ -465,8 +498,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   auto slot = [&](int h) { return sm.ring + (h % 3) * tile; };
   auto grow = [&](int h) { return D.T - HALF - q0 + HALF * h; };
   const int ntiles = (kvl + BK - 1) / BK;
-  float* out_dp = part + ((size_t)bh * D.NQT + blockIdx.x) * D.LP * D.dk +
-                  (size_t)rt * TM * D.dk;
+  float* const out_part =
+      part + ((size_t)bh * D.NQT + blockIdx.x) * D.LP * D.dk;
   float* stage = sm.stage + warp * TM * TN;
 
   load_resident<BQ>(su, q0, sm.Qu[0], D);
@@ -482,11 +515,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
   // running sums: dq_u, dq_v, and the rolling dp rows (lo: window rows
   // 16 rt.., final after this key tile; hi: rows 32 + 16 rt..)
-  FragC au, av, lo, hi;
-  wmma::fill_fragment(au, 0.f);
-  wmma::fill_fragment(av, 0.f);
-  wmma::fill_fragment(lo, 0.f);
-  wmma::fill_fragment(hi, 0.f);
+  FragC au[NOWN], av[NOWN], lo[NOWN], hi[NOWN];
+#pragma unroll
+  for (int s = 0; s < NOWN; ++s) {
+    wmma::fill_fragment(au[s], 0.f);
+    wmma::fill_fragment(av[s], 0.f);
+    wmma::fill_fragment(lo[s], 0.f);
+    wmma::fill_fragment(hi[s], 0.f);
+  }
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * BK;
     const bool odd = f32 && (t & 1);
@@ -512,13 +548,16 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     }
     const float* Plo = slot(t);
     const float* Phi = slot(t + 1);
-    scores<NS>(sm.Qu[0], sm.Qv[0], sm.DO[0], Kc, Vc, Plo, Phi, sm.AC, sm.W,
-               sm.DP, D);
+    scores<NS, NDSX>(sm.Qu[0], sm.Qv[0], sm.DO[0], Kc, Vc, Plo, Phi, sm.AC,
+                     sm.W, sm.DP, D);
     __syncthreads();
     softmax_step<true>(sm.AC, sm.W, sm.DP, sm.L[0], sm.Dl[0], k0, kvl,
                        D.T - q0, D.scale);
     __syncthreads();
-    if (owner) {
+#pragma unroll
+    for (int s = 0; s < NOWN; ++s) {
+      if (!owner[s]) continue;
+      const int rts = rt[s], cts = ct[s];
       // each product from zero, then added to its running sum (one
       // temporary fragment live at a time)
       FragC tmp;
@@ -528,68 +567,74 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       for (int ks = 0; ks < BK / TK; ++ks) {
         Split<FragA<RowMajor>, NS> a;
         Split<FragB<RowMajor>, NS> b;
-        load_split(a, sm.AC + rt * TM * LS + ks * TK, LS);
-        load_split(b, Kc + ks * TK * D.LD + ct * TN, D.LD);
+        load_split(a, sm.AC + rts * TM * LS + ks * TK, LS);
+        load_split(b, Kc + ks * TK * D.LD + cts * TN, D.LD);
         mma_split(tmp, a, b);
       }
-      add_to(au, tmp);
+      add_to(au[s], tmp);
       // dq_v += dW·Pwin over the 48 window rows where row tile rt of dW
       // has non-zeros (rt 0: rows 16-63, rt 1: rows 0-47)
       wmma::fill_fragment(tmp, 0.f);
 #pragma unroll
-      for (int s = 0; s < 6; ++s) {
-        const int ks = s + (rt == 0 ? 2 : 0);
+      for (int j = 0; j < 6; ++j) {
+        const int ks = j + (rts == 0 ? 2 : 0);
         Split<FragA<RowMajor>, NS> a;
         Split<FragB<RowMajor>, NS> b;
-        load_split(a, sm.W + rt * TM * LW + ks * TK, LW);
-        load_split(b, (ks < 4 ? Plo : Phi) + (ks & 3) * TK * D.LD + ct * TN,
+        load_split(a, sm.W + rts * TM * LW + ks * TK, LW);
+        load_split(b, (ks < 4 ? Plo : Phi) + (ks & 3) * TK * D.LD + cts * TN,
                    D.LD);
         mma_split(tmp, a, b);
       }
-      add_to(av, tmp);
+      add_to(av[s], tmp);
       // dPwin rows of tile R = dW^T·q_v over the query rows where column
       // tile R of dW has non-zeros (R 0: rows 16-31, R 3: rows 0-15, R 1
       // and 2: all): lo += tile rt, hi += tile rt + 2
-      const int lo0 = rt == 0 ? 2 : 0, hi1 = rt == 0 ? 4 : 2;
+      const int lo0 = rts == 0 ? 2 : 0, hi1 = rts == 0 ? 4 : 2;
       FragC thi;
       wmma::fill_fragment(tmp, 0.f);
       wmma::fill_fragment(thi, 0.f);
 #pragma unroll
       for (int ks = 0; ks < BQ / TK; ++ks) {
         Split<FragB<RowMajor>, NS> b;
-        load_split(b, sm.Qv[0] + ks * TK * D.LD + ct * TN, D.LD);
+        load_split(b, sm.Qv[0] + ks * TK * D.LD + cts * TN, D.LD);
         if (ks >= lo0) {
           Split<FragA<ColMajor>, NS> a;
-          load_split(a, sm.W + ks * TK * LW + rt * TM, LW);
+          load_split(a, sm.W + ks * TK * LW + rts * TM, LW);
           mma_split(tmp, a, b);
         }
         if (ks < hi1) {
           Split<FragA<ColMajor>, NS> a;
-          load_split(a, sm.W + ks * TK * LW + (rt + 2) * TM, LW);
+          load_split(a, sm.W + ks * TK * LW + (rts + 2) * TM, LW);
           mma_split(thi, a, b);
         }
       }
-      add_to(lo, tmp);
-      add_to(hi, thi);
+      add_to(lo[s], tmp);
+      add_to(hi[s], thi);
       // rows 32t + 16rt .. of the partial are final: out, then roll
-      flush_rows(lo, stage, out_dp + (size_t)k0 * D.dk, ct * TN, D.dk);
-      lo = hi;
-      wmma::fill_fragment(hi, 0.f);
+      flush_rows(lo[s], stage,
+                 out_part + ((size_t)rts * TM + k0) * D.dk, cts * TN, D.dk);
+      lo[s] = hi[s];
+      wmma::fill_fragment(hi[s], 0.f);
     }
   }
-  if (owner)
-    flush_rows(lo, stage, out_dp + (size_t)ntiles * BK * D.dk, ct * TN,
-               D.dk);
+#pragma unroll
+  for (int s = 0; s < NOWN; ++s)
+    if (owner[s])
+      flush_rows(lo[s], stage,
+                 out_part + ((size_t)rt[s] * TM + ntiles * BK) * D.dk,
+                 ct[s] * TN, D.dk);
   cp_async_wait(0);
   __syncthreads();
   // written once: fragments -> the K / V tiles' place -> the outputs
   float* squ = sm.K[0];
   float* sqv = sm.V[0];
-  if (owner) {
-    wmma::store_matrix_sync(squ + rt * TM * D.LD + ct * TN, au, D.LD,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(sqv + rt * TM * D.LD + ct * TN, av, D.LD,
-                            wmma::mem_row_major);
+#pragma unroll
+  for (int s = 0; s < NOWN; ++s) {
+    if (!owner[s]) continue;
+    wmma::store_matrix_sync(squ + rt[s] * TM * D.LD + ct[s] * TN, au[s],
+                            D.LD, wmma::mem_row_major);
+    wmma::store_matrix_sync(sqv + rt[s] * TM * D.LD + ct[s] * TN, av[s],
+                            D.LD, wmma::mem_row_major);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < BQ * D.dk; idx += THREADS) {
@@ -631,6 +676,36 @@ __global__ void rel_bwd_dp_reduce_kernel(const float* __restrict__ part,
 
 bool aligned(const void* p, uintptr_t n) {
   return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
+}
+
+// The key and query passes, their q fragments of NDSX depth steps.
+template <typename T, int NDSX>
+int run_passes(const T* a, const T* b, const T* kk, const T* vv,
+               const T* pp, const int* kv_len, const float* lse,
+               const T* g, const float* delta, float* part, void* dqu,
+               void* dqv, void* dk_, void* dv_, int BH, const Dims& D,
+               cudaStream_t stream) {
+  const bool f32 = std::is_same<T, float>::value;
+  const size_t smem_k = smem_bytes(D, false, f32);
+  const size_t smem_q = smem_bytes(D, true, f32);
+  cudaError_t err = cudaFuncSetAttribute(
+      rel_bwd_dkdv_kernel<T, NDSX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(rel_bwd_dq_kernel<T, NDSX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(D.NQT, BH);
+  rel_bwd_dkdv_kernel<T, NDSX><<<grid, THREADS, smem_k, stream>>>(
+      a, b, kk, vv, pp, kv_len, lse, g, delta, static_cast<T*>(dk_),
+      static_cast<T*>(dv_), D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rel_bwd_dq_kernel<T, NDSX><<<grid, THREADS, smem_q, stream>>>(
+      a, b, kk, vv, pp, kv_len, lse, g, delta, static_cast<T*>(dqu),
+      static_cast<T*>(dqv), part, D);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -678,26 +753,14 @@ int launch(const void* qu, const void* qv, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_k = smem_bytes(D, false, f32);
-  const size_t smem_q = smem_bytes(D, true, f32);
-  err = cudaFuncSetAttribute(rel_bwd_dkdv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_k);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rel_bwd_dq_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(D.NQT, BH);
-  rel_bwd_dkdv_kernel<T><<<grid, THREADS, smem_k, stream>>>(
-      a, b, kk, vv, pp, kv_len, lse, g, delta, static_cast<T*>(dk_),
-      static_cast<T*>(dv_), D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rel_bwd_dq_kernel<T><<<grid, THREADS, smem_q, stream>>>(
-      a, b, kk, vv, pp, kv_len, lse, g, delta, static_cast<T*>(dqu),
-      static_cast<T*>(dqv), part, D);
-  err = cudaGetLastError();
+  // wide heads (dk > 64): 16 depth steps, two output tiles a warp
+  err = (cudaError_t)(D.NDS <= 8
+                          ? run_passes<T, 8>(a, b, kk, vv, pp, kv_len, lse,
+                                             g, delta, part, dqu, dqv, dk_,
+                                             dv_, BH, D, stream)
+                          : run_passes<T, 16>(a, b, kk, vv, pp, kv_len, lse,
+                                              g, delta, part, dqu, dqv, dk_,
+                                              dv_, BH, D, stream));
   if (err != cudaSuccess) return (int)err;
   const int n = H * D.P * dk;
   rel_bwd_dp_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(

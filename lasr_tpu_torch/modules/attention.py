@@ -21,7 +21,10 @@
 
 All masks are boolean with True = attendable.  (``remat_attend``, a TPU
 memory knob of the JAX module, is accepted and ignored at the model,
-``encoder_remat_attend``.)
+``encoder_remat_attend``.)  Under tensor parallelism (``parallel.tensor``)
+a module holds ``n_head`` of the model's heads, its model rank's part
+(``head_shard``): every head-wise width is ``n_head * d_k``, and the
+replicated ``pos_bias_u`` / ``pos_bias_v`` are sliced to those heads.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from lasr_tpu_torch.modules.embedding import sinusoid_table
 from lasr_tpu_torch.modules.layers import Linear
 from lasr_tpu_torch.ops.rel_attention import rel_attention_context
 from lasr_tpu_torch.ops.rot_attention import rot_attention_context
+from lasr_tpu_torch.parallel import dist
 
 
 @functools.lru_cache(maxsize=8)
@@ -90,6 +94,9 @@ def _is_key_prefix_mask(mask) -> bool:
 
 
 class MultiHeadedAttention(nn.Module):
+    # (rank, size): the heads are this model rank's part; None when whole
+    head_shard = None
+
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
         if n_feat % n_head:
@@ -106,6 +113,19 @@ class MultiHeadedAttention(nn.Module):
     def _split(self, x):
         B, T, _ = x.shape
         return x.reshape(B, T, self.n_head, self.d_k)
+
+    @property
+    def _width(self) -> int:
+        """The heads' concatenated width (n_feat unless split)."""
+        return self.n_head * self.d_k
+
+    def _head_shard(self, dim: int):
+        """``modules.dropout``'s ``shard`` for the heads dim ``dim``."""
+        return None if self.head_shard is None else (dim, *self.head_shard)
+
+    def _heads(self, b: torch.Tensor) -> torch.Tensor:
+        """Rows of the (H, ...) parameter ``b`` of this module's heads."""
+        return b if self.head_shard is None else dist.slice_replicated(b, 0)
 
     def project_q(self, query):
         return self._split(self.linear_q(query))          # (B, T1, H, dk)
@@ -125,10 +145,11 @@ class MultiHeadedAttention(nn.Module):
             attn = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
         else:
             attn = torch.softmax(scores, dim=-1)
-        attn = dropout(attn, self.dropout_rate, self.training)
+        attn = dropout(attn, self.dropout_rate, self.training,
+                       self._head_shard(1))
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         B, T1 = x.shape[:2]
-        return self.linear_out(x.reshape(B, T1, self.n_feat))
+        return self.linear_out(x.reshape(B, T1, self._width))
 
     def attend(self, q, k, v, mask=None):
         """q: (B, T1, H, dk); k/v: (B, T2, H, dk)."""
@@ -182,7 +203,7 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
     def _from_heads_major(self, ctx, B, T):
         ctx = ctx.reshape(B, self.n_head, T, self.d_k).permute(0, 2, 1, 3)
-        return self.linear_out(ctx.reshape(B, T, self.n_feat))
+        return self.linear_out(ctx.reshape(B, T, self._width))
 
     def _pos_kernel(self):
         """linear_pos as (M, H, dk): contracted into the query side."""
@@ -194,8 +215,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
         p = self._split(self.linear_pos(pos_emb))[0]       # (2T-1, H, dk)
-        q_u = q + self.pos_bias_u.to(q.dtype)
-        q_v = q + self.pos_bias_v.to(q.dtype)
+        q_u = q + self._heads(self.pos_bias_u).to(q.dtype)
+        q_v = q + self._heads(self.pos_bias_v).to(q.dtype)
         hm = self._heads_major
         ctx = rel_attention_context(
             hm(q_u), hm(q_v), hm(k), hm(v), p.permute(1, 0, 2).contiguous(),
@@ -219,7 +240,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
                         dim=-1).reshape(z.shape)
         if self.rot_fold_train:
             # rotated-space positional dropout (training only)
-            u = dropout(u, self.pos_dropout_rate, self.training)
+            u = dropout(u, self.pos_dropout_rate, self.training,
+                        self._head_shard(2))
         vt = torch.from_numpy(V).to(k.device, k.dtype)     # (T, M)
         if self.rot_fold_pallas and self._kernel_ok(mask):
             hm = self._heads_major
@@ -246,8 +268,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
             return self._rel_kernel_attend(query, key, value, pos_emb, mask)
         q = self.project_q(query)
         k, v = self.project_kv(key, value)
-        q_u = q + self.pos_bias_u.to(q.dtype)
-        q_v = q + self.pos_bias_v.to(q.dtype)
+        q_u = q + self._heads(self.pos_bias_u).to(q.dtype)
+        q_v = q + self._heads(self.pos_bias_v).to(q.dtype)
         if (self.rot_fold and (not self.training or self.rot_fold_train)
                 and square and shared_table):
             return self._rot_fold_attend(q_u, q_v, k, v, mask)

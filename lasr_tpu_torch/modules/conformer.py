@@ -40,8 +40,8 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
     Statistics, running averages and the affine map are float32 whatever
     the compute dtype; the result is cast to it (Flax's policy).
 
-    Under a process group of several ranks the statistics are the global
-    batch's, as ``lasr_tpu``'s one program on a data axis takes them:
+    Under a process group of several data ranks the statistics are the
+    global batch's, as ``lasr_tpu``'s one program on a data axis takes them:
     (Σx, Σx², count) summed over the ranks by a differentiable all-reduce,
     whose backward carries the cross-rank terms; the running statistics
     stay identical on every rank.  (``nn.SyncBatchNorm`` moves
@@ -54,7 +54,7 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(self.dtype)
-        if dist.world_size() > 1:
+        if dist.data_size() > 1:
             C = x.shape[1]
             sums = dist.all_reduce_sum(torch.cat([
                 x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),

@@ -75,13 +75,24 @@ def shared_randint(high: int) -> int:
     return int(torch.randint(high, (1,), generator=gen, device=gen.device))
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            shard=None) -> torch.Tensor:
+    """``shard`` = (dim, rank, size): ``x`` is part ``rank`` of ``size``
+    equal parts along ``dim`` of a whole tensor (a tensor-parallel split,
+    ``parallel.tensor``); the whole tensor's mask is drawn and the part's
+    kept, so the draw is the one the whole tensor would take."""
     if not training or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=_generator(),
+    shape = list(x.shape)
+    if shard is not None:
+        dim, rank, size = shard
+        shape[dim] *= size
+    keep = torch.rand(shape, generator=_generator(),
                       device=x.device) >= rate
+    if shard is not None:
+        keep = keep.narrow(dim, rank * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

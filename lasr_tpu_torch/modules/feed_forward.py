@@ -14,6 +14,10 @@ from lasr_tpu_torch.modules.layers import Linear
 
 
 class PositionwiseFeedForward(nn.Module):
+    # (rank, size): the hidden units are this model rank's part
+    # (``parallel.tensor``); None when whole
+    hidden_shard = None
+
     def __init__(self, idim: int, hidden_units: int,
                  dropout_rate: float = 0.1,
                  activation: Callable = torch.relu):
@@ -24,6 +28,8 @@ class PositionwiseFeedForward(nn.Module):
         self.dropout_rate = dropout_rate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = None if self.hidden_shard is None \
+            else (-1, *self.hidden_shard)
         h = dropout(self.activation(self.w_1(x)), self.dropout_rate,
-                    self.training)
+                    self.training, shard)
         return self.w_2(h)

@@ -16,7 +16,9 @@ window, and ``dz`` goes back through the same remap into ``dW``, so
 pass owns dk/dv, a query pass dq_u/dq_v and a dp partial per (bh, query
 tile), and a last kernel adds the partials in a fixed order (no atomics).
 ``rel_attention_context`` pairs the two in a ``torch.autograd.Function``,
-as the JAX package's ``custom_vjp`` does.
+as the JAX package's ``custom_vjp`` does.  The kernels take head widths
+up to ``DK_MAX`` = 128 (the 1B config's dk = 80 through their wide-head
+forms); a wider head raises before any launch.
 """
 
 from __future__ import annotations
@@ -86,9 +88,20 @@ def rel_attention_backward_reference(q_u, q_v, k, v, p, kv_len, out, lse,
             (P.transpose(1, 2) @ dout.float()).to(v.dtype), dp.to(p.dtype))
 
 
+# the widest head the kernels take (csrc/rel_attention*.cu's DK_MAX)
+DK_MAX = 128
+
+
 def _check_heads(name, BH, H):
     if H < 1 or BH % H:
         raise ValueError(f"{name}: BH={BH} is not a multiple of H={H}")
+
+
+def _check_kernel_width(name, dk):
+    """Before a launch: the kernels take dk <= DK_MAX."""
+    if dk > DK_MAX:
+        raise ValueError(f"{name}: the kernel takes head widths up to "
+                         f"{DK_MAX}, got dk={dk}")
 
 
 def rel_attention_forward(q_u, q_v, k, v, p, kv_len):
@@ -97,7 +110,8 @@ def rel_attention_forward(q_u, q_v, k, v, p, kv_len):
     Shapes as ``rel_attention_reference``; kv_len is int32.  On CUDA
     tensors this launches the Hopper kernel (counted in
     ``rel_attention_forward.launches``); on CPU tensors it runs the plain
-    version.  Any other device raises."""
+    version.  Any other device raises; on CUDA, dk > ``DK_MAX`` raises
+    ``ValueError`` before the launch."""
     BH, T, dk = q_u.shape
     H = p.shape[0]
     _check_heads("rel_attention", BH, H)
@@ -106,6 +120,7 @@ def rel_attention_forward(q_u, q_v, k, v, p, kv_len):
     kv_len = _check_kv_len("rel_attention", kv_len, BH, q_u.device)
     if not _device_path("rel_attention", q_u.device):
         return rel_attention_reference(q_u, q_v, k, v, p, kv_len)
+    _check_kernel_width("rel_attention", dk)
     out = torch.empty_like(q_u)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
@@ -147,6 +162,7 @@ def rel_attention_backward(q_u, q_v, k, v, p, kv_len, out, lse, dout):
     if not _device_path("rel_attention_bwd", q_u.device):
         return rel_attention_backward_reference(q_u, q_v, k, v, p, kv_len,
                                                 out, lse, dout)
+    _check_kernel_width("rel_attention_bwd", dk)
     grads = [torch.empty_like(x) for x in (q_u, q_v, k, v, p)]
     nqt = -(-T // TILE)
     delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)

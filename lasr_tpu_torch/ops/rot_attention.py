@@ -10,6 +10,10 @@ score tensor never reaches device memory; the backward kernel
 (``csrc/rot_attention_bwd.cu``) recomputes the probabilities from the
 forward's ``lse``.  ``rot_attention_context`` pairs them in a
 ``torch.autograd.Function``, as the JAX package's ``custom_vjp`` does.
+The kernels take dk <= 64 and a ``[q_u ; u]`` row of dk + M that, with
+their other tiles, fits one block's shared memory; elsewhere (the 1B
+config: dk = 80, M = 1280) they raise ``NotImplementedError`` before any
+launch (``check_rot_kernel_shape``; ROADMAP B).
 """
 
 from __future__ import annotations
@@ -96,6 +100,54 @@ def rot_attention_backward_reference(q_u, u, k, v, vt, kv_len, out, lse,
             (p.transpose(1, 2) @ dout.float()).to(v.dtype))
 
 
+# the widest head the kernels take (csrc/rot_attention*.cu's DK_MAX)
+ROT_DK_MAX = 64
+# an H100's shared memory for one block
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SMEM_PER_BLOCK = 232448
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def rot_kernel_smem_bytes(dk: int, M: int, backward: bool) -> int:
+    """The least dynamic shared memory of a K1 (forward) or K2 (backward)
+    block: one buffer of the streamed tile, tiles through registers (the
+    kernels' fallback; ``smem_bytes`` of csrc/rot_attention*.cu)."""
+    BQ = BK = 32
+    LS = BK + 4
+    LQ, LD = _ceil16(dk + M) + 4, _ceil16(dk) + 4
+    if backward:
+        floats = 2 * BQ * (LQ + LD) + 3 * BQ * LS + 4 * BQ
+    else:
+        floats = BQ * LQ + BK * (LQ + LD) + 9 * BQ * LS + BQ * LD + 2 * BQ
+    return 4 * floats
+
+
+def check_rot_kernel_shape(name: str, dk: int, M: int, backward: bool,
+                           smem_limit: int = SMEM_PER_BLOCK) -> None:
+    """Before a K1 / K2 launch: raise ``NotImplementedError`` (naming
+    ROADMAP B) where the kernel cannot run, for dk > 64 or tiles that
+    do not fit ``smem_limit`` bytes of shared memory."""
+    if dk > ROT_DK_MAX:
+        raise NotImplementedError(
+            f"{name}: the rotated-fold kernel takes dk <= {ROT_DK_MAX}, got "
+            f"dk={dk} (ROADMAP B: K1/K2 at wider heads)")
+    need = rot_kernel_smem_bytes(dk, M, backward)
+    if need > smem_limit:
+        raise NotImplementedError(
+            f"{name}: dk + M = {dk + M} needs {need} bytes of shared memory "
+            f"a block, over the card's {smem_limit} (ROADMAP B: K1/K2 at the "
+            f"1B geometry)")
+
+
+def _smem_limit(device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin",
+                       SMEM_PER_BLOCK))
+
+
 def _check(name, tensors, shapes):
     dev, dt = tensors[0].device, tensors[0].dtype
     if dt not in (torch.float32, torch.bfloat16):
@@ -155,7 +207,9 @@ def rot_attention_forward(q_u, u, k, v, vt, kv_len):
     Shapes as ``rot_attention_reference``; kv_len is int32.  On CUDA
     tensors this launches the Hopper kernel (and counts the launch in
     ``rot_attention_forward.launches``); on CPU tensors it runs the plain
-    version.  Any other device raises."""
+    version.  Any other device raises; on CUDA, a shape the kernel cannot
+    take raises ``NotImplementedError`` before the launch
+    (``check_rot_kernel_shape``)."""
     BH, T, dk = q_u.shape
     M = u.shape[-1]
     _check("rot_attention", [q_u, u, k, v, vt],
@@ -163,6 +217,8 @@ def rot_attention_forward(q_u, u, k, v, vt, kv_len):
     kv_len = _check_kv_len("rot_attention", kv_len, BH, q_u.device)
     if not _device_path("rot_attention", q_u.device):
         return rot_attention_reference(q_u, u, k, v, vt, kv_len)
+    check_rot_kernel_shape("rot_attention", dk, M, False,
+                           _smem_limit(q_u.device))
     out = torch.empty_like(q_u)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
@@ -199,6 +255,8 @@ def rot_attention_backward(q_u, u, k, v, vt, kv_len, out, lse, dout):
     if not _device_path("rot_attention_bwd", q_u.device):
         return rot_attention_backward_reference(q_u, u, k, v, vt, kv_len,
                                                 out, lse, dout)
+    check_rot_kernel_shape("rot_attention_bwd", dk, M, True,
+                           _smem_limit(q_u.device))
     dq_u, du, dk_, dv = (torch.empty_like(q_u), torch.empty_like(u),
                          torch.empty_like(k), torch.empty_like(v))
     delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)

@@ -27,13 +27,23 @@ four places:
 At world size 1 nothing is communicated: every function here returns its
 input, and the one-device paths keep their numbers.
 
+The grid (``init(..., model_parallel=N)``, counterpart of the ``(data,
+model)`` axes of ``lasr_tpu/parallel/mesh.py``): rank r is data index
+r // N and model index r % N.  The N ranks of a data index (a model group)
+hold the same rows and split each tensor-parallel layer
+(``parallel.tensor``); the ranks of a model index (a data group) split the
+batch, and the four data-parallel places above (rows, BatchNorm sums, loss
+denominators, the gradient) run over the data group only.  With N = 1
+the data group is the whole world.
+
 Ranks come from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``)
 or from ``spawn`` (one host, a ``Rendezvous`` per rank).  The backend is
 ``nccl`` for CUDA devices and ``gloo`` for the CPU unless ``init`` is
 given one: two ``gloo`` ranks can share one card, which NCCL refuses.
-Only ``all_reduce`` and ``broadcast`` are used; both backends run them on
-CUDA tensors.
+``all_reduce`` and ``broadcast`` run on the devices' tensors; FSDP's
+``all_gather`` / ``reduce_scatter`` (``gather_dim`` / ``reduce_scatter_dim``)
+go through host memory under ``gloo`` with CUDA tensors.
 """
 
 from __future__ import annotations
@@ -58,6 +68,69 @@ class Rendezvous(NamedTuple):
     rank: int
     world_size: int
     init_method: str
+
+
+class Grid(NamedTuple):
+    """A rank's place in the (data x model) grid and its two groups (None:
+    the whole world for ``data``, no group for a size of 1)."""
+    data_size: int
+    model_size: int
+    data_rank: int
+    model_rank: int
+    data: Optional[object]
+    model: Optional[object]
+
+
+# the grid of the process group that ``init`` joined (set with it, cleared
+# by ``shutdown``; torch.distributed's own group is process-wide too)
+_GRID: List[Grid] = []
+
+
+def grid() -> Grid:
+    """This rank's grid; without one, a data axis over the whole world."""
+    if _GRID:
+        return _GRID[0]
+    return Grid(world_size(), 1, rank(), 0, None, None)
+
+
+def data_size() -> int:
+    """The data-parallel ranks: the world divided by the model axis."""
+    return grid().data_size
+
+
+def data_rank() -> int:
+    return grid().data_rank
+
+
+def model_size() -> int:
+    """The tensor-parallel ranks of a model group (1 without one)."""
+    return grid().model_size
+
+
+def model_rank() -> int:
+    return grid().model_rank
+
+
+def _make_grid(model_parallel: int) -> Grid:
+    """Every rank makes every group, in the same order (new_group's
+    rule)."""
+    n, r = world_size(), rank()
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"-model_parallel {model_parallel} does not divide "
+                         f"the world size {n}")
+    m = model_parallel
+    d = n // m
+    data_group = model_group = None
+    if m > 1:
+        for i in range(m):
+            g = dist.new_group([j * m + i for j in range(d)])
+            if i == r % m:
+                data_group = g
+        for j in range(d):
+            g = dist.new_group([j * m + i for i in range(m)])
+            if j == r // m:
+                model_group = g
+    return Grid(d, m, r // m, r % m, data_group, model_group)
 
 
 def world_size() -> int:
@@ -86,26 +159,32 @@ def launched_by_torchrun() -> bool:
 
 
 def layout() -> Tuple[int, int, int, int]:
-    """(host index, host count, rank on the host, ranks on the host).
+    """(host index, host count, data rank on the host, data ranks on the
+    host).
 
     Under ``torchrun`` the ranks on a host are ``LOCAL_WORLD_SIZE``, and
     rank r lies on host r // LOCAL_WORLD_SIZE; ``spawn``'s ranks are one
     host.  The dataset hands the hosts whole batches round-robin (as
-    ``lasr_tpu`` hands its processes) and a host's ranks its rows."""
+    ``lasr_tpu`` hands its processes) and a host's data ranks its rows;
+    the model ranks of a data index take the same rows."""
     n, r = world_size(), rank()
     if n == 1:
         return 0, 1, 0, 1
+    m = model_size()
     local_n = int(os.environ.get("LOCAL_WORLD_SIZE", n))
-    if local_n < 1 or n % local_n:
+    if local_n < 1 or n % local_n or local_n % m:
         raise RuntimeError(f"LOCAL_WORLD_SIZE={local_n} does not divide "
-                           f"the world size {n}")
-    return r // local_n, n // local_n, r % local_n, local_n
+                           f"the world size {n} in whole model groups of "
+                           f"{m}")
+    return r // local_n, n // local_n, (r % local_n) // m, local_n // m
 
 
 def init(device, backend: Optional[str] = None,
          rendezvous: Optional[Rendezvous] = None,
-         timeout_s: float = DEFAULT_TIMEOUT_S) -> str:
-    """Join this rank's process group and return its backend.
+         timeout_s: float = DEFAULT_TIMEOUT_S,
+         model_parallel: int = 1) -> str:
+    """Join this rank's process group and return its backend;
+    ``model_parallel`` ranks make a model group (``Grid``).
 
     ``rendezvous``: ``spawn``'s; without one, ``torchrun``'s environment
     (``env://``) when it is set, else a group of one.  ``backend``
@@ -149,61 +228,122 @@ def init(device, backend: Optional[str] = None,
             shutdown()
             raise RuntimeError(f"the {backend} group's first all-reduce "
                                f"gave {float(probe)}, not its size {world}")
+    try:
+        _GRID[:] = [_make_grid(model_parallel)]
+    except ValueError:
+        shutdown()
+        raise
     return backend
 
 
 def shutdown() -> None:
     """Leave the process group, if there is one."""
+    _GRID.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
-        return out
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable: the backward sums
-    the incoming gradient over the ranks, so that each rank's gradient is
-    its share of the gradient of the summed losses.  ``x`` itself at
-    world size 1."""
-    return x if world_size() == 1 else _AllReduceSum.apply(x)
+    """The sum of ``x`` over the data ranks, differentiable: the backward
+    sums the incoming gradient over them, so that each rank's gradient is
+    its share of the gradient of the summed losses.  ``x`` itself with
+    one data rank."""
+    g = grid()
+    return x if g.data_size == 1 else _AllReduceSum.apply(x, g.data)
 
 
 @torch.no_grad()
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, outside autograd (a count, a
-    metric).  ``x`` itself at world size 1."""
-    if world_size() == 1:
+    """The sum of ``x`` over the data ranks, outside autograd (a count, a
+    metric).  ``x`` itself with one data rank."""
+    g = grid()
+    if g.data_size == 1:
         return x
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=g.data)
     return out
 
 
 @torch.no_grad()
-def all_reduce_flat(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum over the ranks of each of ``tensors`` (one dtype), through
-    one all-reduce of a flat buffer.  The tensors themselves at world size
-    1."""
-    if world_size() == 1:
+def all_reduce_flat(tensors: Sequence[torch.Tensor],
+                    group: str = "data") -> List[torch.Tensor]:
+    """The sum over the ranks of ``group`` ("data", "model" or "world")
+    of each of ``tensors`` (one dtype), through one all-reduce of a flat
+    buffer.  The tensors themselves where the group is one rank."""
+    size, handle = _group(group)
+    if size == 1 or not tensors:
         return list(tensors)
     if len({t.dtype for t in tensors}) > 1:
         raise ValueError("all_reduce_flat takes tensors of one dtype")
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=handle)
     return [v.view_as(t) for v, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _group(name: str):
+    """(size, process group handle) of "data", "model" or "world"."""
+    g = grid()
+    if name == "data":
+        return g.data_size, g.data
+    if name == "model":
+        return g.model_size, g.model
+    if name == "world":
+        return world_size(), None
+    raise ValueError(f"unknown group {name!r}")
+
+
+def _host_route(t: torch.Tensor) -> bool:
+    """gloo's all_gather / reduce_scatter take CPU tensors."""
+    return t.is_cuda and dist.get_backend() == "gloo"
+
+
+@torch.no_grad()
+def gather_dim(x: torch.Tensor, dim: int, group: str) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated along ``dim`` in rank
+    order (not differentiable); ``x`` itself for a group of one."""
+    size, handle = _group(group)
+    if size == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    dev = src.device
+    if _host_route(src):
+        src = src.cpu()
+    out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=handle)
+    return out.to(dev).movedim(0, dim).contiguous()
+
+
+@torch.no_grad()
+def reduce_scatter_dim(x: torch.Tensor, dim: int,
+                       group: str = "data") -> torch.Tensor:
+    """This rank's part (its 1/size along ``dim``) of the sum of the
+    ranks' ``x`` over ``group``; ``x`` itself for a group of one."""
+    size, handle = _group(group)
+    if size == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    dev = src.device
+    if _host_route(src):
+        src = src.cpu()
+    out = src.new_empty((src.shape[0] // size,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=handle)
+    return out.to(dev).movedim(0, dim).contiguous()
 
 
 @torch.no_grad()
@@ -234,7 +374,81 @@ def broadcast_int(value: int, device) -> int:
 
 def barrier(device) -> None:
     """Wait until every rank got here (an all-reduce on ``device``)."""
-    global_sum(torch.zeros((), device=device))
+    if world_size() > 1:
+        dist.all_reduce(torch.zeros((), device=device))
+
+
+# ---- tensor parallelism's collectives (parallel/tensor.py) ----
+
+def _model_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the model ranks, in float32, in x's dtype."""
+    out = x.float().contiguous()
+    dist.all_reduce(out, group=grid().model)
+    return out.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_sum(grad)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _model_sum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[-1]
+        return gather_dim(x.float(), x.ndim - 1, "model").to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = model_rank()
+        return grad.narrow(-1, r * ctx.n, ctx.n).contiguous()
+
+
+class _SliceReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, start, n):
+        ctx.meta = (x.shape, dim, start, n)
+        return x.narrow(dim, start, n).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, dim, start, n = ctx.meta
+        full = grad.new_zeros(shape)
+        full.narrow(dim, start, n).copy_(grad)
+        return _model_sum(full), None, None, None
+
+
+def copy_to_model(x):
+    return _CopyToModel.apply(x)
+
+
+def reduce_from_model(x):
+    return _ReduceFromModel.apply(x)
+
+
+def gather_from_model(x):
+    return _GatherFromModel.apply(x)
+
+
+def slice_replicated(x, dim: int):
+    """The model rank's 1/N of the replicated ``x`` along ``dim``."""
+    n = x.shape[dim] // model_size()
+    return _SliceReplicated.apply(x, dim, model_rank() * n, n)
 
 
 # ---- rows of a global batch ----

@@ -2,7 +2,8 @@
 ``lasr_tpu/train/ema.py``): shadow copies moved once per train step with
 the warmup-capped decay ``min(decay, (1+n)/(10+n))``, n counted first.
 BatchNorm running statistics are buffers, not parameters, and get no
-shadow (as in the reference's ``LitEma``)."""
+shadow (as in the reference's ``LitEma``).  The update is elementwise, so
+under FSDP each rank moves its shards (the ``Trainer``'s masters)."""
 
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ incremented count and the update is ``mu_hat / (sqrt(nu_hat) + eps)``;
 the schedule is called with a count that starts at 0, and
 ``WarmupScheduler`` adds 1 to it (the reference's step count starts at
 1).  ``Noam`` is Adam(0.9, 0.98, eps 1e-9) with its own Noam schedule.
+The update is elementwise, so it runs on FSDP shards as it runs on
+whole parameters (``Trainer`` hands it the ``ShardLayout`` masters).
 
 Config usage (the reference recipes' YAML shape)::
 
@@ -49,11 +51,15 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: unchanged when ``norm < max_norm``, else
-    each gradient times ``max_norm / norm``."""
-    norm = global_norm(grads)
+    each gradient times ``max_norm / norm``.  ``norm``: the gradients'
+    global norm where it is known (shards: ``ShardLayout.norm``), else
+    ``global_norm(grads)``."""
+    if norm is None:
+        norm = global_norm(grads)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for g in grads]

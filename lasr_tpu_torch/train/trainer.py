@@ -45,6 +45,18 @@ CER), and other calls report -1.  Rank 0's initial weights are broadcast
 to every rank; rank 0 alone writes checkpoints, ``hparams.yaml``,
 ``metrics.jsonl`` and the loop state, and every rank restores.
 
+The (data x model) grid (``dist.init(..., model_parallel=N)``): the
+Trainer splits the model's layers over the N model ranks of each data
+index (``parallel.tensor``, the rules of ``parallel.sharding``) after the
+broadcast, and with ``fsdp`` keeps every large leaf's parameters,
+gradients, Adam moments, accumulated gradient and EMA shadow as the data
+rank's shard (``sharding.ShardLayout``): the whole weights are gathered
+for a step and freed after it, the gradients reduce-scattered, and the
+clip's global norm counts every shard once.  The data-parallel rules
+above then hold over the data ranks, the model ranks of a data index
+drawing the same dropout.  Checkpoints stay whole reference ``.ckpt``
+files, gathered from the shards, so a run resumes on any layout.
+
 Checkpoints are reference Lightning ``.ckpt`` files named
 ``step-<step, 9 digits>.ckpt`` (names sort by step): ``state_dict`` with
 the model's weights and BatchNorm statistics under ``model.`` and the EMA
@@ -71,9 +83,10 @@ import yaml
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.data.frontend import DeviceFrontend, pack_s2s
 from lasr_tpu_torch.modules.dropout import dropout_generator
-from lasr_tpu_torch.parallel import dist
+from lasr_tpu_torch.parallel import dist, sharding
+from lasr_tpu_torch.parallel.tensor import apply_tensor_parallel
 from lasr_tpu_torch.train.ema import ema_init, ema_update
-from lasr_tpu_torch.train.optimizer import clip_by_global_norm, global_norm
+from lasr_tpu_torch.train.optimizer import clip_by_global_norm
 from lasr_tpu_torch.utils.weights import checkpoint_name, checkpoint_steps
 
 # a step's metrics under E2E_Loss (a criterion's own keys and grad_norm
@@ -108,13 +121,17 @@ class Trainer:
                  use_ema: bool = False, ema_decay: float = 0.9999,
                  grad_clip: float = 5.0, acc_grads: int = 1, seed: int = 0,
                  log_interval: int = 50, checkpoint_keep: int = 10,
-                 schedule=None, device=None):
+                 schedule=None, device=None, fsdp: bool = False,
+                 fsdp_min_size: int = sharding.FSDP_MIN_SIZE):
         """``optimizer``: an ``Adam`` / ``Noam`` descriptor (made with
         ``schedule``) or the update ``build_optimizer`` returns;
         ``schedule`` is also what ``metrics.jsonl``'s ``lr`` reads.
         ``device=None`` means CUDA (raises without a GPU); the model must
         already live there.  Under a process group, the model's weights
-        and buffers become rank 0's."""
+        and buffers become rank 0's, then the model is split over the
+        grid's model ranks; ``fsdp`` shards the leaves of at least
+        ``fsdp_min_size`` elements over the data ranks
+        (``sharding.param_specs``)."""
         self.device = resolve_device(device)
         self.model = model
         self.criterion = criterion
@@ -131,26 +148,49 @@ class Trainer:
         self.seed = seed
         self.log_interval = log_interval
         self.checkpoint_keep = checkpoint_keep
-        self.names = [n for n, _ in model.named_parameters()]
-        self.params = [p for _, p in model.named_parameters()]
         self.sos = tokenizer.ID_VALUE_SOS if tokenizer else 1
         self.eos = tokenizer.ID_VALUE_EOS if tokenizer else 2
         self.ignore = tokenizer.ID_VALUE_IGNORE if tokenizer else -1
         if getattr(criterion, "ctc_cer_interval", 0) is None:
             criterion.ctc_cer_interval = max(1, min(log_interval, 1000))
         self.rank, self.world = dist.rank(), dist.world_size()
+        grid = dist.grid()
+        self.data_world = grid.data_size
         dist.broadcast_module(model)
+        specs = sharding.param_specs(model, grid.model_size, grid.data_size,
+                                     fsdp, fsdp_min_size)
+        apply_tensor_parallel(model, specs)
+        self.layout = sharding.ShardLayout(model, specs)
+        self.names = self.layout.names
+        # the module's parameters, and what the optimizer updates (the
+        # FSDP leaves' shards; the parameters themselves elsewhere)
+        self.params = self.layout.params
+        self.masters = self.layout.masters
 
     # ---- state ----
 
     def init_state(self) -> TrainState:
         """The optimizer and EMA state of the model's current weights (the
         weights themselves live in the model)."""
-        return TrainState(step=0, opt_state=self.optimizer.init(self.params),
-                          ema=ema_init(self.params) if self.use_ema else None)
+        return TrainState(step=0, opt_state=self.optimizer.init(self.masters),
+                          ema=ema_init(self.masters) if self.use_ema else None)
 
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.params)
+        """The whole model's parameters, whatever the split."""
+        return sum(int(torch.Size(s).numel())
+                   for s in self.layout.full_shapes)
+
+    def full_state_dict(self, source=None) -> Dict[str, torch.Tensor]:
+        """The whole model's state_dict: every parameter from its shards
+        (``source``: the masters, or shard-shaped tensors such as the EMA
+        shadow) and the buffers (every rank calls it under a split)."""
+        source = self.masters if source is None else source
+        index = {n: i for i, n in enumerate(self.names)}
+        out = {}
+        for k, v in self.model.state_dict().items():
+            i = index.get(k)
+            out[k] = v if i is None else self.layout.full(i, source[i])
+        return out
 
     # ---- steps ----
 
@@ -158,7 +198,8 @@ class Trainer:
         """(SpecAugment generator, dropout generator) of ``step``: the
         first is every rank's, the second this rank's."""
         return tuple(torch.Generator(device=self.device).manual_seed(
-            _fold(self.seed, step, stream)) for stream in (0, 1 + self.rank))
+            _fold(self.seed, step, stream))
+            for stream in (0, 1 + dist.data_rank()))
 
     def _batch(self, batch: Dict):
         return [torch.as_tensor(batch[k], device=self.device)
@@ -167,7 +208,7 @@ class Trainer:
     def _rows(self, batch: Dict):
         """The frontend's ``rows`` of a rank's batch; None at world size
         1."""
-        if self.world == 1:
+        if self.data_world == 1:
             return None
         if "row0" not in batch:
             raise ValueError(
@@ -210,7 +251,7 @@ class Trainer:
     def _global_metrics(self, metrics: Dict) -> Dict:
         """The ranks' shares summed (one all-reduce); the greedy CER's -1
         of a step that skips it stays -1."""
-        if self.world == 1:
+        if self.data_world == 1:
             return metrics
         keys = list(metrics)
         local = torch.stack([metrics[k].detach().float().reshape(())
@@ -233,24 +274,38 @@ class Trainer:
         """The train-mode metrics of ``batch`` at ``step`` and the
         gradient of ``loss_main`` for every parameter (in
         ``named_parameters`` order), of the global batch under a process
-        group; nothing is updated but the BatchNorm statistics."""
-        metrics, grads = self._local_loss_and_grads(batch, step)
-        grads = dist.all_reduce_flat(grads)
-        metrics["grad_norm"] = global_norm(grads)
+        group (the rank's parts under a split: ``layout.full_list`` gives
+        the whole); nothing is updated but the BatchNorm statistics."""
+        self.layout.gather()
+        try:
+            metrics, grads = self._local_loss_and_grads(batch, step)
+        finally:
+            self.layout.release()
+        grads = self.layout.reduce(grads)
+        metrics["grad_norm"] = self.layout.norm(grads)
         return metrics, grads
 
     def train_step(self, state: TrainState, batch: Dict):
         """One step on a host batch ``{wav_array, wav_len, token_id,
         token_len}`` (numpy or tensors; under a process group a rank's
-        rows of it); returns (state, metrics as floats)."""
-        metrics, grads = self._local_loss_and_grads(batch, state.step)
+        rows of it); returns (state, metrics as floats).  With FSDP the
+        gradient is reduce-scattered at every call, so the accumulator
+        holds shards of the summed gradient."""
+        self.layout.gather()
+        try:
+            metrics, grads = self._local_loss_and_grads(batch, state.step)
+        finally:
+            self.layout.release()
+        reduced = self.layout.fsdp or self.data_world == 1
+        if self.layout.fsdp:
+            grads = self.layout.reduce(grads)
         emit = True
         if self.acc_grads > 1:
-            if self.world == 1:
-                metrics["grad_norm"] = global_norm(grads)
+            if reduced:
+                metrics["grad_norm"] = self.layout.norm(grads)
             elif self._logged(state.step):
-                metrics["grad_norm"] = global_norm(
-                    dist.all_reduce_flat(grads))
+                metrics["grad_norm"] = self.layout.norm(
+                    self.layout.reduce(grads))
             else:
                 metrics["grad_norm"] = torch.tensor(-1.0,
                                                     device=self.device)
@@ -262,14 +317,17 @@ class Trainer:
             state.acc_grads = None if emit else acc
             grads = acc
         if emit:
-            grads = dist.all_reduce_flat(grads)
+            if not self.layout.fsdp:
+                grads = self.layout.reduce(grads)
+            norm = self.layout.norm(grads)
             if self.acc_grads == 1:
-                metrics["grad_norm"] = global_norm(grads)
-            self.optimizer.step(self.params,
-                                clip_by_global_norm(grads, self.grad_clip),
-                                state.opt_state)
+                metrics["grad_norm"] = norm
+            self.optimizer.step(
+                self.masters,
+                clip_by_global_norm(grads, self.grad_clip, norm),
+                state.opt_state)
         if self.use_ema:
-            ema_update(state.ema, self.params, self.ema_decay)
+            ema_update(state.ema, self.masters, self.ema_decay)
         state.step += 1
         keys = list(metrics)
         values = torch.stack([metrics[k].detach().float().reshape(())
@@ -282,15 +340,20 @@ class Trainer:
         ``use_ema``."""
         live = None
         if self.use_ema:
-            live = [p.detach().clone() for p in self.params]
-            torch._foreach_copy_(self.params, state.ema["shadow"])
+            live = [p.detach().clone() for p, s in zip(self.params,
+                                                       self.layout.specs)
+                    if s.fsdp is None]
+        self.layout.gather(state.ema["shadow"] if self.use_ema else None)
         try:
             data, wav_len = self._forward(batch, None, train=False)
             metrics = self._global_metrics(
                 self.criterion.valid_forward(data))
         finally:
             if live is not None:
-                torch._foreach_copy_(self.params, live)
+                whole = [p for p, s in zip(self.params, self.layout.specs)
+                         if s.fsdp is None]
+                torch._foreach_copy_(whole, live)
+            self.layout.release()
         out = {k: float(v) for k, v in metrics.items()}
         out["n_utts"] = max(int(dist.global_sum((wav_len > 0).sum())), 1)
         return out
@@ -310,12 +373,15 @@ class Trainer:
 
     def _checkpoint_blob(self, state: TrainState,
                          valid_loss: Optional[float]) -> Dict:
-        cpu = lambda ts: [t.detach().cpu() for t in ts]  # noqa: E731
+        """The whole train state, gathered from the shards (every rank
+        calls it under a split; rank 0's is written)."""
+        full = self.layout.full_list
+        cpu = lambda ts: [t.detach().cpu() for t in full(ts)]  # noqa: E731
         sd = {f"model.{k}": v.detach().cpu()
-              for k, v in self.model.state_dict().items()}
+              for k, v in self.full_state_dict().items()}
         if state.ema is not None:
-            for name, s in zip(self.names, state.ema["shadow"]):
-                sd["model_ema." + name.replace(".", "")] = s.detach().cpu()
+            for name, s in zip(self.names, cpu(state.ema["shadow"])):
+                sd["model_ema." + name.replace(".", "")] = s
             sd["model_ema.decay"] = torch.tensor(self.ema_decay,
                                                  dtype=torch.float32)
             sd["model_ema.num_updates"] = torch.tensor(
@@ -354,16 +420,19 @@ class Trainer:
         writes and every rank returns the path."""
         valid_loss = None if not valid_metrics \
             else float(valid_metrics["loss_main"])
+        # a split's shards are gathered by every rank
+        blob = self._checkpoint_blob(state, valid_loss) \
+            if self.rank == 0 or self.layout.sharded else None
         if path is not None:
             if self.rank == 0:
-                _atomic_save(self._checkpoint_blob(state, valid_loss), path)
+                _atomic_save(blob, path)
             return path
         root = self._checkpoint_root()
         name = checkpoint_name(state.step)
         last = os.path.join(root, "last", name)
         if self.rank != 0:
             return last
-        _atomic_save(self._checkpoint_blob(state, valid_loss), last)
+        _atomic_save(blob, last)
         kept = checkpoint_steps(os.path.dirname(last))
         for step in sorted(kept)[:-self.checkpoint_keep]:
             os.remove(os.path.join(os.path.dirname(last), kept[step]))
@@ -413,8 +482,16 @@ class Trainer:
         sd = blob["state_dict"]
         model_sd = {k[len("model."):]: v for k, v in sd.items()
                     if k.startswith("model.")}
-        self.model.load_state_dict(model_sd)
-        dev = lambda ts: [t.to(self.device) for t in ts]  # noqa: E731
+        missing = set(self.model.state_dict()) - set(model_sd)
+        if missing:
+            raise KeyError(f"{path} lacks {sorted(missing)[:5]}")
+        params = set(self.names)
+        self.model.load_state_dict({k: v for k, v in model_sd.items()
+                                    if k not in params}, strict=False)
+        self.layout.load_full(model_sd)
+        # every rank's shard of each whole leaf
+        dev = lambda ts: self.layout.local_list(  # noqa: E731
+            [t.to(self.device) for t in ts])
         opt = blob["optimizer_states"][0]["state"]
         order = range(len(self.params))
         opt_state = {"count": int(opt[0]["step"]) if opt else 0,

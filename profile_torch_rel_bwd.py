@@ -41,9 +41,10 @@ import tempfile
 import numpy as np
 
 KERNEL = "rel_attention_bwd.cu"
-_OFF = {name: [(KERNEL, f"  {name}<T><<<", f"  if (0) {name}<T><<<")]
-        for name in ("rel_bwd_dkdv_kernel", "rel_bwd_dq_kernel",
-                     "rel_bwd_dp_reduce_kernel")}
+_OFF = {name: [(KERNEL, f"  {name}{args}<<<", f"  if (0) {name}{args}<<<")]
+        for name, args in (("rel_bwd_dkdv_kernel", "<T, NDSX>"),
+                           ("rel_bwd_dq_kernel", "<T, NDSX>"),
+                           ("rel_bwd_dp_reduce_kernel", "<T>"))}
 
 # (file, anchor, replacement): each anchor must occur in the committed
 # source, or the script stops (the kernel changed under it)
@@ -52,13 +53,14 @@ EDITS = {
         (KERNEL, "constexpr int NS = SplitsFor<T>::value;",
          "constexpr int NS = 1;")],
     "no_scores": [
-        (KERNEL, "      scores<NS>(", "      if (0) scores<NS>("),
-        (KERNEL, "    scores<NS>(sm.Qu[0]", "    if (0) scores<NS>(sm.Qu[0]")],
+        (KERNEL, "      scores<NS, NDSX>(", "      if (0) scores<NS, NDSX>("),
+        (KERNEL, "    scores<NS, NDSX>(sm.Qu[0]",
+         "    if (0) scores<NS, NDSX>(sm.Qu[0]")],
     "no_products": [
-        (KERNEL, "      if (owner) {\n        // dv",
-         "      if (0) {\n        // dv"),
-        (KERNEL, "    if (owner) {\n      // each product",
-         "    if (0) {\n      // each product")],
+        (KERNEL, "        if (!owner[s]) continue;\n        // dv",
+         "        if (1) continue;\n        // dv"),
+        (KERNEL, "      if (!owner[s]) continue;\n      const int rts",
+         "      if (1) continue;\n      const int rts")],
     "no_softmax": [
         (KERNEL, "      softmax_step<false>(", "      if (0) softmax_step<false>("),
         (KERNEL, "    softmax_step<true>(", "    if (0) softmax_step<true>(")],

@@ -79,37 +79,38 @@ EDITS["clocks"] = [
     (KERNEL, "  for (int t = 0; t < ntiles; ++t) {",
      "  long long tcy[6] = {0, 0, 0, 0, 0, 0};\n"
      "  for (int t = 0; t < ntiles; ++t) {"),
-    (KERNEL, "    cp_async_wait(f32 ? 1 : 0);\n    __syncthreads();",
-     "    long long c_0 = clock64();\n    cp_async_wait(f32 ? 1 : 0);\n"
+    (KERNEL, "    cp_async_wait(f32 && !WIDE ? 1 : 0);\n    __syncthreads();",
+     "    long long c_0 = clock64();\n"
+     "    cp_async_wait(f32 && !WIDE ? 1 : 0);\n"
      "    __syncthreads();\n    long long c_1 = clock64();\n"
      "    tcy[0] += c_1 - c_0;"),
     (KERNEL, "    cp_async_commit();\n    if (!active) continue;",
      "    cp_async_commit();\n    tcy[1] += clock64() - c_1;\n"
      "    if (!active) continue;"),
-    (KERNEL, """    scores<NS, NDSX>(fu, fv, Kc, pw, sac, sw, D);
-    __syncwarp();
-    softmax_step<T>(sac, sw, m, l, alpha, k0, kvl, D);
-    __syncwarp();
-    pv_step<NS, NDSX>(sac, Vc, sw, D);
-    __syncwarp();
-    o_update(o, sw, alpha, D);""",
-     """    long long c_2 = clock64();
-    scores<NS, NDSX>(fu, fv, Kc, pw, sac, sw, D);
-    __syncwarp();
-    long long c_3 = clock64();
-    softmax_step<T>(sac, sw, m, l, alpha, k0, kvl, D);
-    __syncwarp();
-    long long c_4 = clock64();
-    pv_step<NS, NDSX>(sac, Vc, sw, D);
-    __syncwarp();
-    long long c_5 = clock64();
-    o_update(o, sw, alpha, D);
-    __syncwarp();
-    long long c_6 = clock64();
-    tcy[2] += c_3 - c_2;
-    tcy[3] += c_4 - c_3;
-    tcy[4] += c_5 - c_4;
-    tcy[5] += c_6 - c_5;"""),
+    (KERNEL, """      scores<NS, NDSX>(fu, fv, Kc, pw, sac, sw, D);
+      __syncwarp();
+      softmax_step<T>(sac, sw, D.LQ, m, l, alpha, k0, kvl, D);
+      __syncwarp();
+      pv_step<NS, NDSX>(sac, Vc, sw, D);
+      __syncwarp();
+      o_update(o, sw, alpha, D);""",
+     """      long long c_2 = clock64();
+      scores<NS, NDSX>(fu, fv, Kc, pw, sac, sw, D);
+      __syncwarp();
+      long long c_3 = clock64();
+      softmax_step<T>(sac, sw, D.LQ, m, l, alpha, k0, kvl, D);
+      __syncwarp();
+      long long c_4 = clock64();
+      pv_step<NS, NDSX>(sac, Vc, sw, D);
+      __syncwarp();
+      long long c_5 = clock64();
+      o_update(o, sw, alpha, D);
+      __syncwarp();
+      long long c_6 = clock64();
+      tcy[2] += c_3 - c_2;
+      tcy[3] += c_4 - c_3;
+      tcy[4] += c_5 - c_4;
+      tcy[5] += c_6 - c_5;"""),
     (KERNEL, "lse[base + row0 + r] = m + logf(l);",
      "lse[base + row0 + r] = m + logf(l);\n  __syncwarp();\n"
      "  if (warp == 0 && lane == 0)\n    for (int i = 0; i < 6; ++i)\n"

@@ -367,8 +367,7 @@ def _nbest_lines(path):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("-model_parallel", "2"), ("-seq_parallel", "2"),
-    ("-pipeline_parallel", "2"), ("-fsdp", "1")])
+    ("-seq_parallel", "2"), ("-pipeline_parallel", "2")])
 def test_train_cli_refuses_unported_flags(flag, value, tmp_path):
     with pytest.raises(NotImplementedError, match=flag.lstrip("-")):
         port_train.main(["-config", str(tmp_path / "none.yaml"),

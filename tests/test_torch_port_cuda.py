@@ -60,11 +60,32 @@ SHAPES = [
     (45, 12, 20, [45, 17]),                 # dk, M not multiples of 16
     (388, 40, 320, [388, 291, 97, 1]),      # training width, ragged T
 ]
+# wide heads (64 < dk <= 128): K3 / K4 only; the 1B config's dk = 80 at
+# its training T
+WIDE_SHAPES = [
+    (388, 80, 0, [388, 291, 97, 1]),
+    (37, 128, 0, [37, 0, 5, 33]),
+    (70, 96, 0, [64, 65, 1, 70]),
+]
+# and K1 / K2 at a head width they refuse
+CASES = ([(w,) + s for w in ("rot", "rel") for s in SHAPES]
+         + [("rel",) + s for s in WIDE_SHAPES]
+         + [("rot", 37, 80, 64, [37, 5])])
 
 
-@pytest.mark.parametrize("which", ["rot", "rel"])
+def _refused(which, dk, counter, call):
+    """K1 / K2 at a shape they cannot take raise before any launch."""
+    if which != "rot" or dk <= 64:
+        return False
+    before = counter.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP B"):
+        call()
+    assert counter.launches == before
+    return True
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,dk,M,lens", SHAPES)
+@pytest.mark.parametrize("which,T,dk,M,lens", CASES)
 def test_kernel_matches_plain(which, dtype, T, dk, M, lens):
     dev = _card()
     H = 2
@@ -73,6 +94,8 @@ def test_kernel_matches_plain(which, dtype, T, dk, M, lens):
                 if which == "rot" else
                 (rel_attention_forward, rel_attention_reference))
     args = _inputs(which, BH, H, T, dk, M, lens, dtype, dev)
+    if _refused(which, dk, fwd, lambda: fwd(*args)):
+        return
     before = fwd.launches
     out, lse = fwd(*args)
     torch.cuda.synchronize()
@@ -86,9 +109,8 @@ def test_kernel_matches_plain(which, dtype, T, dk, M, lens):
     assert float((lse[finite] - want_lse[finite]).abs().max()) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("which", ["rot", "rel"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,dk,M,lens", SHAPES)
+@pytest.mark.parametrize("which,T,dk,M,lens", CASES)
 def test_backward_kernel_matches_plain(which, dtype, T, dk, M, lens):
     dev = _card()
     H = 2
@@ -98,9 +120,14 @@ def test_backward_kernel_matches_plain(which, dtype, T, dk, M, lens):
                      (rel_attention_forward, rel_attention_backward,
                       rel_attention_backward_reference))
     args = _inputs(which, BH, H, T, dk, M, lens, dtype, dev)
-    out, lse = fwd(*args)
     dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (BH, T, dk)).astype(np.float32)).to(dev, dtype)
+    if which == "rot" and dk > 64:
+        out, lse = rot_attention_reference(*args)
+        assert _refused(which, dk, bwd,
+                        lambda: bwd(*args, out.to(dtype), lse, dout))
+        return
+    out, lse = fwd(*args)
     before = bwd.launches
     grads = bwd(*args, out, lse, dout)
     torch.cuda.synchronize()
@@ -198,6 +225,9 @@ def test_rot_backward_kernel_is_bitwise_repeatable(dtype):
     (248, 37, [248, 0, 131, 1]),    # the served T, not a multiple of 32, 64
     (248, 38, [200, 0, 33]),        # bf16 pairs by 4-byte copies
     (80, 40, [80, 47, 1]),          # windows below row 0 and past 2T-2
+    (33, 80, [33, 0, 20]),          # wide heads: bf16 staged raw
+    (248, 128, [248, 0, 131, 1]),   # bf16 too wide to stage: registers
+    (45, 77, [45, 0, 17]),          # odd wide dk: 4-byte copies / registers
 ])
 def test_rel_forward_kernel_copy_routes(dtype, T, dk, lens):
     """K3's other routes into shared memory and its edges (T not a
@@ -240,6 +270,9 @@ def test_rel_forward_kernel_is_bitwise_repeatable(dtype):
     (33, 37, [33, 0, 20]),          # odd dk: 4-byte copies / registers
     (248, 37, [248, 0, 131, 1]),    # the served T, not a multiple of 32
     (248, 38, [200, 0, 33]),        # bf16 pairs by 4-byte copies
+    (33, 80, [33, 0, 20]),          # wide heads: two output tiles a warp
+    (248, 128, [248, 0, 131, 1]),   # the widest head, 16 output tiles
+    (45, 77, [45, 0, 17]),          # odd wide dk: 4-byte copies / registers
 ])
 def test_rel_backward_kernel_copy_routes(dtype, T, dk, lens):
     """K4's other routes into shared memory and its edges (T not a
@@ -285,9 +318,20 @@ def test_rel_backward_kernel_is_bitwise_repeatable(dtype):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("flags", [{"encoder_rot_fold_pallas": True},
-                                   {"encoder_use_pallas_attention": True}])
-def test_model_kernel_path_matches_plain_path(flags):
+# the 1B stretch config's geometry (dk = 80), cut to 2 blocks
+WIDE_1B = dict(idim=80, odim=50, encoder_attention_dim=1280,
+               encoder_attention_heads=16, encoder_linear_units=5120,
+               encoder_num_blocks=2, decoder_attention_dim=1280,
+               decoder_attention_heads=16, decoder_linear_units=5120,
+               decoder_num_block=1, encoder_pos_enc_layer_type="rel_pos",
+               encoder_selfattention_layer_type="rel_selfattn")
+
+
+@pytest.mark.parametrize("flags,width", [
+    ({"encoder_rot_fold_pallas": True}, "small"),
+    ({"encoder_use_pallas_attention": True}, "small"),
+    ({"encoder_use_pallas_attention": True}, "1b")])
+def test_model_kernel_path_matches_plain_path(flags, width):
     dev = _card()
     from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
     kw = dict(idim=80, odim=50, encoder_attention_dim=64,
@@ -296,6 +340,8 @@ def test_model_kernel_path_matches_plain_path(flags):
               decoder_attention_heads=4, decoder_linear_units=128,
               decoder_num_block=1, encoder_pos_enc_layer_type="rel_pos",
               encoder_selfattention_layer_type="rel_selfattn")
+    if width == "1b":
+        kw = WIDE_1B
     torch.manual_seed(0)
     plain = E2E_Conformer_CTC(**kw, device=dev)
     fast = E2E_Conformer_CTC(**kw, **flags, device=dev)

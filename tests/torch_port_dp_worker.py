@@ -7,13 +7,16 @@ their own: no JAX is imported here or in the ranks it spawns.
              0's initial weights, global batches, ``acc_grads``, Adam's
              settings, the device: ``cpu``, ``cuda:0`` for every rank, or
              ``cuda`` for rank r on ``cuda:r``; the backend, default
-             ``gloo``), build the model (ranks > 0 from other seeds: rank
-             0's weights arrive by broadcast), take the global
+             ``gloo``; optionally ``model_parallel``, ``fsdp``,
+             ``fsdp_min_size`` and ``float64``), build the model (ranks
+             > 0 from other seeds: rank 0's weights arrive by
+             broadcast), take the global
              gradient of the first batch (``Trainer.loss_and_grads``, the
              BatchNorm statistics put back after it), then one
-             ``train_step`` per batch on their rows (``shard_rows``), and
-             write ``DIR/rank<r>.pt``: the metrics, the gradient, the
-             final state_dict and EMA shadow.
+             ``train_step`` per batch on their data rank's rows
+             (``shard_rows``), and write ``DIR/rank<r>.pt``: the metrics,
+             the gradient, the final state_dict and EMA shadow (whole,
+             gathered from the shards), and each leaf's shard shape.
   cli ARGV   ``lasr_tpu_torch.bin.train.main(ARGV)``; with
              ``DP_KILL_AFTER=N`` in the environment every rank raises
              "simulated preemption" when it asks for its (N+1)-th train
@@ -36,6 +39,7 @@ from lasr_tpu_torch.data.dataset import AudioDataSet
 from lasr_tpu_torch.data.frontend import DeviceFrontend
 from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
 from lasr_tpu_torch.models.losses import E2E_Loss
+from lasr_tpu_torch.modules.layers import set_compute_dtype
 from lasr_tpu_torch.parallel import dist
 from lasr_tpu_torch.train.optimizer import Adam
 from lasr_tpu_torch.train.trainer import Trainer
@@ -93,18 +97,31 @@ def wav_batch(seed, n, B):
             "token_len": tlen}
 
 
+def float64_everywhere():
+    """Make this process compute the port's float32 paths in float64
+    (``Tensor.float`` widens to float64): a check of the algebra alone,
+    as float32's rounding, amplified by the model's conditioning, moves
+    gradients ~1e-4 when only the order of sums changes."""
+    torch.Tensor.float = lambda self: self.to(torch.float64)
+
+
 def build_trainer(spec, device, init=None):
     """The port model of ``spec`` on ``device`` with the weights ``init``
     (if given) and its Trainer (which, under a process group, broadcasts
-    rank 0's weights)."""
+    rank 0's weights); with ``spec["float64"]`` in float64 (after
+    ``float64_everywhere``)."""
     model = E2E_Conformer_CTC(**spec["kw"], device=device)
+    if spec.get("float64"):
+        model.double()
+        set_compute_dtype(model, torch.float64)
     if init is not None:
         model.load_state_dict(init)
+    extra = {k: spec[k] for k in ("fsdp", "fsdp_min_size") if k in spec}
     trainer = Trainer(model, E2E_Loss(spec["kw"]["odim"], smoothing=0.1,
                                       rate=0.3),
                       Adam(**spec["adam"]), DeviceFrontend(spec["chain"]),
                       use_ema=True, acc_grads=spec["acc_grads"], seed=0,
-                      log_interval=1, device=device)
+                      log_interval=1, device=device, **extra)
     return model, trainer
 
 
@@ -120,14 +137,17 @@ def run_steps(trainer, model, batches, rows):
     for b in batches:
         state, m = trainer.train_step(state, rows(b))
         steps.append(m)
+    full = trainer.layout.full_list
     return {"metrics0": {k: float(v.detach())
                          for k, v in metrics0.items()},
-            "grads0": [g.detach().cpu() for g in grads0],
+            "grads0": [g.detach().cpu() for g in full(grads0)],
             "steps": steps,
             "state_dict": {k: v.detach().cpu()
-                           for k, v in model.state_dict().items()},
-            "ema": [s.detach().cpu() for s in state.ema["shadow"]],
-            "names": trainer.names}
+                           for k, v in trainer.full_state_dict().items()},
+            "ema": [s.detach().cpu() for s in full(state.ema["shadow"])],
+            "names": trainer.names,
+            "shard_shapes": {n: tuple(m.shape) for n, m in
+                             zip(trainer.names, trainer.masters)}}
 
 
 class Worker:
@@ -241,18 +261,22 @@ def _step_rank(rendezvous, root):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = torch.load(os.path.join(root, "spec.pt"), weights_only=False)
+    if spec.get("float64"):
+        float64_everywhere()
     device = torch.device(spec["device"])
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", rendezvous.rank)
     dist.init(device, spec.get("backend", "gloo"), rendezvous,
-              timeout_s=TIMEOUT_S)
+              timeout_s=TIMEOUT_S,
+              model_parallel=spec.get("model_parallel", 1))
     try:
-        rank, world = dist.rank(), dist.world_size()
+        rank = dist.rank()
         torch.manual_seed(1000 + rank)
         model, trainer = build_trainer(spec, device,
                                        spec["init"] if rank == 0 else None)
+        d, n = dist.data_rank(), dist.data_size()
         out = run_steps(trainer, model, spec["batches"],
-                        lambda b: dist.shard_rows(b, rank, world))
+                        lambda b: dist.shard_rows(b, d, n))
         out["jax_modules"] = [n for n in sys.modules
                               if n.split(".")[0] in ("jax", "lasr_tpu")]
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
