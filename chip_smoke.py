@@ -20,9 +20,11 @@ Phases, always all of them, in this order:
            same accuracy (bound_tc_ms).  Backward errors are per
            gradient, relative to the plain gradient's largest magnitude.
   slice_a  the recipe Conformer at full width with encoder_rot_fold_pallas
-           on: ASRProcess on one seeded 10 s wav, then a B=8 x 10 s batch
-           through DeviceFrontend + CTCAttBeamDecoder(beam 10, ctc_beam 15,
-           ctc_weight 0.5); the rot kernel must launch 12 times per encoder
+           on: ASRProcess on one seeded 4 s wav, then a B=8 x 10 s batch
+           (row 0 that wav, zero-padded) through DeviceFrontend +
+           CTCAttBeamDecoder(beam 10, ctc_beam 15, ctc_weight 0.5; rows 1-7
+           stop at max_len T/2, random weights ending no hypothesis, row 0
+           at its own length); the rot kernel must launch 12 times per encoder
            forward and the encoder output must match the plain path.
   slice_b  the same with encoder_use_pallas_attention on (the rel kernel).
   train_a  the recipe model trained by the port's Trainer with
@@ -60,7 +62,8 @@ Phases, always all of them, in this order:
            valid losses, the resume's differences, decode RTFs.
   decoders the decode surface beyond ctc_att, at the recipe's full width
            (configuration B, seeded weights): (a) served B (B=8 x 10 s,
-           beam 10, ctc_beam 15, ctc_weight 0.5) with RNNLM shallow fusion
+           beam 10, ctc_beam 15, ctc_weight 0.5, maxlenratio 0.25: random
+           weights never end a hypothesis) with RNNLM shallow fusion
            (a seeded 2 x 1024 LSTM RNNCellStack over odim 5000, lm_rate
            0.3) and nbest 4: token steps and ms a step with and without
            the LM, one LM step's ms; the n-best lists sorted with the
@@ -68,7 +71,7 @@ Phases, always all of them, in this order:
            CPU (ids exact, scores within 1e-3; a difference passes only as
            a tie, logged with both scores); (b) a seeded 120 s recording
            through LongFormCTCAttDecoder (encoder windows of 1,536 + 2 x
-           128 frames, segment_frames 256, 8 segments a search call:
+           128 frames, segment_frames 128, 16 segments a search call:
            random weights never end a hypothesis, so each search call
            runs max_len steps):
            its windows (T=1791) launch K3 12 times per window batch and
@@ -105,6 +108,7 @@ Phases, always all of them, in this order:
            lasr_tpu_torch.bin.decode`` with ctc_att_online (beam 10,
            ctc_beam 15, ctc_weight 0.5) on 4 seeded 4 s WAVs, and
            ASRProcess giving row 0; the online search's ms per token step
+           (over TIMED_STEPS = 48 steps, as every timed search below)
            and the device ops of one online decoder step (the endpoint
            chain's share beside the untruncated step); (d) the offline
            E2E_Transformer_CTC at the same widths decoded once (ctc_att);
@@ -151,7 +155,8 @@ Phases, always all of them, in this order:
            the layer-major chunked encoder; the sigmoid noise on in the
            timed steps, off in the card-vs-CPU step).
   stream_rest the streaming family's remaining paths at the stream
-           phase's widths: (a) stream (b)'s 10 s stream in 160 ms pieces
+           phase's widths: (a) the first 7 s of stream (b)'s 10 s stream
+           (the same wave: its noise is drawn in order) in 160 ms pieces
            through StreamingRecognizer with the online search (beam 10,
            ctc_beam 15, ctc_weight 0.5, every 4 chunks, bucket 64; the
            CTC head centred and sharpened x4, source biases 2.0 so the
@@ -222,32 +227,43 @@ Phases, always all of them, in this order:
            gains ``launches_dp`` (rank 0's in (a)).
   stretch_1b the 1B stretch config (example/pretrain_1b/conf/config.yaml
            from the checkout; odim 50,000, its tokenizer not being in the
-           repo; configuration B): (a) K3 / K4 against their plain
-           versions at dk 40, 64, 80, 96, 128 (B=3, 4 heads, T=300,
-           ragged kv_len) in f32 and bf16 (1e-4 / 2e-2), K1 / K2 at the
-           1B geometry and K3 at dk 136 refused before a launch, K3 / K4
-           timed at the 1B training shape (BH = 32 x 16, T=388, dk=80)
-           beside the plain versions and the bounds; (b) the model at full
-           width and depth (24 + 12 blocks, 1.18e9 parameters) trained by
-           the Trainer in bf16 with remat on B=32 x 15.6 s: 3 timed steps,
-           one profiled (busy ms, device ops), peak memory, K3 48 / K4 24
-           launches a step; a dropout-0 step without SpecAugment, kernel
-           path against the skewed-table fold, in bf16 (loss 2e-2) and
-           f32 (loss 1e-4, encoder gradients 1e-3 of their largest,
-           decoder/CTC 1e-2 in L2); B=8 x 10 s served through K3 (f32),
-           8 token steps of the beam search equal to the plain path's;
-           (c) full width, 2 + 1 blocks, B=4 x 15.6 s, f32: two gloo
-           ranks sharing the card with FSDP and with model_parallel 2,
-           each against the one-process gradient (loss 1e-4, gradients
-           1e-3 relative L2) and one step, with each rank's resident
-           parameters + moments + EMA (one spawn, the layouts in turn);
-           (d) ``lasr_tpu_torch.bin.train -fp16 16`` (a process of its
-           own, run beside (c)) on a copy of the 1B YAML (full width, 2 +
-           1 blocks) pointed at 8 seeded utterances and a 5000-entry
-           CharTokenizer, then ``lasr_tpu_torch.bin.decode`` and
-           ASRProcess (ctc_att) on its checkpoint.  Prints a {"stretch_1b": ...} line; the kernel
-           list gains ``launches_stretch_1b`` (K3 / K4 over (b)'s 3 steps)
-           and K3 / K4's ``stretch_1b_float32`` / ``_bfloat16`` numbers.
+           repo): (a) K1-K4 against their plain versions at dk 40, 64,
+           80, 96, 128 (K1 / K2 at M = 16 dk; B=3, 4 heads, T=300, ragged
+           kv_len) in f32 and bf16 (1e-4 / 2e-2; backward errors relative
+           to each gradient's largest magnitude), K2 run twice bitwise
+           equal, K1 and K3 at dk 136 refused before a launch, K1-K4
+           timed at the 1B training shape (BH = 32 x 16, T=388, dk=80, M
+           = 1,280) and K1 at the served one (BH = 8 x 16, T=248) beside
+           the plain versions, SDPA (K1 / K2) and the bounds; (b) the
+           model at full width and depth (24 + 12 blocks, 1.18e9
+           parameters) in configuration B (the rel kernels) trained by the
+           Trainer in bf16 with remat on B=32 x 15.6 s: 2 timed steps, one
+           profiled (busy ms, device ops), peak memory, K3 48 / K4 24
+           launches a step; (e) the same model and Trainer switched to
+           configuration A (encoder_rot_fold_pallas, rotated positional
+           dropout): 2 timed steps and one profiled, K1 48 / K2 24
+           launches a step; then, on those weights at dropout 0 without
+           SpecAugment, each configuration's kernel path against its plain
+           path (the skewed-table fold; the rotated fold) in bf16 (loss
+           2e-2) and f32 (loss 1e-4, encoder gradients 1e-3 of their
+           largest, decoder/CTC 1e-2 in L2), and B=8 x 10 s served (f32)
+           through K3 and through K1 (a launch a block), the encoder
+           within 1e-3 of the plain path and 8 token steps of the beam
+           search equal to its; (c) full width, 2 + 1 blocks, B=4 x 15.6
+           s, f32: two gloo ranks sharing the card with FSDP and with
+           model_parallel 2, each against the one-process gradient (loss
+           1e-4, gradients 1e-3 relative L2) and one step, with each
+           rank's resident parameters + moments + EMA (one spawn, the
+           layouts in turn); (d) ``lasr_tpu_torch.bin.train -fp16 16`` (a
+           process of its own, run beside (c)) on a copy of the 1B YAML
+           (full width, 2 + 1 blocks) pointed at 8 seeded utterances and a
+           5000-entry CharTokenizer, then ``lasr_tpu_torch.bin.decode``
+           and ASRProcess (ctc_att) on its checkpoint.  (b) ran 3 timed
+           steps before (e) was added; 2 keep the script's time.  Prints a
+           {"stretch_1b": ...} line; the kernel list gains
+           ``launches_stretch_1b`` (K3 / K4 over (b)'s steps, K1 / K2 over
+           (e)'s) and K1-K4's ``stretch_1b_float32`` / ``_bfloat16``
+           numbers (K1's served ones ``stretch_1b_served_*``).
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -401,13 +417,23 @@ def phase_build(state):
 
 
 def _tensor(rng, dtype, dev, *shape, sc=1.0):
+    """Seeded normal values: from a numpy Generator, or drawn on the card
+    from a torch.Generator (the 1B shapes' inputs, ~10^8 values each)."""
     import torch
+    if isinstance(rng, torch.Generator):
+        return (torch.randn(shape, generator=rng, device=rng.device)
+                * sc).to(dev, dtype)
     return torch.from_numpy((rng.standard_normal(shape) * sc).astype(
         np.float32)).to(dev, dtype)
 
 
 def _kv_len(rng, shape, dev):
     import torch
+    if isinstance(rng, torch.Generator):
+        lens = torch.randint(shape["T"] // 2, shape["T"] + 1,
+                             (shape["B"],), generator=rng,
+                             device=rng.device)
+        return lens.repeat_interleave(shape["H"]).to(dev, torch.int32)
     lens = rng.integers(shape["T"] // 2, shape["T"] + 1, size=shape["B"])
     return torch.from_numpy(np.repeat(lens, shape["H"]).astype(
         np.int32)).to(dev)
@@ -666,6 +692,9 @@ RECIPE = dict(
 DECODE = dict(decode_method="ctc_att", beam=10, ctc_beam=15, ctc_weight=0.5,
               lm_path=None, lm_rate=0)
 SECS, BATCH, SR = 10.0, 8, 16000
+# the slices' ASRProcess utterance, row 0 of their batch (random weights
+# never end a hypothesis, so its search runs a token step a frame)
+UTT_SECS = 4.0
 
 
 def _seeded_recipe(seed):
@@ -750,9 +779,13 @@ def _slice(state, label, flags, kernel_name, counter):
     counters = (rot_attention_forward, rel_attention_forward)
     with tempfile.TemporaryDirectory() as tmp:
         _write_recipe(tmp, flags, state["seed"])
+        # row 0 is the ASRProcess utterance, zero-padded to the batch
         waves = make_waves(state["seed"] + 1, BATCH)
+        utt = make_waves(state["seed"] + 8, 1, secs=UTT_SECS)[0]
+        waves[0] = 0.0
+        waves[0, : len(utt)] = utt
         wav_path = os.path.join(tmp, "x.wav")
-        write_wav(wav_path, waves[0], SR)
+        write_wav(wav_path, utt, SR)
 
         for c in counters:
             c.launches = 0
@@ -771,20 +804,26 @@ def _slice(state, label, flags, kernel_name, counter):
         wav = torch.from_numpy(waves).cuda()
         wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
                              device=wav.device)
+        wav_len[0] = len(utt)
         feats, feat_len = frontend(wav, wav_len)
         hs, hs_len, lpz = decoder.encode(feats, feat_len)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        hyps = decoder.search(hs, hs_len, lpz, decoder.max_len(hs.shape[1]))
+        # rows 1-7 stop at half their frames (random weights never end a
+        # hypothesis); row 0 ends at its own length, as in ASRProcess
+        max_len = hs.shape[1] // 2
+        hyps = decoder.search(hs, hs_len, lpz, max_len)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
         launches = {c.__name__: c.launches for c in counters}
 
         forwards = 2   # ASRProcess's utterance, then the batch
-        log(f"{label}: ASRProcess build+load {t1 - t0:.2f} s, decode "
-            f"{t2 - t1:.2f} s -> {len(tokens)} tokens; batch B={BATCH} x "
-            f"{SECS:g} s: frontend+encode {t3 - t2:.3f} s, search "
-            f"{t4 - t3:.2f} s (T={hs.shape[1]}, tokens per utterance "
+        log(f"{label}: ASRProcess build+load {t1 - t0:.2f} s, decode of "
+            f"{UTT_SECS:g} s {t2 - t1:.2f} s -> {len(tokens)} tokens; batch "
+            f"B={BATCH} x {SECS:g} s (row 0 that utterance): "
+            f"frontend+encode {t3 - t2:.3f} s, search "
+            f"{t4 - t3:.2f} s (T={hs.shape[1]}, max_len {max_len}, tokens "
+            f"per utterance "
             f"{[len(hyps.best_ids(b)) for b in range(BATCH)]}) "
             f"[{state['card']}]")
         log(f"{label}: launches in the main path {launches} over {forwards} "
@@ -1510,14 +1549,19 @@ DEC_LM = dict(input_dim=RECIPE["odim"], output_dim=RECIPE["odim"],
               n_layers=2, n_units=1024, typ="lstm")
 LM_RATE = 0.3
 DEC_NBEST = 4
+# (a)'s searches stop at a quarter of the encoder's frames: random weights
+# never end a hypothesis, so each would otherwise run T token steps
+DEC_MAXLENRATIO = 0.25
 LONG_SECS, SHORT_SECS = 120.0, 20.0
 # encoder windows of 1,536 + 2 x 128 frames (T=1791, as segment_frames 768
-# makes them by default); the search's segments are 256 frames, 8 to a
+# makes them by default); the search's segments are 128 frames, 16 to a
 # call: random weights never end a hypothesis, so each search call runs
 # max_len token steps (at 768 and 4 to a call: 1,480 steps, 220 s on an
-# H100 80GB HBM3 at 700 W)
-SEGMENT, WINDOW, HALO, SEGMENT_BATCH = 256, 1536, 128, 8
+# H100 80GB HBM3 at 700 W; at 256 and 8 to a call: 619 steps, 54 s)
+SEGMENT, WINDOW, HALO, SEGMENT_BATCH = 128, 1536, 128, 16
 SCORE_TOL = 1e-3
+# the searches timed for their ms a token step (stream, bf16) stop here
+TIMED_STEPS = 48
 
 
 def _same_hyps(label, got, want, rows):
@@ -1582,7 +1626,8 @@ def _decoders_lm(state, tmp, model, sd):
     wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
                          device=wav.device)
     feats, feat_len = DeviceFrontend(["norm", "fbank:80"])(wav, wav_len)
-    kw = dict(beam=10, ctc_beam=15, ctc_weight=0.5, nbest=DEC_NBEST)
+    kw = dict(beam=10, ctc_beam=15, ctc_weight=0.5, nbest=DEC_NBEST,
+              maxlenratio=DEC_MAXLENRATIO)
     fused = CTCAttBeamDecoder(model, lm=RNNLM(lm), lm_weight=LM_RATE, **kw)
     hs, hs_len, lpz = fused.encode(feats, feat_len)
     hyps, t_lm, steps_lm = _search_timed(fused, model, "decoder_step", hs,
@@ -1596,7 +1641,8 @@ def _decoders_lm(state, tmp, model, sd):
     with torch.no_grad():
         lm_step_ms = time_ms(lambda: lm(lm_state, tok), iters=20)
     ms_lm, ms0 = t_lm * 1e3 / steps_lm, t0 * 1e3 / steps0
-    log(f"{label}: B={BATCH} x {SECS:g} s (T={hs.shape[1]}), beam 10: with "
+    log(f"{label}: B={BATCH} x {SECS:g} s (T={hs.shape[1]}), beam 10, "
+        f"max_len {fused.max_len(hs.shape[1])}: with "
         f"the LM ({DEC_LM['n_layers']} x {DEC_LM['n_units']} LSTM, rate "
         f"{LM_RATE}) {steps_lm} token steps in {t_lm:.2f} s, {ms_lm:.2f} "
         f"ms a step; without {steps0} steps in {t0:.2f} s, {ms0:.2f} ms a "
@@ -1777,13 +1823,9 @@ def _decoders_cli(state, tmp):
     """(c) fit_b's checkpoints through the decode CLI on the card and on
     the CPU, and ASRProcess on the card: ctc_bs with the LM,
     ctc_kenlm_lexcoin, wfst, ctc_att with nbest 2."""
-    import io
-    import torch
     import yaml
-    from lasr_tpu_torch.bin import decode
     from lasr_tpu_torch.data.reader import read_scp
     from lasr_tpu_torch.data.tokenizer import CharTokenizer
-    from lasr_tpu_torch.process.asrprocess import ASRProcess
     from tests.torch_port_decoders import write_word_resources
     run, label = state["fit_b_run"], "decoders (c)"
     dev = run["dev_dir"]
@@ -1806,9 +1848,35 @@ def _decoders_cli(state, tmp):
                "wfst": dict(wfst, decode_method="wfst"),
                "ctc_att_nbest2": dict(decode_method="ctc_att", nbest=2)}
     uid, wav0 = read_scp(os.path.join(dev, "wav.scp"))[0]
-    out = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    out, cfgs, cpu_runs = {}, {}, {}
+
+    def argv(name, device):
+        return ["-train_config", run["hparams"], "-decode_config",
+                cfgs[name], "-model_path", run["ckpts"], "-choose", "last",
+                "-avg", "2", "-output_file",
+                os.path.join(tmp, f"{name}_{device}.txt"), "-device", device]
+
+    def result(name, device, text, wall):
+        path = os.path.join(tmp, f"{name}_{device}.txt")
+        lines = text.strip().splitlines()
+        with open(path) as f:
+            hyps = f.read().splitlines()
+        nbest = []
+        if os.path.exists(path + ".nbest"):
+            with open(path + ".nbest") as f:
+                for line in f:
+                    key, sc, words_ = line.rstrip("\n").split(" ", 2)
+                    nbest.append((key, float(sc), words_))
+        return dict(hyps=hyps, wer=[x for x in lines
+                                    if x.startswith("Totol")],
+                    nbest=nbest, wall=wall, rtf=json.loads(lines[-1])["rtf"],
+                    decode_s=json.loads(lines[-1])["decode_total_s"])
+
+    # the CPU's decodes run as processes of their own (two threads each),
+    # all at once and beside the card's
     for name, keys in methods.items():
-        cfg = os.path.join(tmp, f"decode_{name}.yaml")
+        cfgs[name] = cfg = os.path.join(tmp, f"decode_{name}.yaml")
         with open(cfg, "w") as f:
             yaml.safe_dump({
                 "decode_config": dict(DECODE, **keys),
@@ -1817,68 +1885,87 @@ def _decoders_cli(state, tmp):
                     "kwargs": {"wav_list": [os.path.join(dev, "wav.scp")],
                                "text_list": [os.path.join(dev, "text")],
                                "audio_trans": ["norm", "fbank:80"]}}}, f)
-        res = {}
-        for device in ("cuda", "cpu"):
-            path = os.path.join(tmp, f"{name}_{device}.txt")
-            buf = io.StringIO()
-            t = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = decode.main(["-train_config", run["hparams"],
-                                  "-decode_config", cfg, "-model_path",
-                                  run["ckpts"], "-choose", "last", "-avg",
-                                  "2", "-output_file", path, "-device",
-                                  device])
-            wall = time.perf_counter() - t
-            check(rc == 0, f"{label}: decode CLI {name} on {device} exited "
-                  f"{rc}")
-            lines = buf.getvalue().strip().splitlines()
-            with open(path) as f:
-                hyps = f.read().splitlines()
-            nbest = []
-            if os.path.exists(path + ".nbest"):
-                with open(path + ".nbest") as f:
-                    for line in f:
-                        key, sc, text = line.rstrip("\n").split(" ", 2)
-                        nbest.append((key, float(sc), text))
-            res[device] = dict(hyps=hyps, wer=[x for x in lines
-                                               if x.startswith("Totol")],
-                               nbest=nbest, wall=wall,
-                               rtf=json.loads(lines[-1])["rtf"])
-        card, cpu = res["cuda"], res["cpu"]
-        check(len(card["hyps"]) == FIT_DEV and len(card["wer"]) == 1,
-              f"{label}: {name} wrote {len(card['hyps'])} lines")
-        check((len(card["nbest"]) == 2 * FIT_DEV) == (name.endswith(
-            "nbest2")), f"{label}: {name}'s .nbest file has "
-            f"{len(card['nbest'])} lines")
-        if card["hyps"] != cpu["hyps"] or card["wer"] != cpu["wer"]:
-            # the tie rule of (a), on the n-best file where there is one
-            check(bool(card["nbest"]), f"{label}: {name} decodes "
-                  f"differently on the card and the CPU")
-        if card["nbest"]:
-            def lists(rows):
-                by = {}
-                for key, sc, text in rows:
-                    by.setdefault(key.rsplit("-", 1)[0], []).append(
-                        (text, sc))
-                return [by[k] for k in sorted(by)]
-            _same_hyps(f"{label} {name}", lists(card["nbest"]),
-                       lists(cpu["nbest"]), range(FIT_DEV))
-        asr = ASRProcess(run["hparams"], cfg, run["ckpts"], choose="last",
-                         avg=2)
-        _, text0 = asr(wav0)
-        row0 = card["hyps"][0].rsplit(" (", 1)
-        check(row0[1] == uid + ")" and text0 == row0[0],
-              f"{label}: {name}: ASRProcess gives {text0!r}, the CLI's row "
-              f"0 {row0[0]!r}")
-        del asr
-        log(f"{label}: {name}: {FIT_DEV} hypotheses {card['hyps']}, "
-            f"{card['wer'][0]}, card == CPU {card['hyps'] == cpu['hyps']}, "
-            f"ASRProcess == row 0; decode CLI {card['wall']:.1f} s on the "
-            f"card (RTF {card['rtf']}), {cpu['wall']:.1f} s on the CPU "
-            f"[{state['card']}]")
-        out[name] = dict(card_s=card["wall"], cpu_s=cpu["wall"],
-                         rtf=card["rtf"], same=card["hyps"] == cpu["hyps"])
+        logs = [open(os.path.join(tmp, f"{name}_cpu.{s}"), "w+")
+                for s in ("out", "err")]
+        cpu_runs[name] = (logs, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "lasr_tpu_torch.bin.decode"]
+            + argv(name, "cpu"), cwd=here, stdout=logs[0], stderr=logs[1],
+            env=dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="2",
+                     CUDA_VISIBLE_DEVICES="")))
+    try:
+        for name in methods:
+            out[name] = _decoders_cli_method(state, label, name, argv,
+                                             result, cpu_runs[name],
+                                             run, wav0, uid, cfgs[name])
+    finally:
+        for logs, _, proc in cpu_runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
     return out
+
+
+def _decoders_cli_method(state, label, name, argv, result, cpu_run, run,
+                         wav0, uid, cfg):
+    """One method of ``_decoders_cli``: the card's decode in this process,
+    the CPU's from its process, ASRProcess on the card."""
+    import io
+    from lasr_tpu_torch.bin import decode
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    res = {}
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = decode.main(argv(name, "cuda"))
+    wall = time.perf_counter() - t
+    check(rc == 0, f"{label}: decode CLI {name} on cuda exited {rc}")
+    res["cuda"] = result(name, "cuda", buf.getvalue(), wall)
+    logs, t, proc = cpu_run
+    rc = proc.wait(timeout=600)
+    wall = time.perf_counter() - t
+    for f in logs:
+        f.seek(0)
+    text, err = logs[0].read(), logs[1].read()
+    check(rc == 0, f"{label}: decode CLI {name} on cpu exited {rc}: "
+          f"{err[-2000:]}")
+    res["cpu"] = result(name, "cpu", text, wall)
+    card, cpu = res["cuda"], res["cpu"]
+    check(len(card["hyps"]) == FIT_DEV and len(card["wer"]) == 1,
+          f"{label}: {name} wrote {len(card['hyps'])} lines")
+    check((len(card["nbest"]) == 2 * FIT_DEV) == (name.endswith(
+        "nbest2")), f"{label}: {name}'s .nbest file has "
+        f"{len(card['nbest'])} lines")
+    if card["hyps"] != cpu["hyps"] or card["wer"] != cpu["wer"]:
+        # the tie rule of (a), on the n-best file where there is one
+        check(bool(card["nbest"]), f"{label}: {name} decodes "
+              f"differently on the card and the CPU")
+    if card["nbest"]:
+        def lists(rows):
+            by = {}
+            for key, sc, text in rows:
+                by.setdefault(key.rsplit("-", 1)[0], []).append(
+                    (text, sc))
+            return [by[k] for k in sorted(by)]
+        _same_hyps(f"{label} {name}", lists(card["nbest"]),
+                   lists(cpu["nbest"]), range(FIT_DEV))
+    asr = ASRProcess(run["hparams"], cfg, run["ckpts"], choose="last",
+                     avg=2)
+    _, text0 = asr(wav0)
+    row0 = card["hyps"][0].rsplit(" (", 1)
+    check(row0[1] == uid + ")" and text0 == row0[0],
+          f"{label}: {name}: ASRProcess gives {text0!r}, the CLI's row "
+          f"0 {row0[0]!r}")
+    del asr
+    log(f"{label}: {name}: {FIT_DEV} hypotheses {card['hyps']}, "
+        f"{card['wer'][0]}, card == CPU {card['hyps'] == cpu['hyps']}, "
+        f"ASRProcess == row 0; decode CLI {card['wall']:.1f} s on the "
+        f"card (RTF {card['rtf']}), on the CPU a process of its own beside "
+        f"the card's decodes, its decode {cpu['decode_s']:.1f} s "
+        f"[{state['card']}]")
+    return dict(card_s=card["wall"], cpu_decode_s=cpu["decode_s"],
+                rtf=card["rtf"], same=card["hyps"] == cpu["hyps"])
 
 
 def phase_decoders(state):
@@ -1950,14 +2037,16 @@ def _device_launches(fn):
     return _profile(fn)[1]["ops"]
 
 
-def _search_timed(decoder, model, step_name, hs, hs_len, lpz):
-    """(hypotheses, seconds, token steps) of one beam search."""
+def _search_timed(decoder, model, step_name, hs, hs_len, lpz, max_len=None):
+    """(hypotheses, seconds, token steps) of one beam search, of at most
+    ``max_len`` token steps (the decoder's own limit by default)."""
     import torch
     steps = [0]
     _counted(model, step_name, steps)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    hyps = decoder.search(hs, hs_len, lpz, decoder.max_len(hs.shape[1]))
+    hyps = decoder.search(hs, hs_len, lpz,
+                          max_len or decoder.max_len(hs.shape[1]))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     delattr(model, step_name)
@@ -2216,7 +2305,7 @@ def phase_stream(state):
                                 ctc_weight=DECODE["ctc_weight"], online=True)
     hs, hs_len, lpz = decoder.encode(feats, feat_len)
     hyps, dt, steps = _search_timed(decoder, model, "decoder_step_ep", hs,
-                                    hs_len, lpz)
+                                    hs_len, lpz, TIMED_STEPS)
     V = STREAM["odim"]
     check(all(0 <= tk < V for b in range(STREAM_UTTS)
               for tk in hyps.best_ids(b)) and np.isfinite(hyps.scores).all(),
@@ -2285,7 +2374,8 @@ def phase_stream(state):
                                   online=True)
     hs, hs_len, lpz = decoder16.encode(feats, feat_len)
     hyps, dt16, steps16 = _search_timed(decoder16, model16,
-                                        "decoder_step_ep", hs, hs_len, lpz)
+                                        "decoder_step_ep", hs, hs_len, lpz,
+                                        TIMED_STEPS)
     check(lpz.dtype == torch.float32
           and all(0 <= tk < V for b in range(STREAM_UTTS)
                   for tk in hyps.best_ids(b))
@@ -2441,7 +2531,7 @@ def phase_bf16(state):
                                     ctc_weight=0.5)
         hs4, hs4_len, lpz = decoder.encode(*frontend(waves, lens))
         hyps, dt, steps = _search_timed(decoder, model, "decoder_step", hs4,
-                                        hs4_len, lpz)
+                                        hs4_len, lpz, TIMED_STEPS)
         V = RECIPE["odim"]
         check(lpz.dtype == torch.float32
               and all(0 <= tk < V for b in range(BF16_SEARCH_UTTS)
@@ -2711,6 +2801,10 @@ UNIV = dict(
     decoder_self_attention_heads=8, decoder_src_attention_heads=8,
     decoder_linear_units=2048, decoder_num_block=6)
 REST_INTERVAL, REST_BUCKET = 4, 64
+# (a)'s stream: the first 7 s of the stream phase's 10 s one (two
+# mid-stream refreshes; the from-scratch finalize runs a token step a
+# frame, so the full 10 s took 85 s)
+REST_SECS = 7.0
 # the stream's model for the search: the CTC head centred on the stream
 # and sharpened, every source-attention bias at SRC_BIAS, so frontiers
 # stall and endpoints advance among the visible frames (random weights
@@ -2803,7 +2897,7 @@ def _stream_search(model, wave, incremental):
 
 def _rest_search(state, label, card):
     """(a): the resumable search against the from-scratch refresh on the
-    stream phase's 10 s stream."""
+    first REST_SECS of the stream phase's 10 s stream."""
     import torch
     from lasr_tpu_torch.data.frontend import DeviceFrontend
     from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
@@ -2811,7 +2905,7 @@ def _rest_search(state, label, card):
     torch.manual_seed(seed)
     model = E2E_Transformer_CTC_Online(**STREAM)
     dev = next(model.parameters()).device
-    wave = make_waves(seed + 7, 1, STREAM_SECS)[0]
+    wave = make_waves(seed + 7, 1, REST_SECS)[0]
     with torch.no_grad():
         f1, l1 = DeviceFrontend(["fbank:80"])(
             torch.from_numpy(wave[None]).to(dev),
@@ -2848,7 +2942,7 @@ def _rest_search(state, label, card):
             search_ms_total=sum(ms) + r["finalize_ms"],
             tokens=len(r["tokens"]))
         log(f"{label}: (a) {mode}: {len(ms) + 1} mid-stream refreshes of "
-            f"the {STREAM_SECS:g} s stream (every {REST_INTERVAL} chunks, "
+            f"the {REST_SECS:g} s stream (every {REST_INTERVAL} chunks, "
             f"bucket {REST_BUCKET}): ms each {', '.join(f'{m:.1f}' for m in ms)} "
             f"(p50 {np.median(ms):.1f}, max {max(ms):.1f}; the first, "
             f"profiled, left out), token steps each {steps}, one refresh "
@@ -3123,11 +3217,12 @@ def _rest_knobs(state, label, card):
 def phase_stream_rest(state):
     """The streaming family's remaining paths at the stream phase's
     widths: (a) the resumable online search against the from-scratch
-    refresh on the 10 s stream; (b) the Univ dual-view model trained
-    (f32 and bf16, and a dropout-0 step against the CPU); (c) its
-    checkpoint through the decode CLI and ASRProcess with ctc_greedy, its
-    per-chunk forward against the online view, the joint search refused;
-    (d) the encoders' memory knobs against the same step without them."""
+    refresh on the first 7 s of the 10 s stream; (b) the Univ dual-view
+    model trained (f32 and bf16, and a dropout-0 step against the CPU);
+    (c) its checkpoint through the decode CLI and ASRProcess with
+    ctc_greedy, its per-chunk forward against the online view, the joint
+    search refused; (d) the encoders' memory knobs against the same step
+    without them."""
     import torch
     from lasr_tpu_torch.models.e2e_online import \
         E2E_Transformer_CTC_Univ_Dynamic
@@ -3639,14 +3734,19 @@ def phase_dp(state):
 STRETCH_CONFIG = os.path.join("example", "pretrain_1b", "conf",
                               "config.yaml")
 STRETCH_ODIM = 50000
-# K3 / K4 at the 1B training shape: B=32 x 15.6 s -> T=388, 16 heads of 80
+# K3 / K4 at the 1B training shape: B=32 x 15.6 s -> T=388, 16 heads of 80;
+# K1 / K2 there (M = n_feat = 1,280) and K1 at the served shape (B=8 x 10 s)
 STRETCH_SHAPE = dict(B=32, H=16, T=388, dk=80)
+STRETCH_ROT = dict(STRETCH_SHAPE, M=1280)
+STRETCH_ROT_SERVED = dict(B=8, H=16, T=248, dk=80, M=1280)
 STRETCH_DKS = (40, 64, 80, 96, 128)
 # (c)'s model: full width, 2 + 1 blocks; B=4 x 15.6 s
 STRETCH_RANK_BLOCKS = (2, 1)
 STRETCH_RANK_ROWS = 4
 STRETCH_TOL = dict(loss=1e-4, entry=1e-3, l2=1e-2, noise=1e-4,
                    bf16_loss=2e-2, rank_loss=1e-4, rank_l2=1e-3)
+# timed steps of (b) (configuration B) and (e) (configuration A)
+STRETCH_STEPS_B, STRETCH_STEPS_A = 2, 2
 
 
 def _stretch_kwargs(**over):
@@ -3668,102 +3768,134 @@ def _stretch_batch(seed, rows):
 
 
 def _stretch_kernels(state):
-    """(a) K3 / K4 against their plain versions at every head width up to
-    128, ragged kv_len; their times at the 1B training shape; K1 / K2 and
-    a head above 128 refused before a launch."""
+    """(a) K1-K4 against their plain versions at every head width up to
+    128 (K1 / K2 at M = 16 dk, the model width), ragged kv_len; K2 run
+    twice bitwise equal; K1 and K3 refuse dk = 136 before a launch; the
+    times of K1-K4 at the 1B training shape and of K1 at the 1B served
+    shape, beside the plain versions, SDPA (K1 / K2) and the bounds."""
     import torch
     from lasr_tpu_torch.ops.rel_attention import (
         rel_attention_backward, rel_attention_backward_reference,
         rel_attention_forward, rel_attention_reference)
-    from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
-                                                  rot_attention_forward)
+    from lasr_tpu_torch.ops.rot_attention import (
+        rot_attention_backward, rot_attention_backward_reference,
+        rot_attention_forward, rot_attention_reference)
     dev = torch.device("cuda")
     rng = np.random.default_rng(state["seed"] + 15)
     card = state["card"]
-    fwd_in = _rel_inputs
-    bwd_in = _with_grad_inputs(_rel_inputs, rel_attention_forward)
-    worst = {}
+    rot_bwd_in = _with_grad_inputs(_rot_inputs, rot_attention_forward)
+    rel_bwd_in = _with_grad_inputs(_rel_inputs, rel_attention_forward)
+    # label, kernel, plain, inputs, cost, library
+    specs = {
+        "rot_attention_fwd": ("K1", rot_attention_forward,
+                              rot_attention_reference, _rot_inputs,
+                              _rot_cost, _rot_library),
+        "rot_attention_bwd": ("K2", rot_attention_backward,
+                              rot_attention_backward_reference, rot_bwd_in,
+                              _rot_bwd_cost, _rot_bwd_library),
+        "rel_attention_fwd": ("K3", rel_attention_forward,
+                              rel_attention_reference, _rel_inputs,
+                              _rel_cost, None),
+        "rel_attention_bwd": ("K4", rel_attention_backward,
+                              rel_attention_backward_reference, rel_bwd_in,
+                              _rel_bwd_cost, None),
+    }
+    worst, repeat = {}, []
     for dk in STRETCH_DKS:
-        shape = dict(B=3, H=4, T=300, dk=dk)
+        shape = dict(B=3, H=4, T=300, dk=dk, M=16 * dk)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
-            for kind, kern, plain, make in (
-                    ("fwd", rel_attention_forward, rel_attention_reference,
-                     fwd_in),
-                    ("bwd", rel_attention_backward,
-                     rel_attention_backward_reference, bwd_in)):
+            for name, (k, kern, plain, make, _, _) in specs.items():
                 args = make(rng, dtype, dev, shape)
                 got = kern(*args)
                 torch.cuda.synchronize()
                 errs = _errors(got, plain(*_f32(args)))
-                err = max(r for _, r in errs) if kind == "bwd" \
+                err = max(r for _, r in errs) if "bwd" in name \
                     else max(e for e, _ in errs)
-                worst[f"{kind} dk={dk} {dn}"] = err
-                k = 3 if kind == "fwd" else 4
-                check(err <= TOL[dn], f"stretch_1b: K{k} dk={dk} {dn}: "
+                worst[f"{k} dk={dk} {dn}"] = err
+                check(err <= TOL[dn], f"stretch_1b: {k} dk={dk} {dn}: "
                       f"error {err} > {TOL[dn]}")
-    log(f"stretch_1b (a): K3 / K4 against their plain versions at dk "
-        f"{STRETCH_DKS}, f32 / bf16 (tol 1e-4 / 2e-2; fwd abs, bwd rel): "
-        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+                if name == "rot_attention_bwd":
+                    again = kern(*args)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    repeat.append(same)
+                    check(same, f"stretch_1b: K2 dk={dk} {dn} is not "
+                          f"bitwise repeatable")
+                del args, got
+    log(f"stretch_1b (a): K1-K4 against their plain versions at dk "
+        f"{STRETCH_DKS} (K1 / K2 at M = 16 dk), f32 / bf16 (tol 1e-4 / "
+        f"2e-2; fwd abs, bwd rel): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; K2 twice bitwise equal at every width: {all(repeat)}")
 
-    # refused before a launch: K1 / K2 at the 1B geometry, K3 above 128
+    # refused before a launch: heads above 128
     z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
     kv = torch.full((2,), 8, dtype=torch.int32, device=dev)
     refused = []
     for fn, args in (
-            (rot_attention_forward, (z(2, 8, 80), z(2, 8, 1280),
-                                     z(2, 8, 80), z(2, 8, 80), z(8, 1280),
+            (rot_attention_forward, (z(2, 8, 136), z(2, 8, 320),
+                                     z(2, 8, 136), z(2, 8, 136), z(8, 320),
                                      kv)),
-            (rot_attention_backward, (z(2, 8, 64), z(2, 8, 1280),
-                                      z(2, 8, 64), z(2, 8, 64), z(8, 1280),
-                                      kv, z(2, 8, 64), z(2, 8), z(2, 8, 64))),
             (rel_attention_forward, (z(2, 8, 136), z(2, 8, 136),
                                      z(2, 8, 136), z(2, 8, 136),
                                      z(1, 15, 136), kv))):
         before = fn.launches
         try:
             fn(*args)
-        except (NotImplementedError, ValueError) as e:
+        except ValueError as e:
             refused.append(f"{fn.__name__}: {type(e).__name__}")
         check(fn.launches == before, f"stretch_1b: {fn.__name__} launched")
-    check(len(refused) == 3, f"stretch_1b: refusals {refused}")
-    log(f"stretch_1b (a): refused before launch: {refused}")
+    check(len(refused) == 2, f"stretch_1b: refusals {refused}")
+    log(f"stretch_1b (a): dk = 136 refused before launch: {refused}")
 
-    # times at the 1B training shape
-    for name, kern, plain, make, cost in (
-            ("rel_attention_fwd", rel_attention_forward,
-             rel_attention_reference, fwd_in, _rel_cost),
-            ("rel_attention_bwd", rel_attention_backward,
-             rel_attention_backward_reference, bwd_in, _rel_bwd_cost)):
+    # times at the 1B shapes, on inputs drawn on the card
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(state["seed"] + 16)
+    for name, shape, key in (
+            ("rot_attention_fwd", STRETCH_ROT, "stretch_1b"),
+            ("rot_attention_fwd", STRETCH_ROT_SERVED, "stretch_1b_served"),
+            ("rot_attention_bwd", STRETCH_ROT, "stretch_1b"),
+            ("rel_attention_fwd", STRETCH_SHAPE, "stretch_1b"),
+            ("rel_attention_bwd", STRETCH_SHAPE, "stretch_1b")):
+        k, kern, plain, make, cost, library = specs[name]
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
-            args = make(rng, dtype, dev, STRETCH_SHAPE)
+            args = make(gen, dtype, dev, shape)
             got = kern(*args)
             torch.cuda.synchronize()
             errs = _errors(got, plain(*_f32(args)))
             abs_err = max(e for e, _ in errs)
             rel_err = max(r for _, r in errs)
             err = rel_err if "bwd" in name else abs_err
-            check(err <= TOL[dn], f"stretch_1b: {name} {dn} at the 1B shape: "
-                  f"error {err}")
-            ms = time_ms(lambda: kern(*args), iters=10, repeats=3)
+            check(err <= TOL[dn], f"stretch_1b: {k} {dn} at the 1B shape "
+                  f"({key}): error {err}")
+            ms = time_ms(lambda: kern(*args), iters=5, warmup=2, repeats=3)
             plain_ms = time_ms(lambda: plain(*args), iters=2, warmup=1,
                                repeats=3)
+            lib_ms = time_ms(library(args), iters=3, warmup=1, repeats=3) \
+                if library else None
             nbytes, flops = cost(args)
             bound, bound_by = _bound_ms(nbytes, flops, dn)
             bound_tc = max(nbytes / HBM_BPS, flops / TC_FLOPS[dn]) * 1e3
-            log(f"stretch_1b (a): {name} {dn} at the 1B training shape "
-                f"(BH={args[0].shape[0]}, T={args[0].shape[1]}, dk=80): "
-                f"max_abs_err {abs_err:.3e}, max_rel_err {rel_err:.3e}, "
-                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+            lib = "n/a (no single call computes the rel-shift fold)" \
+                if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
+            log(f"stretch_1b (a): {k} {name} {dn} at the 1B shape ({key}: "
+                f"BH={args[0].shape[0]}, T={args[0].shape[1]}, "
+                f"dk={args[0].shape[2]}"
+                + (f", M={args[1].shape[2]}" if "rot" in name else "")
+                + f"): max_abs_err {abs_err:.3e}, max_rel_err "
+                f"{rel_err:.3e}, {ms * 1e3:.1f} us, plain "
+                f"{plain_ms * 1e3:.1f} us, library (SDPA) {lib}, bound "
                 f"{bound * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
                 f"{flops / 1e9:.3f} GFLOP), tensor-core bound "
                 f"{bound_tc * 1e3:.2f} us [{card}]")
-            state["kernels"][name][f"stretch_1b_{dn}"] = dict(
+            state["kernels"][name][f"{key}_{dn}"] = dict(
                 max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                bound_tc_ms=bound_tc, library_ms=None)
+                bound_tc_ms=bound_tc, library_ms=lib_ms)
             del args, got
+            torch.cuda.empty_cache()
 
 
 def _resident_gb(trainer, tstate):
@@ -3782,35 +3914,202 @@ def _resident_gb(trainer, tstate):
     return total / 1e9
 
 
-def _stretch_compare(model, trainer, batch, dtype, names):
-    """(loss, gradients) of the kernel path and the plain path (the
-    skewed-table fold) of ``model`` at dropout 0 in ``dtype``."""
+def _stretch_config(model, config, kernels=True):
+    """Switch the 1B model, on the same weights, to configuration B (the
+    rel kernels; plain: the skewed-table fold in training, the rotated
+    fold served) or to configuration A with rotated positional dropout
+    (the rot kernels; plain: the rotated fold)."""
+    a = config == "A"
+    enc = model.encoder
+    enc.embed.pos_enc.drop_pos = not a
+    enc.table_fold = not a and not kernels
+    for layer in enc.encoders:
+        att = layer.self_attn
+        att.use_pallas = not a and kernels
+        att.rot_fold_pallas = a and kernels
+        att.rot_fold_train = a
+        att.pos_dropout_rate = layer.dropout_rate if a else 0.0
+
+
+def _stretch_steps(state, label, trainer, tstate, batch, counters, steps):
+    """``steps`` timed train steps and one profiled; returns (the state,
+    a summary, the launches of ``counters`` over the timed steps)."""
+    import torch
+    card = state["card"]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tstate, m = trainer.train_step(tstate, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        metrics.append(m)
+    launches = [c.launches for c in counters]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    resident = _resident_gb(trainer, tstate)
+    log(f"stretch_1b {label}: {steps} bf16 steps with remat of "
+        f"B={TRAIN_BATCH} x {TRAIN_SECS:g} s: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, peak "
+        f"{peak_gb:.2f} GB, parameters + moments + EMA {resident:.2f} GB; "
+        f"launches {launches} [{card}]")
+    for i, m in enumerate(metrics):
+        log(f"stretch_1b {label}: step {i} " + ", ".join(
+            f"{k} {v:.4f}" for k, v in m.items()))
+        check(all(math.isfinite(v) for v in m.values()),
+              f"stretch_1b {label}: step {i} has a non-finite metric {m}")
+    (tstate, _), prof = _profile(lambda: trainer.train_step(tstate, batch))
+    log(f"stretch_1b {label}: profiled step {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['busy_ms']:.1f} ms "
+        f"({prof['busy_ms'] / prof['wall_ms']:.1%}), {prof['ops']} device "
+        f"ops; port kernels, device ms "
+        f"{ {k: round(v, 2) for k, v in prof['kernels_ms'].items()} } "
+        f"[{card}]")
+    summary = dict(step_ms=[t * 1e3 for t in times], peak_gb=peak_gb,
+                   resident_gb=resident, busy_ms=prof["busy_ms"],
+                   profiled_ms=prof["wall_ms"], device_ops=prof["ops"],
+                   kernels_ms=prof["kernels_ms"])
+    return tstate, summary, launches
+
+
+def _stretch_gates(label, model, trainer, batch, config, counters):
+    """A dropout-0 step without SpecAugment, kernel path against plain
+    path (``_stretch_config``), in bf16 (loss) and f32 (loss, encoder
+    gradients entrywise, decoder / CTC in L2, ~0 leaves); the kernel
+    path must launch ``counters``."""
+    import torch
     from lasr_tpu_torch.modules.layers import set_compute_dtype
-    set_compute_dtype(model, dtype)
-    out = []
-    for kernels in (True, False):
-        for layer in model.encoder.encoders:
-            layer.self_attn.use_pallas = kernels
-        model.encoder.table_fold = not kernels
-        m, g = trainer.loss_and_grads(batch, 0)
-        out.append((float(m["loss_main"].detach()), g))
+    tol, names = STRETCH_TOL, trainer.names
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        set_compute_dtype(model, dtype)
+        runs = []
+        for kernels in (True, False):
+            _stretch_config(model, config, kernels)
+            for c in counters:
+                c.launches = 0
+            m, g = trainer.loss_and_grads(batch, 0)
+            runs.append((float(m["loss_main"].detach()), g,
+                         [c.launches for c in counters]))
+        (lk, gk, nk), (lp, gp, np_) = runs
+        check(all(n > 0 for n in nk) and not any(np_),
+              f"stretch_1b {label}: kernel launches {nk}, plain {np_}")
+        loss_err = abs(lk - lp) / abs(lp)
+        if dtype == torch.bfloat16:
+            log(f"stretch_1b {label}: dropout 0, bf16: loss kernel path "
+                f"{lk:.6f} vs plain path {lp:.6f} (rel {loss_err:.2e}, tol "
+                f"{tol['bf16_loss']:g}); launches {nk}")
+            check(loss_err <= tol["bf16_loss"], f"stretch_1b {label}: bf16 "
+                  f"loss differs by {loss_err}")
+            out["bf16_loss_err"] = loss_err
+            del gk, gp, runs
+            continue
+        top = max(float(g.abs().max()) for g in gp)
+        entry, l2, noise = {}, {}, {}
+        for n, a, b in zip(names, gk, gp):
+            if n.endswith(ZERO_GRADIENT_LEAVES):
+                noise[n] = max(float(a.abs().max()),
+                               float(b.abs().max())) / top
+            elif n.startswith("encoder."):
+                entry[n] = float((a - b).abs().max()) / max(
+                    float(b.abs().max()), 1e-30)
+            else:
+                l2[n] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        we, wl, wn = (max(d, key=d.get) for d in (entry, l2, noise))
+        log(f"stretch_1b {label}: dropout 0, f32: loss {lk:.6f} vs {lp:.6f} "
+            f"(rel {loss_err:.2e}, tol {tol['loss']:g}); {len(entry)} "
+            f"encoder gradients, worst entrywise {we} {entry[we]:.2e} (tol "
+            f"{tol['entry']:g}); {len(l2)} decoder/CTC gradients, worst L2 "
+            f"{wl} {l2[wl]:.2e} (tol {tol['l2']:g}); zero-gradient leaves "
+            f"at most {noise[wn]:.2e} of the largest ({wn}, tol "
+            f"{tol['noise']:g}); launches {nk}")
+        check(loss_err <= tol["loss"], f"stretch_1b {label}: f32 loss "
+              f"differs by {loss_err}")
+        check(entry[we] <= tol["entry"], f"stretch_1b {label}: gradient of "
+              f"{we} differs by {entry[we]}")
+        check(l2[wl] <= tol["l2"], f"stretch_1b {label}: gradient of {wl} "
+              f"differs by {l2[wl]} (L2)")
+        check(noise[wn] <= tol["noise"], f"stretch_1b {label}: gradient of "
+              f"{wn} is not ~0: {noise[wn]}")
+        out.update(f32_loss_err=loss_err, f32_worst_entry=entry[we],
+                   f32_worst_l2=l2[wl])
+        del gk, gp, runs
+    return out
+
+
+def _stretch_serve(model, configs, blocks, seed, card):
+    """B=8 x 10 s served (f32) through each of ``configs`` ({label: (its
+    configuration, its forward kernel's wrapper)}) against the plain
+    path, which served is the same rotated fold for both: the encoder
+    output within 1e-3, the search's 8 token steps equal, the kernel
+    launched once a block."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    model.eval()
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+    decoder = CTCAttBeamDecoder(model, beam=10, ctc_beam=15, ctc_weight=0.5)
+    wav = torch.from_numpy(make_waves(seed + 1, BATCH)).cuda()
+    wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
+                         device=wav.device)
+    steps = 8
+    out = {}
+    with torch.no_grad():
+        feats, feat_len = frontend(wav, wav_len)
+        _stretch_config(model, "B", False)
+        hs_p, hs_len_p, lpz_p = decoder.encode(feats, feat_len)
+        hyps_p = decoder.search(hs_p, hs_len_p, lpz_p, steps)
+        for label, (config, counter) in configs.items():
+            _stretch_config(model, config, True)
+            counter.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            hs, hs_len, lpz = decoder.encode(feats, feat_len)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            served = counter.launches
+            hyps = decoder.search(hs, hs_len, lpz, steps)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            enc_err = float((hs - hs_p).abs().max())
+            same = all(hyps.best_ids(b) == hyps_p.best_ids(b)
+                       for b in range(BATCH))
+            log(f"stretch_1b {label}: served B={BATCH} x {SECS:g} s "
+                f"(T={hs.shape[1]}): encode {(t2 - t1) * 1e3:.1f} ms, "
+                f"{counter.__name__} launches {served}, search of {steps} "
+                f"token steps {(t3 - t2) * 1e3:.1f} ms; encoder output vs "
+                f"plain path {enc_err:.3e} (tol 1e-3); the same hypotheses: "
+                f"{same} [{card}]")
+            check(served == blocks, f"stretch_1b {label}: "
+                  f"{counter.__name__} launched {served} times in a served "
+                  f"forward, expected {blocks}")
+            check(enc_err <= 1e-3 and torch.equal(hs_len, hs_len_p),
+                  f"stretch_1b {label}: served encoder output differs by "
+                  f"{enc_err}")
+            check(same, f"stretch_1b {label}: the search differs from the "
+                  f"plain path's")
+            out[label] = dict(encode_ms=(t2 - t1) * 1e3,
+                              search_ms=(t3 - t2) * 1e3,
+                              served_enc_err=enc_err)
     return out
 
 
 def _stretch_train(state):
-    """(b) the 1B model trained in bf16 with remat: 3 timed steps, one
-    profiled; kernel path against plain path at dropout 0 in bf16 and
-    f32; B=8 x 10 s decoded through K3, the search against the plain
-    path's."""
+    """(b) the 1B model trained in bf16 with remat in configuration B, (e)
+    the same model switched to configuration A (rotated); then, on its
+    weights at dropout 0, each configuration's kernel path against its
+    plain path in bf16 and f32, and B=8 x 10 s decoded through each."""
     import torch
-    from lasr_tpu_torch.data.frontend import DeviceFrontend
-    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
     from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
     from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
                                                   rel_attention_forward)
+    from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
+                                                  rot_attention_forward)
     from lasr_tpu_torch.utils.weights import load_model_weights
 
-    seed, card, tol = state["seed"], state["card"], STRETCH_TOL
+    seed, card = state["seed"], state["card"]
     kw = _stretch_kwargs()
     blocks = kw["encoder_num_blocks"]
     torch.manual_seed(seed)
@@ -3820,52 +4119,35 @@ def _stretch_train(state):
     trainer = _trainer(model, ["norm", "fbank:80", "specaug"], seed,
                        odim=STRETCH_ODIM)
     tstate = trainer.init_state()
-    build_s = time.perf_counter() - t0
-    batch = _stretch_batch(seed + 2, TRAIN_BATCH)
-    counters = (rel_attention_forward, rel_attention_backward)
-    for c in counters:
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    times, metrics = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        tstate, m = trainer.train_step(tstate, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        metrics.append(m)
-    fwd, bwd = (c.launches for c in counters)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    resident = _resident_gb(trainer, tstate)
     log(f"stretch_1b (b): {trainer.param_count()} parameters, built in "
-        f"{build_s:.1f} s; {TRAIN_STEPS} bf16 steps with remat of "
-        f"B={TRAIN_BATCH} x {TRAIN_SECS:g} s: "
-        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms, peak "
-        f"{peak_gb:.2f} GB, parameters + moments + EMA {resident:.2f} GB; "
-        f"K3 / K4 launches {fwd} / {bwd} [{card}]")
-    for i, m in enumerate(metrics):
-        log(f"stretch_1b (b): step {i} " + ", ".join(
-            f"{k} {v:.4f}" for k, v in m.items()))
-        check(all(math.isfinite(v) for v in m.values()),
-              f"stretch_1b: step {i} has a non-finite metric {m}")
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = _stretch_batch(seed + 2, TRAIN_BATCH)
+    rel = (rel_attention_forward, rel_attention_backward)
+    rot = (rot_attention_forward, rot_attention_backward)
+    tstate, summary, (fwd, bwd) = _stretch_steps(
+        state, "(b) configuration B", trainer, tstate, batch, rel,
+        STRETCH_STEPS_B)
     # remat runs each block's forward again in the backward
-    check(fwd == 2 * blocks * TRAIN_STEPS and bwd == blocks * TRAIN_STEPS,
+    check(fwd == 2 * blocks * STRETCH_STEPS_B
+          and bwd == blocks * STRETCH_STEPS_B,
           f"stretch_1b: K3 / K4 launched {fwd} / {bwd} times over "
-          f"{TRAIN_STEPS} steps, expected {2 * blocks} / {blocks} a step")
-    state["stretch_launches"] = {"rel_attention_fwd": fwd,
-                                 "rel_attention_bwd": bwd}
-    (tstate, _), prof = _profile(lambda: trainer.train_step(tstate, batch))
-    log(f"stretch_1b (b): profiled step {prof['wall_ms']:.1f} ms, device "
-        f"busy {prof['busy_ms']:.1f} ms "
-        f"({prof['busy_ms'] / prof['wall_ms']:.1%}), {prof['ops']} device "
-        f"ops; port kernels, device ms "
-        f"{ {k: round(v, 2) for k, v in prof['kernels_ms'].items()} } "
-        f"[{card}]")
-    summary = dict(params=trainer.param_count(), step_ms=[
-        t * 1e3 for t in times], peak_gb=peak_gb, resident_gb=resident,
-        busy_ms=prof["busy_ms"], profiled_ms=prof["wall_ms"],
-        device_ops=prof["ops"], kernels_ms=prof["kernels_ms"],
-        launches_per_step=dict(K3=fwd // TRAIN_STEPS, K4=bwd // TRAIN_STEPS))
+          f"{STRETCH_STEPS_B} steps, expected {2 * blocks} / {blocks} a step")
+    summary.update(params=trainer.param_count(),
+                   launches_per_step=dict(K3=fwd // STRETCH_STEPS_B,
+                                          K4=bwd // STRETCH_STEPS_B))
+    _stretch_config(model, "A")
+    tstate, summary_a, (fwd_a, bwd_a) = _stretch_steps(
+        state, "(e) configuration A", trainer, tstate, batch, rot,
+        STRETCH_STEPS_A)
+    check(fwd_a == 2 * blocks * STRETCH_STEPS_A
+          and bwd_a == blocks * STRETCH_STEPS_A,
+          f"stretch_1b: K1 / K2 launched {fwd_a} / {bwd_a} times over "
+          f"{STRETCH_STEPS_A} steps, expected {2 * blocks} / {blocks} a step")
+    summary_a["launches_per_step"] = dict(K1=fwd_a // STRETCH_STEPS_A,
+                                          K2=bwd_a // STRETCH_STEPS_A)
+    state["stretch_launches"] = {
+        "rel_attention_fwd": fwd, "rel_attention_bwd": bwd,
+        "rot_attention_fwd": fwd_a, "rot_attention_bwd": bwd_a}
     weights = model.state_dict()
     del tstate, trainer, model
     torch.cuda.empty_cache()
@@ -3879,90 +4161,21 @@ def _stretch_train(state):
     load_model_weights(model, weights)
     del weights
     trainer = _trainer(model, ["norm", "fbank:80"], seed, odim=STRETCH_ODIM)
-    names = trainer.names
-    (lk, _), (lp, _) = _stretch_compare(model, trainer, batch,
-                                        torch.bfloat16, names)
-    bf16_err = abs(lk - lp) / abs(lp)
-    log(f"stretch_1b (b): dropout 0, bf16: loss kernel path {lk:.6f} vs "
-        f"plain path {lp:.6f} (rel {bf16_err:.2e}, tol {tol['bf16_loss']:g})")
-    check(bf16_err <= tol["bf16_loss"], f"stretch_1b: bf16 loss differs by "
-          f"{bf16_err}")
-    (lk, gk), (lp, gp) = _stretch_compare(model, trainer, batch,
-                                          torch.float32, names)
-    loss_err = abs(lk - lp) / abs(lp)
-    top = max(float(g.abs().max()) for g in gp)
-    entry, l2, noise = {}, {}, {}
-    for n, a, b in zip(names, gk, gp):
-        if n.endswith(ZERO_GRADIENT_LEAVES):
-            noise[n] = max(float(a.abs().max()), float(b.abs().max())) / top
-        elif n.startswith("encoder."):
-            entry[n] = float((a - b).abs().max()) / max(
-                float(b.abs().max()), 1e-30)
-        else:
-            l2[n] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
-    we, wl, wn = (max(d, key=d.get) for d in (entry, l2, noise))
-    log(f"stretch_1b (b): dropout 0, f32: loss {lk:.6f} vs {lp:.6f} (rel "
-        f"{loss_err:.2e}, tol {tol['loss']:g}); {len(entry)} encoder "
-        f"gradients, worst entrywise {we} {entry[we]:.2e} (tol "
-        f"{tol['entry']:g}); {len(l2)} decoder/CTC gradients, worst L2 {wl} "
-        f"{l2[wl]:.2e} (tol {tol['l2']:g}); zero-gradient leaves at most "
-        f"{noise[wn]:.2e} of the largest ({wn}, tol {tol['noise']:g})")
-    check(loss_err <= tol["loss"], f"stretch_1b: f32 loss differs by "
-          f"{loss_err}")
-    check(entry[we] <= tol["entry"], f"stretch_1b: gradient of {we} differs "
-          f"by {entry[we]}")
-    check(l2[wl] <= tol["l2"], f"stretch_1b: gradient of {wl} differs by "
-          f"{l2[wl]} (L2)")
-    check(noise[wn] <= tol["noise"], f"stretch_1b: gradient of {wn} is not "
-          f"~0: {noise[wn]}")
-    summary.update(bf16_loss_err=bf16_err, f32_loss_err=loss_err,
-                   f32_worst_entry=entry[we], f32_worst_l2=l2[wl])
-    del gk, gp, trainer
-
-    # served: B=8 x 10 s through K3 (f32), the search against the plain
-    # path's on the same weights
-    model.eval()
-    for layer in model.encoder.encoders:
-        layer.self_attn.use_pallas = True
-    model.encoder.table_fold = False
-    frontend = DeviceFrontend(["norm", "fbank:80"])
-    decoder = CTCAttBeamDecoder(model, beam=10, ctc_beam=15, ctc_weight=0.5)
-    wav = torch.from_numpy(make_waves(seed + 1, BATCH)).cuda()
-    wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
-                         device=wav.device)
-    rel_attention_forward.launches = 0
-    with torch.no_grad():
-        feats, feat_len = frontend(wav, wav_len)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        hs, hs_len, lpz = decoder.encode(feats, feat_len)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        served = rel_attention_forward.launches
-        steps = 8
-        hyps = decoder.search(hs, hs_len, lpz, steps)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for layer in model.encoder.encoders:
-            layer.self_attn.use_pallas = False
-        hs_p, hs_len_p, lpz_p = decoder.encode(feats, feat_len)
-        hyps_p = decoder.search(hs_p, hs_len_p, lpz_p, steps)
-    enc_err = float((hs - hs_p).abs().max())
-    same = all(hyps.best_ids(b) == hyps_p.best_ids(b) for b in range(BATCH))
-    log(f"stretch_1b (b): served B={BATCH} x {SECS:g} s (T={hs.shape[1]}): "
-        f"encode {(t2 - t1) * 1e3:.1f} ms, K3 launches {served}, search of "
-        f"{steps} token steps {(t3 - t2) * 1e3:.1f} ms; encoder output vs "
-        f"plain path {enc_err:.3e} (tol 1e-3); the same hypotheses: {same} "
-        f"[{card}]")
-    check(served == blocks, f"stretch_1b: K3 launched {served} times in a "
-          f"served forward, expected {blocks}")
-    check(enc_err <= 1e-3 and torch.equal(hs_len, hs_len_p),
-          f"stretch_1b: served encoder output differs by {enc_err}")
-    check(same, "stretch_1b: the search differs from the plain path's")
-    summary.update(encode_ms=(t2 - t1) * 1e3, search_ms=(t3 - t2) * 1e3,
-                   served_enc_err=enc_err)
+    summary.update(_stretch_gates("(b) configuration B", model, trainer,
+                                  batch, "B", rel))
+    summary_a.update(_stretch_gates("(e) configuration A", model, trainer,
+                                    batch, "A", rot))
+    del trainer
+    torch.cuda.empty_cache()
+    served = _stretch_serve(model, {
+        "(b) configuration B": ("B", rel_attention_forward),
+        "(e) configuration A": ("A", rot_attention_forward)}, blocks, seed,
+        card)
+    summary.update(served["(b) configuration B"])
+    summary_a.update(served["(e) configuration A"])
+    summary["config_a"] = summary_a
     state["timings"]["stretch_1b"] = summary
-    del model, decoder, hs, hs_p
+    del model
     torch.cuda.empty_cache()
 
 

@@ -114,4 +114,27 @@ __device__ __forceinline__ void mma_split(FragC& acc, const Split<FA, 1>& a,
   mma_x1(acc, a, b);
 }
 
+// acc[i][j] += A_i·B_j^T over depth steps ks0 .. ks1-1, for the two
+// 16-row tiles A_0, A_1 at A and B_0, B_1 at B (row-major, stride ld; B
+// read as column-major fragments): each fragment loaded and split once
+// feeds two products (the wide K1 / K2's share of a score chunk).
+template <int NS>
+__device__ __forceinline__ void mma_2x2_nt(FragC (&acc)[2][2],
+                                           const float* A, const float* B,
+                                           unsigned ld, int ks0, int ks1) {
+  for (int ks = ks0; ks < ks1; ++ks) {
+    Split<FragA<wmma::row_major>, NS> a[2];
+    Split<FragB<wmma::col_major>, NS> b[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      load_split(a[i], A + i * TM * ld + ks * TK, ld);
+      load_split(b[i], B + i * TN * ld + ks * TK, ld);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mma_split(acc[i][j], a[i], b[j]);
+  }
+}
+
 }  // namespace lasr_mma

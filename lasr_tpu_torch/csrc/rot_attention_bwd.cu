@@ -58,12 +58,35 @@
 //    registers, 16 loads in flight per thread).  At dk=40, M=320: 173 KB
 //    of dynamic shared memory in f32, 146 KB in bf16
 //    (cudaFuncSetAttribute); one buffer where that does not fit.
+//  - wide form (dk > 64, or a [q_u ; u] row too wide for the tiles above:
+//    385 KB at the 1B config's dk = 80, M = 1280), a template branch of
+//    its own, so dk <= 64 at the recipe's M compiles as before:
+//      key pass: S's depth streams in chunks of DC = 128 columns, as in
+//        the forward's wide form: step (query tile t, chunk c) copies
+//        chunk c of the query tile's [q_u ; u] rows and of the block's
+//        [k ; V] rows through a ring of NST = 3 stages, NST - 1 steps
+//        ahead; each warp sums its 2 x 2 S fragments over its eighth of
+//        each chunk's depth in registers.  A tile's chunks run last to
+//        first, so chunk 0, which holds q_u, is in place for dk += dz^T
+//        q_u; dout, lse and delta land with it.  dP = dout·v^T: warp w
+//        one 16 x 16 tile over half of dk's depth.  A warp owns up to two
+//        (key tile, dk column tile) positions of dk and of dv (2 x 8 at
+//        dk = 128).  It writes each tile pair's dz (f32) once, into a
+//        (BH, T32, T32) scratch (T32 = T rounded up to 32: 354 MB at
+//        the 1B training shape);
+//      query pass: [dq_u ; du] = dz·[k ; V], a plain product: the dz
+//        tiles and the key tile's columns of the block's 384-column chunk
+//        stream through two buffers; nothing is recomputed.
+//    Both passes still own what they write: no atomics, bitwise
+//    repeatable.  215,808 B of shared memory (the key pass) at dk = 128
+//    in f32, 188,160 B in bf16; the query pass 108,544 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "mma_tf32.cuh"
@@ -78,12 +101,17 @@ constexpr int BQ = 32;        // query rows per tile
 constexpr int BK = 32;        // keys per tile
 constexpr int THREADS = 32 * NWARPS;
 constexpr int LS = BK + 4;    // row stride of the S / dP / P / dz tiles
-constexpr int DK_MAX = 64;
+constexpr int DK_NARROW = 64;
+constexpr int DK_MAX = 128;   // wide form
+constexpr int DC = 128;       // wide form: columns of a depth chunk
+constexpr int LC = DC + 4;    // its row stride
+constexpr int NST = 3;        // its ring's stages
 // query pass: 2 row tiles x 4 column groups of warps; a block sums one
 // chunk of CHUNK_CT column tiles of [dq_u ; du], ACC per warp
 constexpr int NCG = NWARPS / (BQ / TM);
 constexpr int ACC = 6;
 constexpr int CHUNK_CT = NCG * ACC;
+constexpr int LKC = CHUNK_CT * TN + 4;  // wide query pass: its key tile
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -116,6 +144,8 @@ struct Dims {
   int NDS;      // depth steps of dP: ceil(dk / 8)
   int H0;       // S depth steps of warps 0-3
   int NCT;      // EP / 16 column tiles of [dq_u ; du]
+  int NC;       // wide form: depth chunks of S, ceil(E / DC)
+  int TP;       // wide form: T rounded up to 32, the dz scratch's rows
   int NBUF;     // f32 buffers of the streamed tile: 2, or 1 (see launch)
   int chunk;    // elements per cp.async copy of a tile; 0: registers
   int raw;      // bf16 tiles are staged raw and widened in shared memory
@@ -496,16 +526,376 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------- wide form
+
+// Key pass: a ring of NST f32 stages (bf16: one, fs = 0), each a query
+// chunk (BQ x LC), a key chunk (BK x LC) and a dout tile (BQ x LD); NST
+// lse / delta rows; the resident v tile; the NWARPS S partials (then P in
+// partial 0 and dz in partial 1) and two dP partials; NST raw bf16
+// stages.
+struct WideKeySmem {
+  float* F;           // f32 stage 0
+  int fs;             // floats from one f32 stage to the next
+  float *L, *Dl;      // NST rows of lse, delta
+  float *V, *S, *DP;
+  __nv_bfloat16* R;   // raw stage 0
+};
+
+__host__ __device__ __forceinline__ int key_stage(const Dims& D) {
+  return (BQ + BK) * LC + BQ * D.LD;
+}
+__host__ __device__ __forceinline__ int key_raw_stage(const Dims& D) {
+  return (BQ + BK) * DC + BQ * D.DKP;
+}
+
+__host__ __device__ __forceinline__ size_t wide_key_smem_bytes(
+    const Dims& D, bool f32) {
+  const size_t floats = (size_t)(f32 ? NST : 1) * key_stage(D) +
+                        2 * NST * BQ + (size_t)BK * D.LD +
+                        (NWARPS + 2) * (size_t)BQ * LS;
+  return 4 * floats + (D.raw ? 2 * (size_t)NST * key_raw_stage(D) : 0);
+}
+
+__device__ __forceinline__ WideKeySmem carve_key(float* p, const Dims& D,
+                                                 bool f32) {
+  WideKeySmem s;
+  s.F = p;
+  s.fs = f32 ? key_stage(D) : 0;
+  p += (f32 ? NST : 1) * key_stage(D);
+  s.L = p;
+  s.Dl = s.L + NST * BQ;
+  s.V = s.Dl + NST * BQ;
+  s.S = s.V + BK * D.LD;
+  s.DP = s.S + NWARPS * BQ * LS;
+  s.R = reinterpret_cast<__nv_bfloat16*>(s.DP + 2 * BQ * LS);
+  return s;
+}
+
+// Query pass: two f32 buffers of the key tile's chunk columns (BK x LKC;
+// bf16: one, and a raw one beside them) and two of the dz tile.
+__host__ __device__ __forceinline__ size_t wide_query_smem_bytes(
+    const Dims& D, bool f32) {
+  const size_t floats = (size_t)(f32 ? 2 : 1) * BK * LKC + 2 * BQ * LS;
+  return 4 * floats + (D.raw ? 2 * (size_t)BK * (LKC - 4) : 0);
+}
+
+// The columns of depth chunk c: DC, the last one's rounded up to 8.
+__device__ __forceinline__ int chunk_width(const Dims& D, int c) {
+  return min(DC, (D.E - c * DC + 7) / 8 * 8);
+}
+
+// Each element of the tile pair from the NWARPS S partials and the two dP
+// partials: P into partial 0, dz into partial 1 (each thread reads and
+// writes only its own elements).
+__device__ __forceinline__ void softmax_wide(float* S, const float* DP,
+                                             const float* L, const float* Dl,
+                                             int k0, int kvl, int nrows,
+                                             float scale) {
+  for (int idx = threadIdx.x; idx < BQ * BK; idx += THREADS) {
+    const int i = idx / BK, j = idx % BK;
+    const int o = i * LS + j;
+    float x = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) x += S[w * BQ * LS + o];
+    const float p =
+        k0 + j < kvl && i < nrows ? expf(x * scale - L[i]) : 0.f;
+    S[o] = p;
+    S[BQ * LS + o] = p * (DP[o] + DP[BQ * LS + o] - Dl[i]) * scale;
+  }
+}
+
+// Key pass: one block per (key tile, bh); dk and dv of its 32 keys, and
+// the dz of each of its tile pairs into the scratch.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    rot_bwd_dkdv_wide_kernel(const T* __restrict__ qu,
+                             const T* __restrict__ u,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ vt,
+                             const int* __restrict__ kv_len,
+                             const float* __restrict__ lse,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk_, T* __restrict__ dv_,
+                             float* __restrict__ dz, Dims D) {
+  constexpr int NS = SplitsFor<T>::value;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(128) float smem[];
+  const WideKeySmem sm = carve_key(smem, D, f32);
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int warp = threadIdx.x >> 5;
+  const size_t base = (size_t)bh * D.T;
+  const int kvl = max(0, min(kv_len[bh], D.T));
+  // warp w owns positions w + NWARPS s (s < 2) of the 2 x ndt tiles
+  // (kt, dt) of dv and of dk
+  const int ndt = D.DKP / TN, npos = (BK / TM) * ndt;
+  FragC adv[2], adk[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    wmma::fill_fragment(adv[s], 0.f);
+    wmma::fill_fragment(adk[s], 0.f);
+  }
+  if (k0 < kvl) {
+    const int ntiles = (D.T + BQ - 1) / BQ, nsteps = ntiles * D.NC;
+    const Src<T> qn{dout + base * D.dk, dout, D.dk, 0, D.T, D.DKP, D.LD};
+    const Src<T> kn{v + base * D.dk, v, D.dk, 0, kvl, D.DKP, D.LD};
+    auto qc = [&](int c) {
+      return Cols<T>{qu + base * D.dk, u + base * D.M, D.dk, D.M, D.T,
+                     c * DC, chunk_width(D, c), LC};
+    };
+    auto kc = [&](int c) {
+      return Cols<T>{k + base * D.dk, vt, D.dk, D.M, kvl, c * DC,
+                     chunk_width(D, c), LC};
+    };
+    auto fq = [&](int st) { return sm.F + st * sm.fs; };
+    auto rq = [&](int st) { return sm.R + st * key_raw_stage(D); };
+    // step s = (query tile t, chunk c), a tile's chunks last to first
+    auto issue_step = [&](int s) {
+      if (s < nsteps) {
+        const int t = s / D.NC, c = D.NC - 1 - (s - t * D.NC);
+        const int st = s % NST;
+        issue_cols<BQ>(qc(c), t * BQ, fq(st), rq(st), D);
+        issue_cols<BK>(kc(c), k0, fq(st) + BQ * LC, rq(st) + BQ * DC, D);
+        if (c == 0) {
+          issue<BQ>(qn, t * BQ, fq(st) + (BQ + BK) * LC,
+                    rq(st) + (BQ + BK) * DC, D);
+          fetch_row_stats(lse, delta, base, t * BQ, D.T, sm.L + st * BQ,
+                          sm.Dl + st * BQ);
+        }
+      }
+      cp_async_commit();
+    };
+
+    load_resident<BK>(kn, k0, sm.V, D);
+    for (int s = 0; s < NST - 1; ++s) issue_step(s);
+    FragC acc[2][2];
+    for (int s = 0; s < nsteps; ++s) {
+      const int t = s / D.NC, c = D.NC - 1 - (s - t * D.NC), st = s % NST;
+      const int q0 = t * BQ;
+      float* Qc = fq(st);
+      float* Kc = Qc + BQ * LC;
+      float* DOc = Kc + BK * LC;
+      cp_async_wait(NST - 2);
+      __syncthreads();  // step s has landed; step s-1's readers are done
+      if constexpr (!f32) {
+        land_cols<BQ>(qc(c), q0, Qc, rq(st), D);
+        land_cols<BK>(kc(c), k0, Kc, rq(st) + BQ * DC, D);
+        if (c == 0) land<BQ>(qn, q0, DOc, rq(st) + (BQ + BK) * DC, D);
+        __syncthreads();
+      }
+      issue_step(s + NST - 1);
+      if (c == D.NC - 1) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+      }
+      // warp w: all four tiles over its eighth of the chunk's depth steps
+      const int nks = chunk_width(D, c) / TK;
+      mma_2x2_nt<NS>(acc, Qc, Kc, LC, warp * nks / NWARPS,
+                     (warp + 1) * nks / NWARPS);
+      if (c > 0) continue;
+      // the tile's last step: dP, then P and dz, then dv, dk and the
+      // scratch
+      {
+        const int half = warp >> 2, rt = (warp >> 1) & 1, ct = warp & 1;
+        const int k1 = half ? D.NDS : D.NDS / 2;
+        FragC dp;
+        wmma::fill_fragment(dp, 0.f);
+        for (int ks = half ? D.NDS / 2 : 0; ks < k1; ++ks) {
+          Split<FragA<RowMajor>, NS> a;
+          Split<FragB<ColMajor>, NS> b;
+          load_split(a, DOc + rt * TM * D.LD + ks * TK, D.LD);
+          load_split(b, sm.V + ct * TN * D.LD + ks * TK, D.LD);
+          mma_split(dp, a, b);
+        }
+        wmma::store_matrix_sync(sm.DP + half * BQ * LS + rt * TM * LS +
+                                    ct * TN,
+                                dp, LS, wmma::mem_row_major);
+        float* sp = sm.S + warp * BQ * LS;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::store_matrix_sync(sp + i * TM * LS + j * TN, acc[i][j], LS,
+                                    wmma::mem_row_major);
+      }
+      __syncthreads();
+      softmax_wide(sm.S, sm.DP, sm.L + st * BQ, sm.Dl + st * BQ, k0, kvl,
+                   D.T - q0, D.scale);
+      __syncthreads();
+      const float* P = sm.S;
+      const float* Z = sm.S + BQ * LS;
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        const int pos = warp + NWARPS * s2;
+        if (pos >= npos) continue;
+        const int kt = pos / ndt, dt = pos % ndt;
+        // dv += P^T·dout, dk += dz^T·q_u over the tile's 32 query rows
+#pragma unroll
+        for (int ks = 0; ks < BQ / TK; ++ks) {
+          Split<FragA<ColMajor>, NS> pf, zf;
+          Split<FragB<RowMajor>, NS> g, q;
+          load_split(pf, P + ks * TK * LS + kt * TM, LS);
+          load_split(zf, Z + ks * TK * LS + kt * TM, LS);
+          load_split(g, DOc + ks * TK * D.LD + dt * TN, D.LD);
+          load_split(q, Qc + ks * TK * LC + dt * TN, LC);
+          mma_split(adv[s2], pf, g);
+          mma_split(adk[s2], zf, q);
+        }
+      }
+      // the tile pair's dz, once (rows past T are zeros)
+      {
+        const int i = threadIdx.x >> 3, j = (threadIdx.x & 7) * 4;
+        *reinterpret_cast<float4*>(
+            dz + ((size_t)bh * D.TP + q0 + i) * D.TP + k0 + j) =
+            *reinterpret_cast<const float4*>(Z + i * LS + j);
+      }
+    }
+  }
+  cp_async_wait(0);
+  __syncthreads();
+  float* sdv = sm.F;
+  float* sdk = sm.F + BK * D.LD;
+#pragma unroll
+  for (int s2 = 0; s2 < 2; ++s2) {
+    const int pos = warp + NWARPS * s2;
+    if (pos >= npos) continue;
+    const int kt = pos / ndt, dt = pos % ndt;
+    wmma::store_matrix_sync(sdv + kt * TM * D.LD + dt * TN, adv[s2], D.LD,
+                            wmma::mem_row_major);
+    wmma::store_matrix_sync(sdk + kt * TM * D.LD + dt * TN, adk[s2], D.LD,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BK * D.dk; idx += THREADS) {
+    const int r = idx / D.dk, d = idx - r * D.dk, key = k0 + r;
+    if (key >= D.T) continue;
+    dv_[(base + key) * D.dk + d] = from_f32<T>(sdv[r * D.LD + d]);
+    dk_[(base + key) * D.dk + d] = from_f32<T>(sdk[r * D.LD + d]);
+  }
+}
+
+// The dz tile of rows q0.. and keys k0.. from the scratch (f32, 16-byte
+// copies: one a thread).
+__device__ __forceinline__ void copy_dz(const float* dz, size_t row0,
+                                        int TP, int k0, float* s) {
+  const int r = threadIdx.x >> 3, e = (threadIdx.x & 7) * 4;
+  cp_async16(s + r * LS + e, dz + (row0 + r) * TP + k0 + e, true);
+}
+
+// Query pass: one block per (query tile, bh, column chunk); dq_u and du of
+// its 32 rows in that chunk, [dq_u ; du] = dz·[k ; V] over the keys.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    rot_bwd_dq_wide_kernel(const T* __restrict__ k, const T* __restrict__ vt,
+                           const int* __restrict__ kv_len,
+                           const float* __restrict__ dz,
+                           T* __restrict__ dqu_, T* __restrict__ du_,
+                           Dims D) {
+  constexpr int NS = SplitsFor<T>::value;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(128) float smem[];
+  float* K0 = smem;
+  float* K1 = smem + (f32 ? BK * LKC : 0);
+  float* Zb = smem + (f32 ? 2 : 1) * BK * LKC;
+  void* raw = Zb + 2 * BQ * LS;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int ct0 = blockIdx.z * CHUNK_CT;
+  const int ct1 = min(D.NCT, ct0 + CHUNK_CT);
+  const int warp = threadIdx.x >> 5;
+  // warp w owns row tile w & 1 and column tiles ct0 + (w >> 1) + NCG * i
+  const int rt = warp & 1, cg = warp >> 1;
+  const size_t base = (size_t)bh * D.T;
+  const size_t zrow = (size_t)bh * D.TP + q0;
+  const int kvl = max(0, min(kv_len[bh], D.T));
+  const Cols<T> kc{k + base * D.dk, vt, D.dk, D.M, kvl, ct0 * TN,
+                   (ct1 - ct0) * TN, LKC};
+  // prefetch: the next tile's copies run while this one is computed
+  const bool pre = f32 || D.raw != 0;
+  const int ntiles = (kvl + BK - 1) / BK;
+
+  if (ntiles > 0) {
+    issue_cols<BK>(kc, 0, K0, raw, D);
+    copy_dz(dz, zrow, D.TP, 0, Zb);
+  }
+  cp_async_commit();
+
+  FragC acc[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) wmma::fill_fragment(acc[i], 0.f);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    float* Kc = (t & 1) ? K1 : K0;
+    float* Zc = Zb + (t & 1) * BQ * LS;
+    if (!pre && t > 0) {
+      __syncthreads();  // the previous step's readers are done
+      copy_dz(dz, zrow, D.TP, k0, Zc);
+      cp_async_commit();
+    }
+    cp_async_wait(0);
+    __syncthreads();  // tile t has landed; step t-1's readers are done
+    if constexpr (!f32) {
+      land_cols<BK>(kc, k0, Kc, raw, D);
+      __syncthreads();
+    }
+    if (pre && t + 1 < ntiles) {
+      issue_cols<BK>(kc, k0 + BK, (t & 1) ? K0 : K1, raw, D);
+      copy_dz(dz, zrow, D.TP, k0 + BK, Zb + ((t + 1) & 1) * BQ * LS);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int ks = 0; ks < BK / TK; ++ks) {
+      Split<FragA<RowMajor>, NS> z;
+      load_split(z, Zc + rt * TM * LS + ks * TK, LS);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        const int ct = cg + NCG * i;
+        if (ct0 + ct < ct1) {
+          Split<FragB<RowMajor>, NS> kf;
+          load_split(kf, Kc + ks * TK * LKC + ct * TN, LKC);
+          mma_split(acc[i], z, kf);
+        }
+      }
+    }
+  }
+  cp_async_wait(0);
+  __syncthreads();
+  // written once: fragments -> the first key buffer -> the outputs
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) {
+    const int ct = cg + NCG * i;
+    if (ct0 + ct < ct1)
+      wmma::store_matrix_sync(K0 + rt * TM * LKC + ct * TN, acc[i], LKC,
+                              wmma::mem_row_major);
+  }
+  __syncthreads();
+  const int e0 = ct0 * TN, w = min(D.E, ct1 * TN) - e0;
+  for (int idx = threadIdx.x; idx < BQ * w; idx += THREADS) {
+    const int r = idx / w, e = idx - r * w, row = q0 + r;
+    if (row >= D.T) continue;
+    const float a = K0[r * LKC + e];
+    if (e0 + e < D.dk)
+      dqu_[(base + row) * D.dk + e0 + e] = from_f32<T>(a);
+    else
+      du_[(base + row) * D.M + (e0 + e - D.dk)] = from_f32<T>(a);
+  }
+}
+
 bool aligned(const void* p, uintptr_t n) {
   return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 int launch(const void* qu, const void* u, const void* k, const void* v,
            const void* vt, const int* kv_len, const void* out,
            const float* lse, const void* dout, float* delta, void* dqu,
-           void* du, void* dk_, void* dv_, int BH, int T_, int dk, int M,
-           cudaStream_t stream) {
+           void* du, void* dk_, void* dv_, float* dz, int BH, int T_, int dk,
+           int M, cudaStream_t stream) {
   Dims D;
   D.T = T_;
   D.dk = dk;
@@ -519,6 +909,8 @@ int launch(const void* qu, const void* u, const void* k, const void* v,
   D.NDS = (dk + 7) / 8;
   D.H0 = min(D.NKS, (D.NKS + D.NDS + 1) / 2);
   D.NCT = D.EP / 16;
+  D.NC = (D.E + DC - 1) / DC;
+  D.TP = (T_ + 31) / 32 * 32;
   D.scale = 1.0f / sqrtf((float)dk);
   // cp.async copies: 16 bytes where every width and base allows, else 4
   // bytes (bf16 pairs); bf16 of odd width goes through registers
@@ -541,13 +933,19 @@ int launch(const void* qu, const void* u, const void* k, const void* v,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   // f32 double-buffers the streamed tile, bf16 stages it raw; where that
-  // does not fit, one buffer loaded at the top of each step
+  // does not fit, one buffer loaded at the top of each step (the wide
+  // form: bf16 through registers)
   D.NBUF = f32 ? 2 : 1;
-  if (smem_bytes(D) > (size_t)smem_max) {
+  auto bytes = [&](bool query) {
+    return WIDE ? (query ? wide_query_smem_bytes(D, f32)
+                         : wide_key_smem_bytes(D, f32))
+                : smem_bytes(D);
+  };
+  if (std::max(bytes(false), bytes(true)) > (size_t)smem_max) {
     D.NBUF = 1;
     if (!f32) D.chunk = D.raw = 0;
   }
-  const size_t smem = smem_bytes(D);
+  const size_t smem = bytes(false), smem_q = bytes(true);
 
   const T* q = static_cast<const T*>(qu);
   const T* uu = static_cast<const T*>(u);
@@ -562,46 +960,92 @@ int launch(const void* qu, const void* u, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(rot_bwd_dkdv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rot_bwd_dq_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid_k((T_ + BK - 1) / BK, BH);
-  rot_bwd_dkdv_kernel<T><<<grid_k, THREADS, smem, stream>>>(
-      q, uu, kk, vv, tt, kv_len, lse, g, delta, static_cast<T*>(dk_),
-      static_cast<T*>(dv_), D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((T_ + BQ - 1) / BQ, BH,
                     (D.NCT + CHUNK_CT - 1) / CHUNK_CT);
-  rot_bwd_dq_kernel<T><<<grid_q, THREADS, smem, stream>>>(
-      q, uu, kk, vv, tt, kv_len, lse, g, delta, static_cast<T*>(dqu),
-      static_cast<T*>(du), D);
-  return (int)cudaGetLastError();
+  if constexpr (WIDE) {
+    err = cudaFuncSetAttribute(rot_bwd_dkdv_wide_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(rot_bwd_dq_wide_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_q);
+    if (err != cudaSuccess) return (int)err;
+    rot_bwd_dkdv_wide_kernel<T><<<grid_k, THREADS, smem, stream>>>(
+        q, uu, kk, vv, tt, kv_len, lse, g, delta, static_cast<T*>(dk_),
+        static_cast<T*>(dv_), dz, D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    rot_bwd_dq_wide_kernel<T><<<grid_q, THREADS, smem_q, stream>>>(
+        kk, tt, kv_len, dz, static_cast<T*>(dqu), static_cast<T*>(du), D);
+    return (int)cudaGetLastError();
+  } else {
+    err = cudaFuncSetAttribute(rot_bwd_dkdv_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(rot_bwd_dq_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rot_bwd_dkdv_kernel<T><<<grid_k, THREADS, smem, stream>>>(
+        q, uu, kk, vv, tt, kv_len, lse, g, delta, static_cast<T*>(dk_),
+        static_cast<T*>(dv_), D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    rot_bwd_dq_kernel<T><<<grid_q, THREADS, smem, stream>>>(
+        q, uu, kk, vv, tt, kv_len, lse, g, delta, static_cast<T*>(dqu),
+        static_cast<T*>(du), D);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <bool WIDE>
+int entry(const void* qu, const void* u, const void* k, const void* v,
+          const void* vt, const void* kv_len, const void* out,
+          const void* lse, const void* dout, void* delta, void* dqu, void* du,
+          void* dk, void* dv, void* dz, int BH, int T_, int dk_dim, int M,
+          int is_bf16, void* stream) {
+  if (dk_dim < 1 || dk_dim > (WIDE ? DK_MAX : DK_NARROW) || M < 0 ||
+      T_ < 1 || BH < 1 || (WIDE && dz == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int* kl = static_cast<const int*>(kv_len);
+  const float* ls = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  float* z = static_cast<float*>(dz);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, WIDE>(qu, u, k, v, vt, kl, out, ls, dout,
+                                       dl, dqu, du, dk, dv, z, BH, T_, dk_dim,
+                                       M, st);
+  return launch<float, WIDE>(qu, u, k, v, vt, kl, out, ls, dout, dl, dqu, du,
+                             dk, dv, z, BH, T_, dk_dim, M, st);
 }
 
 }  // namespace
 
 // Returns a cudaError_t code: 0 when every launch was accepted.  `delta`
-// is f32 scratch of BH*T entries.
+// is f32 scratch of BH*T entries.  The narrow form: dk <= 64 and a
+// [q_u ; u] row whose tiles fit a block.
 extern "C" int lasr_rot_attention_bwd(
     const void* qu, const void* u, const void* k, const void* v,
     const void* vt, const void* kv_len, const void* out, const void* lse,
     const void* dout, void* delta, void* dqu, void* du, void* dk, void* dv,
     int BH, int T_, int dk_dim, int M, int is_bf16, void* stream) {
-  if (dk_dim < 1 || dk_dim > DK_MAX || M < 0 || T_ < 1 || BH < 1)
-    return (int)cudaErrorInvalidValue;
-  const int* kl = static_cast<const int*>(kv_len);
-  const float* ls = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(qu, u, k, v, vt, kl, out, ls, dout, dl, dqu,
-                                 du, dk, dv, BH, T_, dk_dim, M, st);
-  return launch<float>(qu, u, k, v, vt, kl, out, ls, dout, dl, dqu, du, dk,
-                       dv, BH, T_, dk_dim, M, st);
+  return entry<false>(qu, u, k, v, vt, kv_len, out, lse, dout, delta, dqu,
+                      du, dk, dv, nullptr, BH, T_, dk_dim, M, is_bf16,
+                      stream);
+}
+
+// The wide form: dk <= 128, any M (the caller picks the form:
+// ops/rot_attention.py, rot_kernel_wide); `dz` is f32 scratch of BH *
+// T32 * T32 entries, T32 = T rounded up to 32.
+extern "C" int lasr_rot_attention_bwd_wide(
+    const void* qu, const void* u, const void* k, const void* v,
+    const void* vt, const void* kv_len, const void* out, const void* lse,
+    const void* dout, void* delta, void* dqu, void* du, void* dk, void* dv,
+    void* dz, int BH, int T_, int dk_dim, int M, int is_bf16, void* stream) {
+  return entry<true>(qu, u, k, v, vt, kv_len, out, lse, dout, delta, dqu, du,
+                     dk, dv, dz, BH, T_, dk_dim, M, is_bf16, stream);
 }

@@ -297,4 +297,78 @@ __device__ __forceinline__ void land(const Src<T>& src, int r0, float* s,
   }
 }
 
+// Column chunks of a wide tile (K1 / K2's wide form, where a row of
+// [q_u ; u] does not fit a block): columns c0 .. c0+width-1 of rows r0 ..
+// r0+R-1 of [a | b], a wa wide and b wb wide (row strides wa, wb), zero
+// before row 0, at or past row rmax and at or past column wa+wb; the f32
+// tile's row stride is ld (a raw bf16 tile's is width).  The pieces of a
+// tile are dealt over all 32 NW threads (Walk).
+template <typename T>
+struct Cols {
+  const T* a;
+  const T* b;
+  int wa, wb, rmax, c0, width, ld;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* col_ptr(const Cols<T>& src, int row,
+                                            int col) {
+  return col < src.wa ? src.a + (size_t)row * src.wa + col
+                      : src.b + (size_t)row * src.wb + (col - src.wa);
+}
+
+// By cp.async into s (element type T, row stride ld), `chunk` elements a
+// copy (16 or 4 bytes; wa, wb, c0 and the bases multiples of it).
+template <int R, typename T, int NW = NWARPS>
+__device__ __forceinline__ void copy_cols(const Cols<T>& src, int r0, T* s,
+                                          int ld, int chunk) {
+  const int w = src.wa + src.wb;
+  const bool wide = chunk * (int)sizeof(T) == 16;
+  for (Walk<NW> at(src.width / chunk); at.r < R; at.next()) {
+    const int e = at.c * chunk, row = r0 + at.r, col = src.c0 + e;
+    const bool ok = (unsigned)row < (unsigned)src.rmax && col < w;
+    const T* p = ok ? col_ptr(src, row, col) : src.a;
+    if (wide)
+      cp_async16(s + at.r * ld + e, p, ok);
+    else
+      cp_async4(s + at.r * ld + e, p, ok);
+  }
+}
+
+// Through registers into the f32 tile s (bf16 of odd width).
+template <int R, typename T, int NW = NWARPS>
+__device__ __forceinline__ void load_cols(const Cols<T>& src, int r0,
+                                          float* s) {
+  const int w = src.wa + src.wb;
+  for (Walk<NW> at(src.width); at.r < R; at.next()) {
+    const int row = r0 + at.r, col = src.c0 + at.c;
+    const bool ok = (unsigned)row < (unsigned)src.rmax && col < w;
+    s[at.r * src.ld + at.c] = ok ? load_f32(col_ptr(src, row, col)) : 0.f;
+  }
+}
+
+// issue / land for a column chunk, by the routes of issue / land above.
+template <int R, typename T, typename Dims, int NW = NWARPS>
+__device__ __forceinline__ void issue_cols(const Cols<T>& src, int r0,
+                                           float* s, void* raw,
+                                           const Dims& D) {
+  if constexpr (std::is_same<T, float>::value)
+    copy_cols<R, T, NW>(src, r0, s, src.ld, D.chunk);
+  else if (D.raw)
+    copy_cols<R, T, NW>(src, r0, static_cast<T*>(raw), src.width, D.chunk);
+}
+
+template <int R, typename T, typename Dims, int NW = NWARPS>
+__device__ __forceinline__ void land_cols(const Cols<T>& src, int r0,
+                                          float* s, const void* raw,
+                                          const Dims& D) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (D.raw)
+      widen_rows<R, NW>(static_cast<const __nv_bfloat16*>(raw), src.width, s,
+                        src.ld);
+    else
+      load_cols<R, T, NW>(src, r0, s);
+  }
+}
+
 }  // namespace lasr_tile

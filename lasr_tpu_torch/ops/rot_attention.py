@@ -10,10 +10,12 @@ score tensor never reaches device memory; the backward kernel
 (``csrc/rot_attention_bwd.cu``) recomputes the probabilities from the
 forward's ``lse``.  ``rot_attention_context`` pairs them in a
 ``torch.autograd.Function``, as the JAX package's ``custom_vjp`` does.
-The kernels take dk <= 64 and a ``[q_u ; u]`` row of dk + M that, with
-their other tiles, fits one block's shared memory; elsewhere (the 1B
-config: dk = 80, M = 1280) they raise ``NotImplementedError`` before any
-launch (``check_rot_kernel_shape``; ROADMAP B).
+Each kernel has two forms: the narrow one keeps a block's 32 rows of
+``[q_u ; u]`` resident and takes dk <= 64 where its tiles fit a block's
+shared memory (the recipe: dk = 40, M = 320); the wide one streams S's
+depth in chunks of 128 columns and takes any dk <= 128 and any M (the 1B
+config: dk = 80, M = 1280).  ``rot_kernel_wide`` picks the form; dk > 128
+raises ``ValueError`` before any launch (``check_rot_kernel_shape``).
 """
 
 from __future__ import annotations
@@ -100,8 +102,10 @@ def rot_attention_backward_reference(q_u, u, k, v, vt, kv_len, out, lse,
             (p.transpose(1, 2) @ dout.float()).to(v.dtype))
 
 
-# the widest head the kernels take (csrc/rot_attention*.cu's DK_MAX)
-ROT_DK_MAX = 64
+# the widest head the kernels take (csrc/rot_attention*.cu's DK_MAX), and
+# the narrow form's (DK_NARROW)
+ROT_DK_MAX = 128
+ROT_DK_NARROW = 64
 # an H100's shared memory for one block
 # (cudaDevAttrMaxSharedMemoryPerBlockOptin)
 SMEM_PER_BLOCK = 232448
@@ -111,10 +115,11 @@ def _ceil16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def rot_kernel_smem_bytes(dk: int, M: int, backward: bool) -> int:
-    """The least dynamic shared memory of a K1 (forward) or K2 (backward)
-    block: one buffer of the streamed tile, tiles through registers (the
-    kernels' fallback; ``smem_bytes`` of csrc/rot_attention*.cu)."""
+def _narrow_smem_bytes(dk: int, M: int, backward: bool) -> int:
+    """The least dynamic shared memory of a narrow K1 (forward) or K2
+    (backward) block: one buffer of the streamed tile, tiles through
+    registers (the kernels' fallback; ``smem_bytes`` of
+    csrc/rot_attention*.cu)."""
     BQ = BK = 32
     LS = BK + 4
     LQ, LD = _ceil16(dk + M) + 4, _ceil16(dk) + 4
@@ -125,21 +130,54 @@ def rot_kernel_smem_bytes(dk: int, M: int, backward: bool) -> int:
     return 4 * floats
 
 
+def _wide_smem_bytes(dk: int, backward: bool) -> int:
+    """A wide block's dynamic shared memory in f32 (bf16 takes less),
+    whatever M: ``wide_smem_bytes`` of csrc/rot_attention.cu, the larger
+    of ``wide_key_smem_bytes`` / ``wide_query_smem_bytes`` of
+    csrc/rot_attention_bwd.cu."""
+    BQ = BK = 32
+    LS, LC, NST, NWARPS = BK + 4, 128 + 4, 3, 8
+    LD = _ceil16(dk) + 4
+    if backward:
+        key = NST * ((BQ + BK) * LC + BQ * LD) + 2 * NST * BQ + BK * LD \
+            + (NWARPS + 2) * BQ * LS
+        query = 2 * BK * (24 * 16 + 4) + 2 * BQ * LS
+        return 4 * max(key, query)
+    return 4 * (NST * ((BQ + BK) * LC + BK * LD) + (NWARPS + 1) * BQ * LS
+                + 2 * BQ)
+
+
+def rot_kernel_wide(dk: int, M: int, backward: bool,
+                    smem_limit: int = SMEM_PER_BLOCK) -> bool:
+    """True where K1 (forward) / K2 (backward) take their wide form: dk >
+    64, or narrow tiles that do not fit ``smem_limit`` bytes (at the 1B
+    config's dk = 80, M = 1280 a narrow K1 block needs 412 KB)."""
+    return dk > ROT_DK_NARROW \
+        or _narrow_smem_bytes(dk, M, backward) > smem_limit
+
+
+def rot_kernel_smem_bytes(dk: int, M: int, backward: bool,
+                          smem_limit: int = SMEM_PER_BLOCK) -> int:
+    """The least dynamic shared memory of the K1 / K2 block that runs at
+    (dk, M): the narrow form's, or the wide form's (which does not grow
+    with M)."""
+    if rot_kernel_wide(dk, M, backward, smem_limit):
+        return _wide_smem_bytes(dk, backward)
+    return _narrow_smem_bytes(dk, M, backward)
+
+
 def check_rot_kernel_shape(name: str, dk: int, M: int, backward: bool,
                            smem_limit: int = SMEM_PER_BLOCK) -> None:
-    """Before a K1 / K2 launch: raise ``NotImplementedError`` (naming
-    ROADMAP B) where the kernel cannot run, for dk > 64 or tiles that
-    do not fit ``smem_limit`` bytes of shared memory."""
+    """Before a K1 / K2 launch: raise ``ValueError`` for dk > 128, or for a
+    card whose ``smem_limit`` bytes of shared memory a block cannot hold
+    the wide form's tiles (never on an H100: at most 215,808 B)."""
     if dk > ROT_DK_MAX:
-        raise NotImplementedError(
-            f"{name}: the rotated-fold kernel takes dk <= {ROT_DK_MAX}, got "
-            f"dk={dk} (ROADMAP B: K1/K2 at wider heads)")
-    need = rot_kernel_smem_bytes(dk, M, backward)
+        raise ValueError(f"{name}: the kernel takes head widths up to "
+                         f"{ROT_DK_MAX}, got dk={dk}")
+    need = rot_kernel_smem_bytes(dk, M, backward, smem_limit)
     if need > smem_limit:
-        raise NotImplementedError(
-            f"{name}: dk + M = {dk + M} needs {need} bytes of shared memory "
-            f"a block, over the card's {smem_limit} (ROADMAP B: K1/K2 at the "
-            f"1B geometry)")
+        raise ValueError(f"{name}: dk={dk} needs {need} bytes of shared "
+                         f"memory a block, over the card's {smem_limit}")
 
 
 def _smem_limit(device) -> int:
@@ -207,9 +245,8 @@ def rot_attention_forward(q_u, u, k, v, vt, kv_len):
     Shapes as ``rot_attention_reference``; kv_len is int32.  On CUDA
     tensors this launches the Hopper kernel (and counts the launch in
     ``rot_attention_forward.launches``); on CPU tensors it runs the plain
-    version.  Any other device raises; on CUDA, a shape the kernel cannot
-    take raises ``NotImplementedError`` before the launch
-    (``check_rot_kernel_shape``)."""
+    version.  Any other device raises; on CUDA, dk > 128 raises
+    ``ValueError`` before the launch (``check_rot_kernel_shape``)."""
     BH, T, dk = q_u.shape
     M = u.shape[-1]
     _check("rot_attention", [q_u, u, k, v, vt],
@@ -217,13 +254,14 @@ def rot_attention_forward(q_u, u, k, v, vt, kv_len):
     kv_len = _check_kv_len("rot_attention", kv_len, BH, q_u.device)
     if not _device_path("rot_attention", q_u.device):
         return rot_attention_reference(q_u, u, k, v, vt, kv_len)
-    check_rot_kernel_shape("rot_attention", dk, M, False,
-                           _smem_limit(q_u.device))
+    smem = _smem_limit(q_u.device)
+    check_rot_kernel_shape("rot_attention", dk, M, False, smem)
+    symbol = "lasr_rot_attention_fwd" + (
+        "_wide" if rot_kernel_wide(dk, M, False, smem) else "")
     out = torch.empty_like(q_u)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
-    _launch("rot_attention",
-            _bind("rot_attention", "lasr_rot_attention_fwd", 8, 5),
+    _launch("rot_attention", _bind("rot_attention", symbol, 8, 5),
             _ptr(q_u), _ptr(u), _ptr(k), _ptr(v), _ptr(vt), _ptr(kv_len),
             _ptr(out), _ptr(lse), BH, T, dk, M,
             int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
@@ -240,8 +278,10 @@ def rot_attention_backward(q_u, u, k, v, vt, kv_len, out, lse, dout):
     ``out`` and ``lse`` are the forward's, ``dout`` the output's gradient
     (the inputs' dtype).  On CUDA tensors this launches the Hopper kernels
     of ``csrc/rot_attention_bwd.cu`` (counted once per call in
-    ``rot_attention_backward.launches``); on CPU tensors it runs the plain
-    version.  Any other device raises."""
+    ``rot_attention_backward.launches``; the wide form writes dz into an
+    f32 scratch); on CPU tensors it runs the plain version.  Any other
+    device raises; on CUDA, dk > 128 raises ``ValueError`` before the
+    launch."""
     BH, T, dk = q_u.shape
     M = u.shape[-1]
     _check("rot_attention_bwd", [q_u, u, k, v, vt, out, dout],
@@ -255,18 +295,26 @@ def rot_attention_backward(q_u, u, k, v, vt, kv_len, out, lse, dout):
     if not _device_path("rot_attention_bwd", q_u.device):
         return rot_attention_backward_reference(q_u, u, k, v, vt, kv_len,
                                                 out, lse, dout)
-    check_rot_kernel_shape("rot_attention_bwd", dk, M, True,
-                           _smem_limit(q_u.device))
+    smem = _smem_limit(q_u.device)
+    check_rot_kernel_shape("rot_attention_bwd", dk, M, True, smem)
     dq_u, du, dk_, dv = (torch.empty_like(q_u), torch.empty_like(u),
                          torch.empty_like(k), torch.empty_like(v))
     delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
+    ptrs = [_ptr(x) for x in (q_u, u, k, v, vt, kv_len, out, lse, dout,
+                              delta, dq_u, du, dk_, dv)]
+    symbol = "lasr_rot_attention_bwd"
+    if rot_kernel_wide(dk, M, True, smem):
+        # the wide form's dz, written once by its key pass: (BH, T32, T32)
+        # f32, T32 = T rounded up to 32 (354 MB at the 1B training shape)
+        symbol += "_wide"
+        T32 = -(-T // 32) * 32
+        dz = torch.empty((BH, T32, T32), dtype=torch.float32,
+                         device=q_u.device)
+        ptrs.append(_ptr(dz))
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
     _launch("rot_attention_bwd",
-            _bind("rot_attention_bwd", "lasr_rot_attention_bwd", 14, 5),
-            _ptr(q_u), _ptr(u), _ptr(k), _ptr(v), _ptr(vt), _ptr(kv_len),
-            _ptr(out), _ptr(lse), _ptr(dout), _ptr(delta), _ptr(dq_u),
-            _ptr(du), _ptr(dk_), _ptr(dv), BH, T, dk, M,
-            int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
+            _bind("rot_attention_bwd", symbol, len(ptrs), 5), *ptrs, BH, T,
+            dk, M, int(q_u.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     rot_attention_backward.launches += 1
     return dq_u, du, dk_, dv
 

@@ -30,12 +30,27 @@ REFERENCE_NAME_ALIASES: Dict[str, str] = {
     "lasr.model.e2e_ctc_att.e2e_transformer_online_offline:"
     "E2E_Transformer_CTC_Univ_Dynamic":
         "lasr_tpu_torch.models.e2e_online:E2E_Transformer_CTC_Univ_Dynamic",
+    "lasr.model.e2e_ctc_att.e2e_loss:E2E_Loss":
+        "lasr_tpu_torch.models.losses:E2E_Loss",
     "lasr.model.e2e_ctc_att.e2e_loss_univ:CTC_CE_Univ_Loss":
         "lasr_tpu_torch.models.losses_univ:CTC_CE_Univ_Loss",
+    "torch.optim:Adam": "lasr_tpu_torch.train.optimizer:Adam",
+    "lasr.modules.optimizer.optimizer:Noam":
+        "lasr_tpu_torch.train.optimizer:Noam",
+    "lasr.modules.optimizer.scheduler:WarmupScheduler":
+        "lasr_tpu_torch.train.optimizer:WarmupScheduler",
     "lasr.data.tokenizer:CharTokenizer":
         "lasr_tpu_torch.data.tokenizer:CharTokenizer",
     "lasr.data.tokenizer:HuggingTokenizer":
         "lasr_tpu_torch.data.tokenizer:HuggingTokenizer",
+    "lasr.data.dataset:AudioDataSet":
+        "lasr_tpu_torch.data.dataset:AudioDataSet",
+    "lasr.data.dataset:BatchAudioDataSet":
+        "lasr_tpu_torch.data.dataset:BatchAudioDataSet",
+    "lasr.modules.net.rnn.lstm:LSTMStack":
+        "lasr_tpu_torch.modules.rnn:LSTMStack",
+    "lasr.modules.net.rnn.lstm:RNNCellStack":
+        "lasr_tpu_torch.modules.rnn:RNNCellStack",
 }
 
 

@@ -60,28 +60,15 @@ SHAPES = [
     (45, 12, 20, [45, 17]),                 # dk, M not multiples of 16
     (388, 40, 320, [388, 291, 97, 1]),      # training width, ragged T
 ]
-# wide heads (64 < dk <= 128): K3 / K4 only; the 1B config's dk = 80 at
-# its training T
+# wide heads (64 < dk <= 128): the 1B config's dk = 80 at its training T;
+# K1 / K2 at the model width M = 16 dk (their wide form)
 WIDE_SHAPES = [
-    (388, 80, 0, [388, 291, 97, 1]),
-    (37, 128, 0, [37, 0, 5, 33]),
-    (70, 96, 0, [64, 65, 1, 70]),
+    (388, 80, 1280, [388, 291, 97, 1]),
+    (37, 128, 256, [37, 0, 5, 33]),
+    (70, 96, 1536, [64, 65, 1, 70]),
 ]
-# and K1 / K2 at a head width they refuse
 CASES = ([(w,) + s for w in ("rot", "rel") for s in SHAPES]
-         + [("rel",) + s for s in WIDE_SHAPES]
-         + [("rot", 37, 80, 64, [37, 5])])
-
-
-def _refused(which, dk, counter, call):
-    """K1 / K2 at a shape they cannot take raise before any launch."""
-    if which != "rot" or dk <= 64:
-        return False
-    before = counter.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        call()
-    assert counter.launches == before
-    return True
+         + [(w,) + s for w in ("rel", "rot") for s in WIDE_SHAPES])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -94,8 +81,6 @@ def test_kernel_matches_plain(which, dtype, T, dk, M, lens):
                 if which == "rot" else
                 (rel_attention_forward, rel_attention_reference))
     args = _inputs(which, BH, H, T, dk, M, lens, dtype, dev)
-    if _refused(which, dk, fwd, lambda: fwd(*args)):
-        return
     before = fwd.launches
     out, lse = fwd(*args)
     torch.cuda.synchronize()
@@ -122,11 +107,6 @@ def test_backward_kernel_matches_plain(which, dtype, T, dk, M, lens):
     args = _inputs(which, BH, H, T, dk, M, lens, dtype, dev)
     dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (BH, T, dk)).astype(np.float32)).to(dev, dtype)
-    if which == "rot" and dk > 64:
-        out, lse = rot_attention_reference(*args)
-        assert _refused(which, dk, bwd,
-                        lambda: bwd(*args, out.to(dtype), lse, dout))
-        return
     out, lse = fwd(*args)
     before = bwd.launches
     grads = bwd(*args, out, lse, dout)
@@ -148,6 +128,8 @@ def test_backward_kernel_matches_plain(which, dtype, T, dk, M, lens):
 @pytest.mark.parametrize("T,dk,M,lens", [
     (29, 9, 21, [29, 11]),      # odd widths: 4-byte copies / registers
     (70, 40, 600, [70, 33]),    # E = 640: one key-tile buffer
+    (45, 64, 1280, [45, 1, 17]),  # dk <= 64 too wide for a block: wide form
+    (29, 77, 301, [29, 11]),    # wide form, odd widths
 ])
 def test_rot_forward_kernel_copy_routes(dtype, T, dk, M, lens):
     """K1's other routes into shared memory, against the plain forward."""
@@ -181,6 +163,8 @@ def test_rot_forward_kernel_is_bitwise_repeatable(dtype):
 @pytest.mark.parametrize("T,dk,M,lens", [
     (29, 9, 21, [29, 11]),      # odd widths: 4-byte copies / registers
     (70, 40, 600, [70, 33]),    # E = 640: one tile buffer, two column chunks
+    (45, 64, 1280, [45, 1, 17]),  # dk <= 64 too wide for a block: wide form
+    (29, 77, 301, [29, 11]),    # wide form, odd widths
 ])
 def test_rot_backward_kernel_copy_routes(dtype, T, dk, M, lens):
     """K2's other routes into shared memory, against the plain backward
@@ -209,6 +193,23 @@ def test_rot_backward_kernel_is_bitwise_repeatable(dtype):
     dev = _card()
     H, lens = 2, [388, 291, 97, 1]
     args = _inputs("rot", len(lens) * H, H, 388, 40, 320, lens, dtype, dev)
+    out, lse = rot_attention_forward(*args)
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        out.shape).astype(np.float32)).to(dev, dtype)
+    first = rot_attention_backward(*args, out, lse, dout)
+    second = rot_attention_backward(*args, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rot_wide_backward_kernel_is_bitwise_repeatable(dtype):
+    """The wide K2 (the 1B config's dk = 80, M = 1280) as well: its key
+    pass writes each dz tile once, its query pass sums them in order."""
+    dev = _card()
+    H, lens = 2, [388, 291, 97, 1]
+    args = _inputs("rot", len(lens) * H, H, 388, 80, 1280, lens, dtype, dev)
     out, lse = rot_attention_forward(*args)
     dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
         out.shape).astype(np.float32)).to(dev, dtype)
