@@ -264,6 +264,31 @@ Phases, always all of them, in this order:
            ``launches_stretch_1b`` (K3 / K4 over (b)'s steps, K1 / K2 over
            (e)'s) and K1-K4's ``stretch_1b_float32`` / ``_bfloat16``
            numbers (K1's served ones ``stretch_1b_served_*``).
+  queue_a  the modules of ROADMAP queue A (A1, A3, A4): (a) served B
+           (the recipe Conformer, B=8 x 10 s through K3, 12 launches,
+           beam 10, ctc_beam 15, nbest 4) searched with parallel_scan
+           off and on, each capped at TIMED_STEPS token steps: ms a
+           token step, and device launches a token step (the
+           difference of two profiled searches of 2 and 4 steps); the
+           n-best lists alike (ids exact, scores within 1e-3, else a
+           logged tie); the same for the online model (the stream
+           phase's, seeded) on a 3 s stream; (b) 4 seeded 2 s
+           utterances as WAV and as FLAC of the same PCM16 (the port's
+           write_flac): ASRProcess (ctc_att, maxlenratio 0.25, K3) reads
+           waveforms and fbank features bitwise equal and decodes equal
+           tokens, and the decode CLI (ctc_greedy, in this process)
+           writes the same lines over the FLAC wav.scp as over the WAV
+           one; (c) each layer variant (the Conformer with the scaled
+           absolute encoding under conv2d, linear and no input layer,
+           with the linear input under rel_pos through K3; the
+           Transformer encoder with embed and no input layer; the
+           decoder with the linear input layer) at the recipe's width, 4
+           + 2 blocks, seeded, an eval forward on the card within 1e-3
+           of the CPU's, and one bf16 RNNLM step (the decoders phase's
+           LM) on B x beam rows within 2e-2 (of the larger of 1 and the
+           largest logit) of the f32 step on the CPU, its logits bf16
+           and its state f32.  Prints a {"queue_a": ...} line; the
+           kernel list gains ``launches_queue_a`` (K3).
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -4458,6 +4483,344 @@ def phase_stretch_1b(state):
     print(json.dumps({"stretch_1b": summary}, default=float), flush=True)
 
 
+# queue_a: the modules of ROADMAP queue A (A1, A3, A4) on the card.  The
+# searches are capped at TIMED_STEPS token steps (random weights never
+# end a hypothesis); the launches of a token step are the difference of
+# two short profiled searches
+QA_LAUNCH_STEPS = (2, 4)
+QA_STREAM_SECS = 3.0
+# (b): 4 seeded 2 s utterances; ASRProcess's ctc_att stops at a quarter
+# of the encoder's frames
+QA_UTTS, QA_UTT_SECS, QA_MAXLENRATIO = 4, 2.0, 0.25
+# (c): the layer variants at the recipe's width, 4 encoder and 2 decoder
+# blocks, on B=2 x 4 s
+QA_DEPTH = dict(encoder_num_blocks=4, decoder_num_block=2)
+QA_VARIANT_TOL, QA_LM_TOL = 1e-3, 2e-2
+
+
+def _qa_search_pair(label, model, step_name, feats, feat_len, kernels,
+                    want_k3, **kw):
+    """The search with parallel_scan off and on over one encoder output:
+    ms and device launches per token step of each, n-best lists of the
+    two held alike (ids exact, scores within SCORE_TOL, else a tie)."""
+    from lasr_tpu_torch.decode.beam import CTCAttBeamDecoder
+    dec = {flag: CTCAttBeamDecoder(model, beam=DECODE["beam"],
+                                   ctc_beam=DECODE["ctc_beam"],
+                                   ctc_weight=DECODE["ctc_weight"],
+                                   nbest=DEC_NBEST, parallel_scan=flag, **kw)
+           for flag in (False, True)}
+    for fn in kernels.values():
+        fn.launches = 0
+    hs, hs_len, lpz = dec[False].encode(feats, feat_len)
+    n_k3 = kernels["rel_attention_fwd"].launches
+    check(n_k3 == want_k3, f"{label}: K3 launched {n_k3} times in the "
+          f"encoder forward, expected {want_k3}")
+    out, nbest = {}, {}
+    for flag in (False, True):
+        hyps, dt, steps = _search_timed(dec[flag], model, step_name, hs,
+                                        hs_len, lpz, TIMED_STEPS)
+        ops = [_device_launches(lambda: dec[flag].search(hs, hs_len, lpz, s))
+               for s in QA_LAUNCH_STEPS]
+        name = "parallel" if flag else "sequential"
+        out[name] = dict(ms_per_step=dt * 1e3 / steps, steps=steps,
+                         launches_per_step=(ops[1] - ops[0]) / (
+                             QA_LAUNCH_STEPS[1] - QA_LAUNCH_STEPS[0]))
+        nbest[flag] = [hyps.nbest_ids(b) for b in range(hs.shape[0])]
+        V = lpz.shape[-1]
+        check(all(0 <= t < V for lst in nbest[flag] for i, _ in lst
+                  for t in i) and np.isfinite(hyps.scores).all(),
+              f"{label}: {name} hypotheses out of range or non-finite")
+    _same_hyps(label, nbest[True], nbest[False], range(hs.shape[0]))
+    return out, hs.shape[1], n_k3
+
+
+def _queue_a_search(state, sd):
+    """(a) served B through K3, then the online model on a short stream:
+    parallel_scan against the loop over frames."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    label, seed, card = "queue_a (a)", state["seed"], state["card"]
+    kernels = _kernel_counters()
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+    model = E2E_Conformer_CTC(**RECIPE, encoder_use_pallas_attention=True)
+    load_model_weights(model, sd)
+    wav = torch.from_numpy(make_waves(seed + 1, BATCH)).cuda()
+    feats, feat_len = frontend(wav, torch.full(
+        (BATCH,), wav.shape[1], dtype=torch.int32, device=wav.device))
+    offline, T, n_k3 = _qa_search_pair(
+        label, model, "decoder_step", feats, feat_len, kernels,
+        RECIPE["encoder_num_blocks"])
+    del model
+    torch.manual_seed(seed)
+    online_model = E2E_Transformer_CTC_Online(**STREAM)
+    wav = torch.from_numpy(make_waves(seed + 10, 1, QA_STREAM_SECS)).cuda()
+    feats, feat_len = frontend(wav, torch.tensor(
+        [wav.shape[1]], dtype=torch.int32, device=wav.device))
+    online, T_on, _ = _qa_search_pair(
+        f"{label} online", online_model, "decoder_step_ep", feats, feat_len,
+        kernels, 0, online=True)
+    del online_model
+    torch.cuda.empty_cache()
+    for name, res, t in (("served B", offline, T),
+                         (f"online {QA_STREAM_SECS:g} s", online, T_on)):
+        log(f"{label}: {name} (T={t}, beam {DECODE['beam']}, ctc_beam "
+            f"{DECODE['ctc_beam']}): "
+            + "; ".join(f"{k} {v['ms_per_step']:.2f} ms and "
+                        f"{v['launches_per_step']:.0f} device launches a "
+                        f"token step ({v['steps']} steps)"
+                        for k, v in res.items())
+            + f"; n-best lists alike [{card}]")
+    return dict(offline=offline, online=online, k3_launches=n_k3)
+
+
+def _queue_a_flac(state, sd, tmp):
+    """(b) ASRProcess and the decode CLI on FLAC files against the WAVs of
+    the same PCM16."""
+    import torch
+    import yaml
+    from lasr_tpu_torch.bin import decode as decode_cli
+    from lasr_tpu_torch.data.flac import write_flac
+    from lasr_tpu_torch.data.reader import read_scp, read_wav
+    from lasr_tpu_torch.process.asrprocess import ASRProcess
+    label, card = "queue_a (b)", state["card"]
+    kernels = _kernel_counters()
+    torch.save(sd, os.path.join(tmp, "model.pt"))
+    _write_recipe_configs(tmp, {"encoder_use_pallas_attention": True},
+                          "ctc_att")
+    dev_dir = _write_split(tmp, "dev", QA_UTTS, lambda: QA_UTT_SECS,
+                           np.random.default_rng(state["seed"] + 11))
+    scp = {"wav": os.path.join(dev_dir, "wav.scp"),
+           "flac": os.path.join(dev_dir, "flac.scp")}
+    with open(scp["flac"], "w") as out:
+        for uid, path in read_scp(scp["wav"]):
+            wav, rate = read_wav(path)
+            write_flac(path[:-4] + ".flac", wav, rate)
+            out.write(f"{uid} {path[:-4]}.flac\n")
+    decode_yaml = {}
+    for method, extra in (("ctc_att", dict(maxlenratio=QA_MAXLENRATIO)),
+                          ("ctc_greedy", {})):
+        for kind in ("wav", "flac"):
+            path = os.path.join(tmp, f"{method}_{kind}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump({
+                    "decode_config": dict(DECODE, decode_method=method,
+                                          **extra),
+                    "test_data_config": {
+                        "name": "lasr_tpu.data.dataset:AudioDataSet",
+                        "kwargs": {"wav_list": [scp[kind]],
+                                   "text_list": [os.path.join(dev_dir,
+                                                              "text")],
+                                   "audio_trans": ["norm", "fbank:80"]}}},
+                    f)
+            decode_yaml[method, kind] = path
+    hparams = os.path.join(tmp, "hparams.yaml")
+    for fn in kernels.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    asr = ASRProcess(hparams, decode_yaml["ctc_att", "wav"],
+                     os.path.join(tmp, "model.pt"))
+    uid, wav_path = read_scp(scp["wav"])[0]
+    flac_path = wav_path[:-4] + ".flac"
+    waves = [asr.frontend_wave(p) for p in (wav_path, flac_path)]
+    check(waves[0][1] == waves[1][1]
+          and np.array_equal(waves[0][0], waves[1][0]),
+          f"{label}: the FLAC file reads otherwise than the WAV")
+    with torch.no_grad():
+        feats = [asr.frontend(torch.from_numpy(w[None]).cuda(),
+                              torch.tensor([n], dtype=torch.int32).cuda())
+                 for w, n in waves]
+    check(all(torch.equal(a, b) for a, b in zip(*feats)),
+          f"{label}: the FLAC file's features differ from the WAV's")
+    tokens = [asr(p) for p in (wav_path, flac_path)]
+    check(tokens[0] == tokens[1] and len(tokens[0][0]) > 0,
+          f"{label}: ASRProcess decodes the FLAC file otherwise "
+          f"({tokens[1][1]!r} against {tokens[0][1]!r})")
+    asr_s = time.perf_counter() - t
+    del asr
+    rows = {}
+    t = time.perf_counter()
+    for kind in ("wav", "flac"):
+        out = os.path.join(tmp, f"greedy_{kind}.txt")
+        check(decode_cli.main([
+            "-train_config", hparams,
+            "-decode_config", decode_yaml["ctc_greedy", kind],
+            "-model_path", os.path.join(tmp, "model.pt"),
+            "-output_file", out]) == 0, f"{label}: the decode CLI failed")
+        with open(out) as f:
+            rows[kind] = f.read().splitlines()
+    cli_s = time.perf_counter() - t
+    check(len(rows["flac"]) == QA_UTTS and rows["flac"] == rows["wav"],
+          f"{label}: the decode CLI's ctc_greedy output on the FLAC "
+          f"wav.scp differs from the WAV one's")
+    n_k3 = kernels["rel_attention_fwd"].launches
+    want = 2 * 2 * RECIPE["encoder_num_blocks"]
+    check(n_k3 == want, f"{label}: K3 launched {n_k3} times, expected "
+          f"{want} (two ASRProcess decodes, two CLI batches)")
+    log(f"{label}: ASRProcess (ctc_att, maxlenratio {QA_MAXLENRATIO}) on "
+        f"{uid}.flac and {uid}.wav: waveforms and fbank features bitwise "
+        f"equal, tokens equal ({len(tokens[0][0])} tokens), {asr_s:.1f} s; "
+        f"the decode CLI (ctc_greedy) over {QA_UTTS} FLAC items equals it "
+        f"over their WAVs, {cli_s:.1f} s for both; K3 {n_k3} launches "
+        f"[{card}]")
+    return dict(asr_s=asr_s, cli_s=cli_s, k3_launches=n_k3)
+
+
+def _queue_a_variants(state):
+    """(c) each layer variant of queue A at the recipe's width: an eval
+    forward on the card against the same seeded model on the CPU; and a
+    bf16 RNNLM step on B x beam rows against the f32 step on the CPU."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import (E2E_Conformer_CTC,
+                                                   E2E_Transformer_CTC)
+    from lasr_tpu_torch.modules.rnn import RNNCellStack
+    from lasr_tpu_torch.modules.transformer import Decoder
+    from lasr_tpu_torch.utils.masks import target_mask
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    label, seed, card = "queue_a (c)", state["seed"], state["card"]
+    kernels = _kernel_counters()
+    base = dict({k: RECIPE[k] for k in (
+        "idim", "odim", "encoder_attention_dim", "encoder_attention_heads",
+        "encoder_linear_units", "decoder_attention_dim",
+        "decoder_attention_heads", "decoder_linear_units")}, **QA_DEPTH)
+    D, V = RECIPE["encoder_attention_dim"], RECIPE["odim"]
+    scaled = dict(encoder_pos_enc_layer_type="scaled_abs_pos",
+                  encoder_selfattention_layer_type="selfattn")
+    variants = {
+        "conformer_scaled_conv2d": (E2E_Conformer_CTC, dict(scaled), 80),
+        "conformer_scaled_linear": (E2E_Conformer_CTC, dict(
+            scaled, encoder_input_layer="linear"), 80),
+        "conformer_scaled_none": (E2E_Conformer_CTC, dict(
+            scaled, idim=D, encoder_input_layer=None), D),
+        "conformer_rel_linear_k3": (E2E_Conformer_CTC, dict(
+            encoder_pos_enc_layer_type="rel_pos",
+            encoder_selfattention_layer_type="rel_selfattn",
+            encoder_input_layer="linear",
+            encoder_use_pallas_attention=True), 80),
+        "transformer_embed": (E2E_Transformer_CTC, dict(
+            idim=V, encoder_input_layer="embed"), V),
+        "transformer_none": (E2E_Transformer_CTC, dict(
+            idim=D, encoder_input_layer=None), D),
+    }
+    rng = np.random.default_rng(seed + 12)
+    B, T, L = 2, int(4.0 * 100), 12
+    xlen = torch.tensor([T, T - 123])
+    ys_in = torch.from_numpy(rng.integers(3, V, (B, L)))
+    ys_in[:, 0] = 1
+    ys_in[1, L - 3:] = 2      # sos, and eos padding (as the loss pads)
+    errs = {}
+    t0 = time.perf_counter()
+    for name, (cls, kw, idim) in variants.items():
+        kw = dict(base, **kw)
+        x = torch.from_numpy(
+            rng.integers(0, idim, (B, T)) if name.endswith("embed") else
+            rng.standard_normal((B, T, idim)).astype(np.float32))
+        torch.manual_seed(seed)
+        cpu = cls(**kw, device="cpu")
+        with torch.no_grad():
+            for n, p in cpu.named_parameters():
+                if n.endswith("alpha"):
+                    p.fill_(0.7)
+        card_model = cls(**kw)
+        load_model_weights(card_model, cpu.state_dict())
+        for fn in kernels.values():
+            fn.launches = 0
+        with torch.no_grad():
+            got = card_model(x.cuda(), xlen.cuda(), ys_in.cuda())
+            want = cpu(x, xlen, ys_in)
+        n_k3 = kernels["rel_attention_fwd"].launches
+        want_k3 = QA_DEPTH["encoder_num_blocks"] if name.endswith("k3") \
+            else 0
+        check(n_k3 == want_k3, f"{label}: {name} launched K3 {n_k3} times, "
+              f"expected {want_k3}")
+        errs[name] = max(float((got[k].cpu() - want[k]).abs().max())
+                         for k in ("att_out", "ctc_out"))
+        check(errs[name] <= QA_VARIANT_TOL and torch.equal(
+            got["hs_len"].cpu(), want["hs_len"]),
+            f"{label}: {name}'s card forward differs from the CPU's by "
+            f"{errs[name]}")
+        del card_model
+    # the decoder's linear input layer over (B, L, odim) float inputs
+    dkw = dict(attention_dim=D, attention_heads=RECIPE[
+        "decoder_attention_heads"], linear_units=RECIPE[
+        "decoder_linear_units"], num_blocks=QA_DEPTH["decoder_num_block"],
+        input_layer="linear")
+    torch.manual_seed(seed)
+    cpu = Decoder(V, **dkw).eval()
+    card_dec = Decoder(V, **dkw).cuda().eval()
+    card_dec.load_state_dict(cpu.state_dict())
+    tgt = torch.from_numpy(rng.standard_normal((B, L, V)).astype(np.float32))
+    memory = torch.from_numpy(rng.standard_normal((B, 100, D)).astype(
+        np.float32))
+    mask = torch.ones(B, 1, 100, dtype=torch.bool)
+    with torch.no_grad():
+        got = card_dec(tgt.cuda(), target_mask(ys_in).cuda(), memory.cuda(),
+                       mask.cuda())
+        want = cpu(tgt, target_mask(ys_in), memory, mask)
+    errs["decoder_linear"] = float((got.cpu() - want).abs().max())
+    check(errs["decoder_linear"] <= QA_VARIANT_TOL,
+          f"{label}: the linear-input decoder's card forward differs from "
+          f"the CPU's by {errs['decoder_linear']}")
+    variants_s = time.perf_counter() - t0
+    # one bf16 RNNLM step on the search's B x beam rows
+    torch.manual_seed(seed + 7)
+    lm_cpu = RNNCellStack(**DEC_LM, device="cpu")
+    lm16 = RNNCellStack(**DEC_LM, dtype=torch.bfloat16)
+    lm16.load_state_dict(lm_cpu.state_dict())
+    rows = BATCH * DECODE["beam"]
+    tok = torch.from_numpy(rng.integers(0, DEC_LM["output_dim"], (rows,)))
+    with torch.no_grad():
+        state16, logits16 = lm16(lm16.zero_state(rows), tok.cuda())
+        _, logits = lm_cpu(lm_cpu.zero_state(rows), tok)
+    lm_err = float((logits16.float().cpu() - logits).abs().max())
+    lm_scale = max(1.0, float(logits.abs().max()))
+    check(logits16.dtype == torch.bfloat16 and all(
+        s.dtype == torch.float32 for s in torch.utils._pytree.tree_leaves(
+            state16)) and lm_err <= QA_LM_TOL * lm_scale,
+        f"{label}: the bf16 RNNLM step differs from the f32 CPU step by "
+        f"{lm_err} (or its dtypes are not bf16 logits, f32 state)")
+    log(f"{label}: card against CPU, max abs over att_out / ctc_out (tol "
+        f"{QA_VARIANT_TOL:g}; {QA_DEPTH['encoder_num_blocks']} + "
+        f"{QA_DEPTH['decoder_num_block']} blocks at d={D}, B={B} x "
+        f"{T} frames): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; K3 {QA_DEPTH['encoder_num_blocks']} launches in the rel-pos "
+        f"linear-input forward; {variants_s:.1f} s. bf16 RNNLM "
+        f"({DEC_LM['n_layers']} x {DEC_LM['n_units']} {DEC_LM['typ']}) "
+        f"step on {rows} rows against f32 on the CPU: max abs "
+        f"{lm_err:.2e} (tol {QA_LM_TOL:g} x {lm_scale:.2f}) [{card}]")
+    return dict(errors=errs, lm_bf16_err=lm_err, variants_s=variants_s)
+
+
+def phase_queue_a(state):
+    """(a) parallel_scan in served B's and the online search, (b) FLAC
+    through ASRProcess and the decode CLI, (c) the layer variants and the
+    bf16 RNNLM."""
+    import torch
+    torch.cuda.empty_cache()
+    sd = _seeded_recipe(state["seed"])
+    summary = {}
+    t = time.perf_counter()
+    summary["search"] = _queue_a_search(state, sd)
+    summary["search"]["s"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        summary["flac"] = _queue_a_flac(state, sd, tmp)
+        summary["flac"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    summary["variants"] = _queue_a_variants(state)
+    summary["variants"]["s"] = time.perf_counter() - t
+    state["queue_a_launches"] = {
+        "rel_attention_fwd": summary["search"]["k3_launches"]
+        + summary["flac"]["k3_launches"] + QA_DEPTH["encoder_num_blocks"]}
+    summary["card"] = state["card"]
+    torch.cuda.empty_cache()
+    print(json.dumps({"queue_a": summary}, default=float), flush=True)
+    state["timings"]["queue_a"] = summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4481,6 +4844,7 @@ def main(argv=None) -> int:
              "stream_launches": {}, "bf16_launches": {},
              "family_launches": {}, "dp_launches": {},
              "decoders_launches": {}, "stretch_launches": {},
+             "queue_a_launches": {},
              "timings": {},
              "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
@@ -4492,7 +4856,7 @@ def main(argv=None) -> int:
               ("train_stream", phase_train_stream),
               ("stream_rest", phase_stream_rest),
               ("fit_toy", phase_fit_toy), ("dp", phase_dp),
-              ("stretch_1b", phase_stretch_1b)]
+              ("stretch_1b", phase_stretch_1b), ("queue_a", phase_queue_a)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -4529,6 +4893,8 @@ def main(argv=None) -> int:
             entry["launches_decoders"] = state["decoders_launches"][name]
         if name in state["stretch_launches"]:
             entry["launches_stretch_1b"] = state["stretch_launches"][name]
+        if name in state["queue_a_launches"]:
+            entry["launches_queue_a"] = state["queue_a_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

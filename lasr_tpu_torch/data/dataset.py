@@ -99,11 +99,11 @@ class AudioDataSet:
         if wire_dtype != "float32":
             raise NotImplementedError(
                 "wire_dtype='int16' (the TPU host-link format) is not ported "
-                "(ROADMAP A1)")
+                "(ROADMAP A7)")
         if device_audio_cache:
             raise NotImplementedError(
                 "device_audio_cache (the TPU device waveform pool) is not "
-                "ported (ROADMAP A1)")
+                "ported (ROADMAP A7)")
         if isinstance(wav_list, str):
             wav_list = [wav_list]
         if isinstance(text_list, str):

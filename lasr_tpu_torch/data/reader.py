@@ -1,12 +1,14 @@
-"""Host-side WAV reading and writing (counterpart of
+"""Host-side audio reading and WAV writing (counterpart of
 ``lasr_tpu/data/reader.py``).
 
 RIFF/WAVE parsing over numpy: PCM 8/16/24/32-bit and IEEE float 32/64,
 any channel count, returning float64 in [-1, 1] with soundfile's scaling.
+``read_audio`` dispatches on the extension: ``.wav`` here, ``.flac`` to
+``data.flac`` and ``.mp3`` to ``data.mp3`` (first-party numpy codecs;
+mono mp3 comes back as (N,)); another extension raises ``ValueError``.
 Header-only probes (``get_audio_frames``, ``get_audio_duration``,
-``get_audio_samplerate``) and the Kaldi ``read_scp`` list parser serve
-the dataset.  FLAC and mp3 are not ported yet (ROADMAP A8): a path of
-another type raises ``NotImplementedError`` naming it.
+``get_audio_samplerate``; FLAC's STREAMINFO, mp3's frame headers) and the
+Kaldi ``read_scp`` list parser serve the dataset.
 """
 
 from __future__ import annotations
@@ -82,21 +84,36 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     return data, rate
 
 
-def _require_wav(path: str) -> None:
-    if os.path.splitext(path)[1].lower() != ".wav":
-        raise NotImplementedError(
-            f"{path}: only WAV is ported so far (the FLAC and mp3 readers "
-            f"are ROADMAP A8)")
+def _ext(path: str) -> str:
+    return os.path.splitext(path)[1].lower()
 
 
 def read_audio(path: str) -> Tuple[np.ndarray, int]:
-    _require_wav(path)
-    return read_wav(path)
+    ext = _ext(path)
+    if ext == ".wav":
+        return read_wav(path)
+    if ext == ".flac":
+        from lasr_tpu_torch.data.flac import read_flac
+        return read_flac(path)
+    if ext == ".mp3":
+        from lasr_tpu_torch.data.mp3 import read_mp3
+        wav, rate = read_mp3(path)
+        if wav.ndim == 2 and wav.shape[1] == 1:
+            wav = wav[:, 0]
+        return wav, rate
+    raise ValueError(f"unknown audio type for {path}")
 
 
 def get_audio_frames(path: str) -> Tuple[int, int]:
-    """Header-only (num_frames, sample_rate) probe."""
-    _require_wav(path)
+    """Header-only (num_frames, sample_rate) probe (wav / flac / mp3)."""
+    if _ext(path) == ".flac":
+        from lasr_tpu_torch.data.flac import flac_info
+        fi = flac_info(path)
+        return int(fi.total_samples), int(fi.sample_rate)
+    if _ext(path) == ".mp3":
+        from lasr_tpu_torch.data.mp3 import mp3_info
+        rate, _, samples = mp3_info(path)
+        return int(samples), int(rate)
     with open(path, "rb") as f:
         _, channels, rate, bits, size = _parse_wav_header(f)
     bytes_per_frame = channels * (bits // 8)

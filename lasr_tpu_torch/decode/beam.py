@@ -32,10 +32,12 @@ score; the candidate prescreen stays attention-only, and the LM state is
 reordered by parent with the KV cache.  ``nbest`` hypotheses come back
 from the ended pool, best first.
 
-The CTC prefix recursion is the sequential form (the JAX package's
-default; its ``parallel_scan`` option is not ported).  The step index is
-a host integer here, so the frames before the prefix length, which the
-JAX scan masks, are simply not visited.
+The CTC prefix recursion is a loop over the frames by default (the JAX
+package's default too).  ``parallel_scan=True`` evaluates the same
+recursion as a doubling scan of 3x3 log-semiring products, about
+log2(T) batched steps in place of T (``_ctc_prefix_parallel``).  The
+step index is a host integer here, so the frames before the prefix
+length, which the JAX scan masks, are simply not visited in either form.
 
 Ties: every top-k is a stable descending sort, so among equal scores the
 lower index wins — the rule of ``lax.top_k``.  Entries at ``LOG_ZERO`` tie
@@ -114,8 +116,65 @@ def _ctc_initial_state(lpz, blank: int):
     return torch.stack([torch.full_like(r_b, LOG_ZERO), r_b], dim=-1)
 
 
+def _semimat(a, b):
+    """Log-semiring (logsumexp, +) matrix product a ⊙ b over the last two
+    axes: out[i, j] = LSE_k(a[i, k] + b[k, j]), with LOG_ZERO kept as an
+    absorbing floor (contributions at or below it collapse exactly)."""
+    s = a[..., :, :, None] + b[..., None, :, :]
+    m = s.amax(dim=-2)
+    m_safe = torch.clamp(m, min=LOG_ZERO)
+    out = m_safe + torch.log(torch.exp(s - m_safe[..., None, :]).sum(dim=-2))
+    return torch.where(m <= LOG_ZERO, LOG_ZERO, out)
+
+
+# bytes of the doubling scan's largest intermediate, (frames, B, K, C, 3,
+# 3, 3) float32, above which the candidates are scanned in slices (the
+# online prescreen over the whole vocabulary)
+_SCAN_BYTES = 1 << 28
+
+
+def _ctc_prefix_parallel(xs, log_phi, blank_lp, start: int, r0_n, r0_b,
+                         psi0):
+    """The prefix recursion over the frames [start, T) in O(log T) depth.
+
+    Once log_phi is known the recursion is affine in the (logsumexp, +)
+    semiring: [r^n, r^b, 1]_t = M_t ⊙ [r^n, r^b, 1]_{t-1} with
+    M_t = [[x_t, -inf, x_t + phi_{t-1}], [blk_t, blk_t, -inf],
+    [-inf, -inf, 0]], so every frame's state comes from the cumulative
+    products P_t = M_t ⊙ … ⊙ M_start, taken by a doubling scan
+    (ceil(log2(T - start)) batched products, composed as ``lasr_tpu``'s
+    ``_semimat(later, earlier)``); psi is psi0 ⊕ the cumulative log-add
+    of phi_{t-1} + x_t.  Frames before ``start`` keep (r0_n, r0_b, psi0),
+    as the loop's repeated initial values and the JAX scan's identity
+    matrices give them.  Returns (rn, rb, psi) over all T frames, each
+    (B, K, C, T)."""
+    T = xs.shape[-1]
+    x_t = xs[..., start:].movedim(-1, 0)                    # (n, B, K, C)
+    phi = log_phi[..., start - 1:T - 1].movedim(-1, 0)
+    blk = blank_lp[:, start:].T[:, :, None, None].expand_as(x_t)
+    lz = torch.full_like(x_t, LOG_ZERO)
+    P = torch.stack([torch.stack([x_t, lz, x_t + phi], dim=-1),
+                     torch.stack([blk, blk, lz], dim=-1),
+                     torch.stack([lz, lz, torch.zeros_like(x_t)], dim=-1)],
+                    dim=-2)                                 # (n, ..., 3, 3)
+    d = 1
+    while d < P.shape[0]:
+        P = torch.cat([P[:d], _semimat(P[d:], P[:-d])])
+        d *= 2
+    s0 = torch.stack([r0_n, r0_b, torch.zeros_like(r0_n)], dim=-1)
+    s = _semimat(P[..., :2, :], s0[None, ..., None])[..., 0]  # (n, ..., 2)
+    cum = torch.logcumsumexp(x_t + phi, dim=0)
+    psi = _logaddexp(psi0, torch.where(cum <= LOG_ZERO, LOG_ZERO, cum))
+
+    def frames(first, rest):
+        return torch.cat([first[None].expand(start, *first.shape), rest]
+                         ).movedim(0, -1)
+    return frames(r0_n, s[..., 0]), frames(r0_b, s[..., 1]), \
+        frames(psi0, psi)
+
+
 def _ctc_prefix_step(lpz, r_prev, last_tok, cand, out_len: int, blank: int,
-                     want_psi_all: bool = False):
+                     want_psi_all: bool = False, parallel_scan: bool = False):
     """CTC prefix scores of every (B, K, C) candidate extension.
 
     lpz: (B, T, V) log-probs with frames past each utterance neutralized
@@ -123,7 +182,8 @@ def _ctc_prefix_step(lpz, r_prev, last_tok, cand, out_len: int, blank: int,
     (B, K); cand: (B, K, C); out_len: current prefix length.  Returns
     (psi (B, K, C), r_new (B, K, C, T, 2)), and with ``want_psi_all`` also
     psi_all (B, K, C, T), the prefix score after each frame (the truncated
-    CTC frontier rule reads it)."""
+    CTC frontier rule reads it).  ``parallel_scan``: the same recursion by
+    ``_ctc_prefix_parallel`` instead of the loop over frames."""
     B, T, V = lpz.shape
     K, C = cand.shape[1:]
     xs = torch.gather(lpz.transpose(1, 2), 1,
@@ -141,6 +201,17 @@ def _ctc_prefix_step(lpz, r_prev, last_tok, cand, out_len: int, blank: int,
     rn = xs[..., 0] if out_len == 0 else torch.full_like(xs[..., 0], LOG_ZERO)
     rb = torch.full_like(rn, LOG_ZERO)
     psi = rn
+    if parallel_scan and start < T:
+        step = max(1, _SCAN_BYTES // (27 * 4 * (T - start) * B * K))
+        rn_all, rb_all, psi_all = (torch.cat(parts, dim=2) for parts in zip(
+            *(_ctc_prefix_parallel(
+                xs[:, :, c:c + step], log_phi[:, :, c:c + step], blank_lp,
+                start, rn[..., c:c + step], rb[..., c:c + step],
+                psi[..., c:c + step]) for c in range(0, C, step))))
+        r_new = torch.stack([rn_all, rb_all], dim=-1)
+        if want_psi_all:
+            return psi_all[..., -1], r_new, psi_all
+        return psi_all[..., -1], r_new
     rn_seq, rb_seq, psi_seq = [rn] * start, [rb] * start, [psi] * start
     for t in range(start, T):
         phi, x = log_phi[..., t - 1], xs[..., t]
@@ -165,14 +236,17 @@ class CTCAttBeamDecoder:
     weights.  ``online=True`` needs a streaming model (``encode_online``,
     ``decoder_step_ep``).  ``lm`` is an ``RNNLM`` (or its
     ``RNNCellStack``) for shallow fusion at ``lm_weight``.
-    ``device=None`` means CUDA (raises without a GPU); the model and the
-    LM are moved there."""
+    ``parallel_scan`` runs the CTC prefix recursion as a doubling scan
+    (``_ctc_prefix_parallel``) in every search: offline, online,
+    long-form and the resumable session's.  ``device=None`` means CUDA
+    (raises without a GPU); the model and the LM are moved there."""
 
     def __init__(self, model, sos: int = 1, eos: int = 2, beam: int = 10,
                  ctc_beam: int = 15, nbest: int = 1, ctc_weight: float = 0.5,
                  penalty: float = 0.0, lm_weight: float = 0.0, blank: int = 0,
                  maxlenratio: float = 0.0, minlenratio: float = 0.0,
-                 online: bool = False, lm=None, device=None):
+                 online: bool = False, lm=None, parallel_scan: bool = False,
+                 device=None):
         if not getattr(model, "joint_beam_search", True):
             raise ValueError(
                 f"{type(model).__name__} has no joint CTC/attention beam "
@@ -195,6 +269,7 @@ class CTCAttBeamDecoder:
         self.maxlenratio = maxlenratio
         self.minlenratio = minlenratio
         self.online = online
+        self.parallel_scan = parallel_scan
 
     @torch.no_grad()
     def encode(self, feats, feat_len, pos_offset=0):
@@ -397,7 +472,8 @@ class CTCAttBeamDecoder:
                 cand_att, cand_ids = _top_k(att_nb, C)           # (B, K, C)
 
             out = _ctc_prefix_step(lpz, r, last_tok, cand_ids, i,
-                                   self.blank, want_psi_all=online)
+                                   self.blank, want_psi_all=online,
+                                   parallel_scan=self.parallel_scan)
             psi, r_cand = out[:2]
             r_sum = _logaddexp(r[..., 0], r[..., 1])             # (B, K, T)
             if online:

@@ -12,8 +12,8 @@ load_reference_checkpoint`` reads — a ``.pt``/``.ckpt`` state_dict file
 of the port's ``RNNCellStack`` (``utils.weights.rnnlm_flax_to_state_dict``
 writes one from ``lasr_tpu``'s parameters) or a port checkpoints root.
 ``lasr_tpu``'s ``lm_path`` is an orbax directory, which this package
-cannot read (ROADMAP A8, "Reading orbax checkpoints"): given one, it
-raises.
+cannot read yet (ROADMAP A2, reading ``lasr_tpu``'s orbax checkpoints):
+given one, it raises.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def load_lm_state_dict(lm_path: str):
             f"lm_path {lm_path!r} is a directory without .ckpt files (an "
             f"orbax checkpoint of lasr_tpu?); the port reads a .pt/.ckpt "
             f"state_dict or its checkpoints root; reading orbax is ROADMAP "
-            f"A8's 'Reading orbax checkpoints' item")
+            f"A2")
     return load_reference_checkpoint(lm_path, "last", avg=1)
 
 

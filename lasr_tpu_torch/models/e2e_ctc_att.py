@@ -128,7 +128,8 @@ class E2E_Transformer_CTC(E2EBase):
     """Transformer encoder + Transformer decoder + CTC head.
 
     Accepts every constructor kwarg of the JAX class.  The encoder's input
-    layer is conv2d or linear; ``encoder_remat`` recomputes each encoder
+    layer is conv2d, linear, embed or None, the decoder's embed or linear
+    (``modules.transformer``); ``encoder_remat`` recomputes each encoder
     block in the backward (``modules.remat``); a sharding object raises.
     ``device=None`` means CUDA (raises without a GPU); ``dtype`` is the compute dtype (float32, or bfloat16 with
     float32 parameters, gradients and optimizer state: the casts of
@@ -156,7 +157,7 @@ class E2E_Transformer_CTC(E2EBase):
         if encoder_act_sharding is not None:
             raise NotImplementedError(
                 "encoder_act_sharding (sequence parallelism) is not ported "
-                "(ROADMAP A6)")
+                "(ROADMAP A8)")
         dtype = check_dtype(dtype)
         device = resolve_device(device)
         self.encoder = Encoder(

@@ -20,9 +20,10 @@ from lasr_tpu_torch.modules.attention import (
     build_skewed_pos_table)
 from lasr_tpu_torch.modules.dropout import dropout
 from lasr_tpu_torch.modules.embedding import (PositionalEncoding,
-                                              RelPositionalEncoding)
+                                              RelPositionalEncoding,
+                                              ScaledPositionalEncoding)
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
-from lasr_tpu_torch.modules.layers import Computes, Conv1d, LayerNorm
+from lasr_tpu_torch.modules.layers import Computes, Conv1d, LayerNorm, Linear
 from lasr_tpu_torch.modules.remat import checkpointed, recomputing
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
 from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
@@ -150,7 +151,15 @@ class ConformerEncoderLayer(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
-    """Conformer encoder stack with conv2d subsampling input.
+    """Conformer encoder stack.
+
+    ``input_layer``: ``"conv2d"`` (the subsampling, T → T/4), ``"linear"``
+    (Linear → LayerNorm → dropout, then the positional encoding; state_dict
+    ``embed_linear.*`` / ``embed_norm.*``) or None (the positional
+    encoding alone).  ``pos_enc_layer_type``: ``"abs_pos"``,
+    ``"scaled_abs_pos"`` (``ScaledPositionalEncoding``, its ``alpha`` at
+    ``embed.pos_enc.alpha`` under conv2d, else ``embed_pos.alpha``) or
+    ``"rel_pos"``.
 
     ``pos_dropout_mode`` (rel_pos only) places positional dropout as the
     JAX encoder does: ``"table"`` on the (1, 2T-1, D) table (the
@@ -174,9 +183,10 @@ class ConformerEncoder(nn.Module):
                  pos_dropout_mode: str = "table", remat: bool = False):
         super().__init__()
         self.remat = remat
-        if input_layer != "conv2d":
-            raise NotImplementedError(
-                f"input_layer {input_layer!r}: only conv2d is ported")
+        if input_layer not in ("conv2d", "linear", None):
+            raise ValueError(f"unknown input_layer: {input_layer}")
+        self.input_layer = input_layer
+        self.dropout_rate = dropout_rate
         if pos_dropout_mode not in ("table", "rotated"):
             raise ValueError(f"unknown pos_dropout_mode: {pos_dropout_mode!r}")
         self.rel = pos_enc_layer_type == "rel_pos"
@@ -197,11 +207,20 @@ class ConformerEncoder(nn.Module):
         elif pos_enc_layer_type == "abs_pos":
             pos_enc = PositionalEncoding(attention_dim,
                                          positional_dropout_rate)
+        elif pos_enc_layer_type == "scaled_abs_pos":
+            pos_enc = ScaledPositionalEncoding(attention_dim,
+                                               positional_dropout_rate)
         else:
-            raise NotImplementedError(
-                f"pos_enc_layer_type {pos_enc_layer_type!r} is not ported")
-        self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc,
-                                       dropout_rate)
+            raise ValueError(
+                f"unknown pos_enc_layer: {pos_enc_layer_type}")
+        if input_layer == "conv2d":
+            self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc,
+                                           dropout_rate)
+        else:
+            if input_layer == "linear":
+                self.embed_linear = Linear(idim, attention_dim)
+                self.embed_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+            self.embed_pos = pos_enc
         self.encoders = nn.ModuleList([
             ConformerEncoderLayer(
                 attention_dim, attention_heads, linear_units, dropout_rate,
@@ -214,6 +233,18 @@ class ConformerEncoder(nn.Module):
             for _ in range(num_blocks)])
         self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
+    def embed_input(self, x, x_len, solo_len: bool, offset):
+        """The input layer and the positional encoding: (out, lengths), out
+        being h or the relative encoding's (h, pos_emb) pair."""
+        if self.input_layer == "conv2d":
+            return self.embed(x, x_len, solo_len=solo_len, offset=offset)
+        if self.input_layer == "linear":
+            x = dropout(self.embed_norm(self.embed_linear(x)),
+                        self.dropout_rate, self.training)
+        if self.rel:
+            return self.embed_pos(x), x_len
+        return self.embed_pos(x, offset), x_len
+
     def forward(self, x, x_len, solo_pad: bool = False, pos_offset=0):
         """x: (B, T, idim), x_len: (B,) → (hs (B, T', D), hs_len (B,)).
 
@@ -222,8 +253,8 @@ class ConformerEncoder(nn.Module):
         before the conv module.  ``pos_offset``: the absolute encoding's
         start position(s) in encoder frames, an int or a (B,) tensor; a
         no-op under ``rel_pos`` (translation-invariant)."""
-        out, h_len = self.embed(x, x_len, solo_len=solo_pad,
-                                offset=0 if self.rel else pos_offset)
+        out, h_len = self.embed_input(x, x_len, solo_pad,
+                                      0 if self.rel else pos_offset)
         h, pos_emb = out if self.rel else (out, None)
         T = h.shape[1]
         pad = torch.arange(T, device=h.device)[None, :] < h_len[:, None]

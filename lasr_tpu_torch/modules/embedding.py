@@ -4,6 +4,9 @@
     offset is an int, or a (N,) tensor of per-row offsets (the streaming
     encoder's chunk rows), whose rows are computed in float32 as
     ``lasr_tpu``'s ``_sinusoid_at`` computes them.
+  - ``ScaledPositionalEncoding``: x + α·sinusoid[offset : offset+T], α a
+    learnable scalar (``alpha``, initialized to 1; the one parameter of
+    these modules).
   - ``RelPositionalEncoding``: (x·√d, pos_emb of length 2T-1) for
     Transformer-XL attention; index T-1 is distance 0, earlier entries are
     positive distances (key left of the query), later ones negative.
@@ -65,17 +68,34 @@ class PositionalEncoding(nn.Module):
         self.d_model = d_model
         self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor, offset=0) -> torch.Tensor:
+    def rows(self, x: torch.Tensor, offset) -> torch.Tensor:
+        """The sinusoid rows x's T positions take from ``offset``, in x's
+        dtype: (1, T, d), or (N, T, d) for per-row offsets."""
         T = x.shape[1]
         if torch.is_tensor(offset) and offset.ndim == 1:
-            pe = sinusoid_at(offset[:, None] + torch.arange(
+            return sinusoid_at(offset[:, None] + torch.arange(
                 T, device=offset.device), self.d_model).to(x.device, x.dtype)
-        else:
-            offset = int(offset)
-            pe = torch.from_numpy(sinusoid_rows(
-                np.arange(offset, offset + T), self.d_model)).to(
-                    x.device, x.dtype)[None]
-        x = x * math.sqrt(self.d_model) + pe
+        offset = int(offset)
+        return torch.from_numpy(sinusoid_rows(
+            np.arange(offset, offset + T), self.d_model)).to(
+                x.device, x.dtype)[None]
+
+    def forward(self, x: torch.Tensor, offset=0) -> torch.Tensor:
+        x = x * math.sqrt(self.d_model) + self.rows(x, offset)
+        return dropout(x, self.dropout_rate, self.training)
+
+
+class ScaledPositionalEncoding(PositionalEncoding):
+    """x + α·sinusoid: the input unscaled, the table times the learnable
+    scalar ``alpha`` (float32, cast to x's dtype as Flax casts it)."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1,
+                 max_len: int = 5000):
+        super().__init__(d_model, dropout_rate, max_len)
+        self.alpha = nn.Parameter(torch.ones(()))
+
+    def forward(self, x: torch.Tensor, offset=0) -> torch.Tensor:
+        x = x + self.alpha.to(x.dtype) * self.rows(x, offset)
         return dropout(x, self.dropout_rate, self.training)
 
 

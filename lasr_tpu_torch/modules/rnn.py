@@ -14,7 +14,16 @@ Cells are ``nn.LSTMCell`` / ``nn.GRUCell`` in torch's gate order
 carries Flax's per-gate kernels across.  The state of a stack is a tuple
 over layers of ``(c, h)`` (LSTM, Flax's carry order) or ``h`` (GRU),
 each (N, n_units); ``select_state`` reorders its rows, as the beam
-search reorders its KV cache by parent.  Float32 compute only.
+search reorders its KV cache by parent.
+
+Compute dtype (``dtype``: float32 or bfloat16), where ``lasr_tpu``'s Flax
+modules round: ``RNNCellStack``'s input layer and output projection are
+the casting layers of ``modules.layers`` (``nn.Embed`` / ``nn.Dense``
+with ``dtype``), its zero state is in the compute dtype, and its cells,
+which Flax builds without a dtype, compute in float32 (the bfloat16
+input and state promoted exactly), so the state after a step is float32.
+``LSTMStack``'s cells take no dtype in Flax either: it computes in
+float32 whatever its ``dtype``.
 """
 
 from __future__ import annotations
@@ -26,11 +35,7 @@ from torch import nn
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.models.e2e_ctc_att import check_dtype
 from lasr_tpu_torch.modules.dropout import dropout
-
-
-def _float32_only(dtype):
-    if check_dtype(dtype) != torch.float32:
-        raise NotImplementedError("the RNN modules compute in float32 only")
+from lasr_tpu_torch.modules.layers import Embedding, Linear, set_compute_dtype
 
 
 class LSTMStack(nn.Module):
@@ -40,7 +45,7 @@ class LSTMStack(nn.Module):
                  dropout: float = 0.0, bidirectional: bool = False,
                  dtype=None, device=None):
         super().__init__()
-        _float32_only(dtype)
+        check_dtype(dtype)
         width = 2 * hidden_size if bidirectional else hidden_size
         self.layers = nn.ModuleList([
             nn.LSTM(input_size if i == 0 else width, hidden_size,
@@ -51,7 +56,7 @@ class LSTMStack(nn.Module):
         self.eval()
 
     def forward(self, x):
-        h = x
+        h = x.float()
         for i, layer in enumerate(self.layers):
             h = layer(h)[0]
             if i + 1 < len(self.layers):
@@ -67,43 +72,46 @@ def select_state(state, idx):
 
 
 class RNNCellStack(nn.Module):
-    """Stepwise RNN LM over LSTM/GRU cells.  ``device=None`` means CUDA
-    (raises without a GPU)."""
+    """Stepwise RNN LM over LSTM/GRU cells.  ``dtype``: the compute dtype
+    of the input layer and the output projection (see the module
+    docstring).  ``device=None`` means CUDA (raises without a GPU)."""
 
     def __init__(self, input_dim: int, output_dim: int, n_layers: int,
                  n_units: int, typ: str = "lstm", input_layer: str = "embed",
                  dropout_rate: float = 0.5, dtype=None, device=None):
         super().__init__()
-        _float32_only(dtype)
+        dtype = check_dtype(dtype)
         if typ not in ("lstm", "gru"):
             raise ValueError(f"unknown RNN type {typ!r}")
         self.typ, self.input_layer = typ, input_layer
         self.n_units, self.dropout_rate = n_units, dropout_rate
         if input_layer == "embed":
-            self.embed = nn.Embedding(input_dim, n_units)
+            self.embed = Embedding(input_dim, n_units)
         else:
-            self.embed = nn.Linear(input_dim, n_units)
+            self.embed = Linear(input_dim, n_units)
         cell = nn.LSTMCell if typ == "lstm" else nn.GRUCell
         self.rnn = nn.ModuleList([cell(n_units, n_units)
                                   for _ in range(n_layers)])
-        self.lo = nn.Linear(n_units, output_dim)
+        self.lo = Linear(n_units, output_dim)
+        set_compute_dtype(self, dtype)
         self.to(resolve_device(device))
         self.eval()
 
     def zero_state(self, batch: int):
-        h = self.lo.weight.new_zeros(batch, self.n_units)
+        h = self.lo.weight.new_zeros(batch, self.n_units, dtype=self.lo.dtype)
         return tuple((h, h) if self.typ == "lstm" else h for _ in self.rnn)
 
     def _cells(self, state, h):
         new_state = []
+        h = h.float()
         for i, cell in enumerate(self.rnn):
             h = dropout(h, self.dropout_rate, self.training)
             if self.typ == "lstm":
                 c_prev, h_prev = state[i]
-                h, c = cell(h, (h_prev, c_prev))
+                h, c = cell(h, (h_prev.float(), c_prev.float()))
                 new_state.append((c, h))
             else:
-                h = cell(h, state[i])
+                h = cell(h, state[i].float())
                 new_state.append(h)
         h = dropout(h, self.dropout_rate, self.training)
         return tuple(new_state), self.lo(h)
@@ -150,4 +158,5 @@ class RNNLM:
         if not torch.is_tensor(tokens):
             tokens = torch.from_numpy(np.asarray(tokens))
         new_state, logits = self.module(state, tokens.to(dev))
-        return new_state, torch.log_softmax(logits.float(), dim=-1)
+        # in the logits' dtype, as lasr_tpu's predict takes it
+        return new_state, torch.log_softmax(logits, dim=-1).float()

@@ -1,13 +1,15 @@
 """Transformer encoder and decoder stacks (counterpart of
 ``lasr_tpu/modules/transformer.py``).
 
-``Encoder``: the conv2d subsampling (or, ``input_layer="linear"``,
-Linear → LayerNorm → dropout → ReLU) with the absolute positional
-encoding, pre-norm blocks of self-attention and a ReLU feed-forward, and
-an after-norm; ``remat`` recomputes each block in the backward
-(``modules.remat``).  The other input layers of the JAX module are not
-ported.  ``EncoderLayer(..., q_rows=n)`` takes the last n rows alone as
-queries (the per-chunk streaming forward of the dual encoder).
+``Encoder``: an input layer with the absolute positional encoding,
+pre-norm blocks of self-attention and a ReLU feed-forward, and an
+after-norm; ``remat`` recomputes each block in the backward
+(``modules.remat``).  Its input layers are those of the JAX module:
+``"conv2d"`` (the subsampling), ``"linear"`` (Linear → LayerNorm →
+dropout → ReLU), ``"embed"`` (token ids through an embedding, state_dict
+``embed.0.weight``) and None (the positional encoding alone).
+``EncoderLayer(..., q_rows=n)`` takes the last n rows alone as queries
+(the per-chunk streaming forward of the dual encoder).
 
 Decoder: pre-norm residual blocks (LayerNorm eps 1e-12) of self-attention,
 source attention and a ReLU feed-forward, each branch dropped out before
@@ -88,10 +90,13 @@ class Encoder(nn.Module):
             self.embed_linear = Linear(idim, attention_dim)
             self.embed_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
             self.embed_pos = pos_enc
+        elif input_layer == "embed":
+            self.embed = nn.Sequential(Embedding(idim, attention_dim),
+                                       pos_enc)
+        elif input_layer is None:
+            self.embed_pos = pos_enc
         else:
-            raise NotImplementedError(
-                f"encoder input_layer {input_layer!r}: conv2d and linear are "
-                f"ported (ROADMAP A8)")
+            raise ValueError(f"unknown input_layer: {input_layer}")
         self.dropout_rate = dropout_rate
         self.encoders = nn.ModuleList([
             EncoderLayer(attention_dim, attention_heads, linear_units,
@@ -102,9 +107,12 @@ class Encoder(nn.Module):
     def embed_input(self, x, x_len, solo_len: bool = False, pos_offset=0):
         if self.input_layer == "conv2d":
             return self.embed(x, x_len, solo_len=solo_len, offset=pos_offset)
-        h = dropout(self.embed_norm(self.embed_linear(x)), self.dropout_rate,
-                    self.training)
-        return self.embed_pos(torch.relu(h), pos_offset), x_len
+        if self.input_layer == "embed":
+            return self.embed[1](self.embed[0](x), pos_offset), x_len
+        if self.input_layer == "linear":
+            x = torch.relu(dropout(self.embed_norm(self.embed_linear(x)),
+                                   self.dropout_rate, self.training))
+        return self.embed_pos(x, pos_offset), x_len
 
     def forward(self, x, x_len, solo_pad: bool = False, pos_offset=0):
         """``solo_pad``: per-row lengths as if each utterance were encoded
@@ -177,14 +185,22 @@ class Decoder(nn.Module):
                  src_attention_dropout_rate: float = 0.0,
                  input_layer: str = "embed"):
         super().__init__()
-        if input_layer != "embed":
-            raise NotImplementedError(
-                f"decoder input_layer {input_layer!r}: only embed is ported")
         self.attention_dim = attention_dim
         self.attention_heads = attention_heads
-        self.embed = nn.Sequential(
-            Embedding(odim, attention_dim),
-            PositionalEncoding(attention_dim, positional_dropout_rate))
+        self.input_layer = input_layer
+        self.dropout_rate = dropout_rate
+        pos_enc = PositionalEncoding(attention_dim, positional_dropout_rate)
+        if input_layer == "embed":
+            self.embed = nn.Sequential(Embedding(odim, attention_dim),
+                                       pos_enc)
+        elif input_layer == "linear":
+            # (B, L, odim) float inputs: Linear → LayerNorm → dropout →
+            # ReLU, as the encoder's linear input layer
+            self.embed_linear = Linear(odim, attention_dim)
+            self.embed_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
+            self.embed_pos = pos_enc
+        else:
+            raise ValueError(f"unknown input_layer: {input_layer}")
         self.decoders = nn.ModuleList([
             DecoderLayer(attention_dim, attention_heads, linear_units,
                          dropout_rate, self_attention_dropout_rate,
@@ -195,8 +211,14 @@ class Decoder(nn.Module):
 
     def forward(self, tgt, tgt_mask, memory, memory_mask):
         """tgt: (B, L) ids; tgt_mask: (B, L, L); memory: (B, T, D);
-        memory_mask: (B, 1, T). Returns (B, L, odim) logits."""
-        x = self.embed(tgt)
+        memory_mask: (B, 1, T). Returns (B, L, odim) logits.  Under
+        ``input_layer="linear"`` tgt is (B, L, odim) floats."""
+        if self.input_layer == "embed":
+            x = self.embed(tgt)
+        else:
+            x = self.embed_pos(torch.relu(dropout(
+                self.embed_norm(self.embed_linear(tgt)), self.dropout_rate,
+                self.training)))
         for layer in self.decoders:
             x = layer(x, tgt_mask, memory, memory_mask)
         return self.output_layer(self.after_norm(x))
@@ -222,6 +244,8 @@ class Decoder(nn.Module):
         """y_t: (B,) last token ids; pos: step index; cache from
         ``init_cache`` (updated in place); mem_k/v from ``project_memory``;
         mem_mask: (B, 1, T).  Returns (log-probs (B, odim), cache)."""
+        if self.input_layer != "embed":
+            raise NotImplementedError("cached decode requires embed input")
         h = self.embed[0](y_t[:, None])                    # (B, 1, D)
         pe = torch.from_numpy(sinusoid_rows([pos], self.attention_dim))
         h = h * math.sqrt(self.attention_dim) + pe.to(h.device, h.dtype)

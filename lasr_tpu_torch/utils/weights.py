@@ -8,11 +8,13 @@ numpy arrays) into the reference-named torch ``state_dict``:
   encoder/embed/Conv_{k}/*      → encoder.embed.conv.{2k}.*
   encoder/embed/Dense_0/*       → encoder.embed.out.0.*
   {encoder,decoder}/layers_N/*  → {encoder.encoders,decoder.decoders}.N.*
-  decoder/embed_tok/embedding   → decoder.embed.0.weight
+  {encoder,decoder}/embed_tok/embedding
+                                → {encoder,decoder}.embed.0.weight
   feed_forward/Dense_{0,1}      → feed_forward.w_{1,2}
   ctc/Dense_0/*                 → ctc.1.*
   */scale                       → */weight (norms)
-  other leaves (pos_bias_u/v, src_att_bias, embed_linear/*, embed_norm/*)
+  other leaves (pos_bias_u/v, src_att_bias, embed_linear/*, embed_norm/*,
+  the scaled encoding's embed/pos_enc/alpha and embed_pos/alpha)
                                 → the same names
   batch_stats */{mean,var}      → */running_{mean,var} (+ num_batches_tracked)
 

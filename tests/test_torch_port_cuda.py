@@ -667,3 +667,43 @@ def test_train_cli_on_every_card_equals_one_card(tmp_path):
     for k, v in want.items():
         if v.is_floating_point():
             assert float((got[k] - v).abs().max()) <= 1e-4 * top, k
+
+
+@pytest.mark.parametrize("out_len", [0, 5])
+def test_ctc_prefix_parallel_scan_on_the_card(out_len):
+    """The search's CTC prefix step at the served shape (B=8, beam 10,
+    ctc_beam 15, T=248; row 1 padded past frame 200): the doubling scan
+    (``parallel_scan=True``) on the card against the loop over frames on
+    the card and against the scan on the CPU, each entry within 1e-4 of
+    its magnitude (at least 1: r reaches ~1,700, where a float32 spacing
+    is 1.2e-4), the LOG_ZERO floor at the same entries."""
+    dev = _card()
+    from lasr_tpu_torch.decode.beam import (LOG_ZERO, _ctc_initial_state,
+                                            _ctc_prefix_step)
+    rng = np.random.default_rng(out_len)
+    B, K, C, T, V = 8, 10, 15, 248, 500
+    lpz = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((B, T, V)).astype(np.float32)), dim=-1)
+    lpz[1, 200:] = LOG_ZERO
+    lpz[1, 200:, 0] = 0.0
+    r = _ctc_initial_state(lpz, 0)[:, None].expand(B, K, T, 2).clone()
+    r[..., 0] = r[..., 1] + torch.from_numpy(
+        rng.standard_normal((B, K, T)).astype(np.float32))
+    last = torch.from_numpy(rng.integers(1, V, (B, K)))
+    cand = torch.from_numpy(rng.integers(0, V, (B, K, C)))
+    cand[:, :, 0] = last
+    args = (lpz, r, last, cand)
+    card = {flag: _ctc_prefix_step(*(a.to(dev) for a in args), out_len, 0,
+                                   want_psi_all=True, parallel_scan=flag)
+            for flag in (True, False)}
+    cpu = _ctc_prefix_step(*args, out_len, 0, want_psi_all=True,
+                           parallel_scan=True)
+    for name, got, loop, want in zip(("psi", "r_new", "psi_all"),
+                                     card[True], card[False], cpu):
+        got = got.cpu()
+        assert bool((got[got <= LOG_ZERO] == LOG_ZERO).all()), name
+        for ref in (loop.cpu(), want):
+            floor = ref <= LOG_ZERO
+            assert torch.equal(got <= LOG_ZERO, floor), name
+            err = (got - ref).abs() / ref.abs().clamp(min=1.0)
+            assert float(err[~floor].max()) <= 1e-4, name

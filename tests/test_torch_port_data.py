@@ -13,7 +13,8 @@ the test: 16 WAVs at 16 kHz and 2 at 8 kHz of 0.5-1.6 s.
   - the header probes, ``read_scp``, the edit-distance split and the WER
     accumulator equal lasr_tpu's;
   - what the port does not do raises: ``wire_dtype="int16"``,
-    ``device_audio_cache``, a rank outside its sharding, non-WAV audio.
+    ``device_audio_cache``, a rank outside its sharding; FLAC or mp3
+    files that hold neither raise the codecs' ``ValueError``.
 """
 
 import numpy as np
@@ -216,9 +217,12 @@ def test_multi_process_sharding_and_other_audio_raise(corpus, tmp_path):
         next(pd.batches(process_index=2, process_count=2))
     with pytest.raises(ValueError, match="local_rank 1 of 1"):
         next(pd.batches(local_rank=1))
-    for name in ("x.flac", "x.mp3"):
+    # FLAC and mp3 are read (tests/test_torch_port_codecs.py); a file
+    # that is neither raises the codec's ValueError, as in lasr_tpu
+    for name, match in (("x.flac", "not a FLAC file"),
+                        ("x.mp3", "no Layer III frames")):
         (tmp_path / name).write_bytes(b"\0" * 64)
-        with pytest.raises(NotImplementedError, match=name):
-            reader.get_audio_frames(str(tmp_path / name))
-        with pytest.raises(NotImplementedError, match=name):
-            reader.read_audio(str(tmp_path / name))
+        for fn in (reader.get_audio_frames, reader.read_audio,
+                   jax_reader.get_audio_frames, jax_reader.read_audio):
+            with pytest.raises(ValueError, match=match):
+                fn(str(tmp_path / name))

@@ -196,8 +196,12 @@ def test_ported_options_build_and_the_rest_raise():
         assert getattr(model.encoder, attr) == value
     assert E2E_Transformer_CTC(**OFFLINE, encoder_remat=True,
                                device="cpu").encoder.remat
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E2E_Transformer_CTC(**OFFLINE, encoder_input_layer="embed",
+    # every input layer of lasr_tpu's encoder builds; an unknown one
+    # raises as it does there
+    assert E2E_Transformer_CTC(**OFFLINE, encoder_input_layer="embed",
+                               device="cpu").encoder.input_layer == "embed"
+    with pytest.raises(ValueError, match="unknown input_layer"):
+        E2E_Transformer_CTC(**OFFLINE, encoder_input_layer="conv1d",
                             device="cpu")
     # layer_major=False is the same math as the layer-major forward
     E2E_Transformer_CTC_Online(**kw, encoder_layer_major=False)

@@ -35,6 +35,30 @@ def numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def seeded_variables(fm, seed, *args):
+    """Seeded random variables of the Flax module ``fm`` for the inputs
+    ``args``, from the shapes of its init (traced, not compiled): kernels
+    N(0, 1/fan_in), embeddings N(0, 1), norm scales and BatchNorm
+    variances near 1, the scaled encoding's alpha in [0.5, 1.5], the rest
+    N(0, 0.01)."""
+    shapes = jax.eval_shape(fm.init, jax.random.PRNGKey(0), *args)
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = jax.tree_util.keystr(path)
+        if name.endswith(("['scale']", "['var']", "['alpha']")):
+            x = rng.uniform(0.5, 1.5, s.shape)
+        elif name.endswith("['kernel']"):
+            x = rng.standard_normal(s.shape) / np.sqrt(
+                np.prod(s.shape[:-1]))
+        elif name.endswith("['embedding']"):
+            x = rng.standard_normal(s.shape)
+        else:
+            x = 0.1 * rng.standard_normal(s.shape)
+        return x.astype(s.dtype)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 def perturb_batch_stats(variables, seed):
     """Non-trivial BatchNorm statistics, so eval-mode normalization is
     actually exercised."""
