@@ -289,6 +289,36 @@ Phases, always all of them, in this order:
            largest logit) of the f32 step on the CPU, its logits bf16
            and its state f32.  Prints a {"queue_a": ...} line; the
            kernel list gains ``launches_queue_a`` (K3).
+  aux      queue A's A5-A7 (no kernel of its own): (a) each auxiliary
+           module on the card against the same seeded module on the CPU
+           (rows 0-1 of the card's batch; the distances and cpc_loss on
+           the whole) in f32, the largest difference within 1e-3 of the
+           larger of 1 and the CPU output's largest magnitude, with its
+           card ms: VGG2L(80, 320), Conv2dSubsampling6 / 8(80, 320) and
+           ConvPosEmbedding(320) on B=8 x 10 s of fbank frames (ragged),
+           Conv2dUpsampling(80, 320) on Conv2dSubsampling's output, the
+           wav2vec stack at its default conv layers on the raw 16 kHz
+           waves (the predictions' negatives from one shared index
+           tensor) with cpc_loss, the fillier EmbeddingModel and
+           Classification head on the fbank frames, and the five
+           distances on (8, 250, 320); (b) calculate_all_attentions on
+           the recipe Conformer at full width (12 + 6 blocks), served B,
+           plain path with the rotated fold off (the skewed-table fold):
+           the card's and the CPU's maps (rows 0-1), equal key sets,
+           within 1e-3, no kernel launched; (c) the native loader
+           (csrc/wavio.cc, built with g++) available, and
+           BatchAudioDataSet over 32 seeded utterances (half WAV, half
+           FLAC, stereo and 8 kHz among them) read once through it and
+           once through the Python readers: bitwise equal batches, host
+           ms a batch of each; (d) fit_b's corpus (PCM16 WAVs) and
+           config_baseline.yaml's data settings, the recipe Conformer at
+           full width, 2 + 1 blocks, in configuration B: 2 epochs with
+           the float32 wire, then 2 with wire_dtype int16 and
+           device_audio_cache: every step's wave on the card bitwise
+           equal to the float32 run's, losses within 1e-6 (relative),
+           every epoch-2 batch gathered from the pool; the pool's MB,
+           data_wait_s an epoch and the bytes of wave and row indices
+           each step ships to the card.  Prints an {"aux": ...} line.
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -300,6 +330,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -3714,7 +3745,12 @@ def _dp_fit_check(state, tmp):
         f"magnitude {top:.3e} (tol 1e-4 of it); ranks bitwise equal "
         f"{[r['same'] for r in res_u + res_r]}; K3 / K4 launches per "
         f"rank (unbroken) {[(r['fwd'], r['bwd']) for r in res_u]} [{card}]")
-    check(listing == ["checkpoints", "hparams.yaml", "metrics.jsonl"],
+    # rank 0's TensorBoard events, where the tensorboard package is
+    # installed: one file, one writer
+    tb = importlib.util.find_spec("tensorboard") is not None
+    check(listing == ["checkpoints", "hparams.yaml", "metrics.jsonl"]
+          + ["tb"] * tb and (not tb or len(os.listdir(os.path.join(
+              exp_u, "tb"))) == 1),
           f"{label}: (c) the exp_dir holds {listing}")
     check(steps_logged == list(range(1, 2 * n + 1)),
           f"{label}: (c) metrics.jsonl's step lines {steps_logged}")
@@ -4821,6 +4857,455 @@ def phase_queue_a(state):
     state["timings"]["queue_a"] = summary
 
 
+# (a): the tolerance, of the larger of 1 and the CPU output's largest
+# magnitude; (b): the decoder's token inputs; (c): the loader's corpus
+AUX_TOL, AUX_TOKENS = 1e-3, 20
+# (a) / (b): the CPU reference runs rows 0-1 (full length, then ragged) of
+# the card's batch; every module compared so is row-wise
+AUX_ROWS = 2
+AUX_UTTS, AUX_SECS, AUX_BATCH = 32, (1.0, 2.5), 8
+AUX_WIRE_TOL = 1e-6
+
+
+def _aux_err(got, want):
+    """Largest difference over the larger of 1 and ``want``'s largest
+    magnitude, over a tensor or a tuple of them."""
+    import torch
+    if isinstance(want, tuple):
+        return max(_aux_err(g, w) for g, w in zip(got, want))
+    got, want = got.detach().cpu().double(), want.detach().double()
+    if got.shape != want.shape:
+        return math.inf
+    if not want.is_floating_point():
+        return 0.0 if torch.equal(got, want) else math.inf
+    return float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+
+
+def _aux_modules(state):
+    """(a) every A5 module on the card against the CPU."""
+    import copy
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.models import distances
+    from lasr_tpu_torch.modules import (embedding, fillier, subsampling,
+                                        vgg, wav2vec)
+    label, seed, card = "aux (a)", state["seed"], state["card"]
+    wav = torch.from_numpy(make_waves(seed + 20, BATCH)).cuda()
+    wav_len = torch.tensor([wav.shape[1] - 4000 * i for i in range(BATCH)],
+                           dtype=torch.int32, device=wav.device)
+    with torch.no_grad():
+        feats, feat_len = DeviceFrontend(["norm", "fbank:80"])(wav, wav_len)
+    rng = np.random.default_rng(seed + 21)
+    B, T = feats.shape[:2]
+    D = RECIPE["encoder_attention_dim"]
+    x320 = torch.from_numpy(rng.standard_normal((B, T, D)).astype(
+        np.float32))
+    cases = {
+        "VGG2L": (lambda: vgg.VGG2L(80, D), (feats, feat_len)),
+        "Conv2dSubsampling6": (lambda: subsampling.Conv2dSubsampling6(80, D),
+                               (feats, feat_len)),
+        "Conv2dSubsampling8": (lambda: subsampling.Conv2dSubsampling8(80, D),
+                               (feats, feat_len)),
+        "ConvPosEmbedding": (lambda: embedding.ConvPosEmbedding(D), (x320,)),
+    }
+    results, outputs = {}, {}
+
+    def run(name, make, args, seed_off, rows=True, cpu_args=None):
+        """``make()``'s module, seeded, on the CPU, then a copy of it (its
+        lazy layers built by that call) on the card, both in eval mode.
+        ``rows``: the CPU takes rows 0..AUX_ROWS-1 of the batch (of each
+        input's first dim, or ``cpu_args``), compared with those rows of
+        the card's outputs."""
+        torch.manual_seed(seed + seed_off)
+        cpu = make().eval()
+
+        def head(a):
+            return a[:AUX_ROWS] if rows else a
+
+        if cpu_args is None:
+            cpu_args = [head(a) if torch.is_tensor(a) else a for a in args]
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in cpu_args]
+        dev_args = [a.cuda() if torch.is_tensor(a) else a for a in args]
+        with torch.no_grad():
+            want = cpu(*cpu_args)
+            dev = copy.deepcopy(cpu).cuda().eval()
+            got = dev(*dev_args)
+            ms = time_ms(lambda: dev(*dev_args), iters=3, warmup=1,
+                         repeats=1)
+        if isinstance(got, tuple):
+            err = _aux_err(tuple(head(g) for g in got), want)
+        else:
+            err = _aux_err(head(got), want)
+        check(err <= AUX_TOL, f"{label}: {name} on the card differs from "
+              f"the CPU by {err:.2e} (of its scale)")
+        results[name] = dict(card_ms=ms, err=err)
+        outputs[name] = (got, want)
+        return got, want
+
+    for i, (name, (make, args)) in enumerate(cases.items()):
+        run(name, make, args, i)
+    # the upsampling inverse on Conv2dSubsampling's output
+    (sub, _), _ = run("Conv2dSubsampling", lambda: subsampling
+                      .Conv2dSubsampling(80, D), (feats, feat_len), 10)
+    run("Conv2dUpsampling", lambda: subsampling.Conv2dUpsampling(80, D),
+        (sub,), 11)
+    # the wav2vec stack on the raw waves, the negatives one index tensor
+    z, _ = run("ConvFeatureExtractionModel",
+               wav2vec.ConvFeatureExtractionModel, (wav,), 12)
+    c, _ = run("ConvAggegator", wav2vec.ConvAggegator, (z,), 13)
+    idx = wav2vec.Wav2VecPredictionsModel(512, 512).sample_indices(
+        B, z.shape[1], torch.Generator().manual_seed(seed))
+    (logits, labels, valid), _ = run(
+        "Wav2VecPredictionsModel", lambda: _RowsFirst(
+            wav2vec.Wav2VecPredictionsModel(512, 512)), (c, z, None, idx),
+        14, cpu_args=(c[:AUX_ROWS], z[:AUX_ROWS], None,
+                      idx[:, :AUX_ROWS]))
+    run("cpc_loss", lambda: _Fn(wav2vec.cpc_loss), (
+        *(x.transpose(0, 1) for x in (logits, labels, valid)),), 15,
+        rows=False)
+    # the fillier stack on the fbank frames (NHWC, one channel)
+    emb, _ = run("EmbeddingModel", fillier.EmbeddingModel,
+                 (feats[..., None],), 16)
+    head_in = emb.permute(0, 3, 1, 2)[..., :1].contiguous()
+    run("Classification", lambda: fillier.Classification(
+        96, head_in.shape[2], 10), (head_in,), 17)
+    # the five distances on (8, 250, 320)
+    a = torch.from_numpy(rng.standard_normal((B, 250, D)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((B, 250, D)).astype(np.float32))
+    pa, pb = torch.softmax(a, -1), torch.softmax(b, -1)
+    y = torch.from_numpy(rng.integers(0, D, (B, 250)))
+    for name, fn, args in (
+            ("SeqCrossEntropy", distances.SeqCrossEntropy(), (a, y)),
+            ("SeqCosineSimilarity", distances.SeqCosineSimilarity(), (a, b)),
+            ("SeqPairwiseDistance", distances.SeqPairwiseDistance(), (a, b)),
+            ("SeqKLDistance", distances.SeqKLDistance(), (pa, pb)),
+            ("SeqCEDistance", distances.SeqCEDistance(), (pa, pb))):
+        run(name, lambda fn=fn: _Fn(fn), args, 18, rows=False)
+    log(f"{label}: card against CPU (rows 0-{AUX_ROWS - 1}), f32, B={B} x "
+        f"{SECS:g} s (T={T} fbank frames, ragged), error of the larger of 1 "
+        f"and the output's largest magnitude (tol {AUX_TOL:g}) and card ms: "
+        + "; ".join(f"{k} {v['err']:.1e}, {v['card_ms']:.2f} ms"
+                    for k, v in results.items()) + f" [{card}]")
+    return results
+
+
+class _Fn:
+    """A function as ``run``'s module (``eval`` / ``cuda`` no-ops)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def eval(self):
+        return self
+
+    def cuda(self):
+        return self
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+def _RowsFirst(head):
+    """The prediction head with its (copies, B, steps, T) outputs batch
+    first."""
+    import torch
+
+    class RowsFirst(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.head = head
+
+        def forward(self, *args):
+            return tuple(x.transpose(0, 1) for x in self.head(*args))
+    return RowsFirst()
+
+
+def _aux_attentions(state, sd):
+    """(b) calculate_all_attentions on the recipe Conformer, card and
+    CPU."""
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.modules.attention import \
+        RelPositionMultiHeadedAttention
+    from lasr_tpu_torch.utils.plot import calculate_all_attentions
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    label, seed, card = "aux (b)", state["seed"], state["card"]
+    kernels = _kernel_counters()
+    wav = torch.from_numpy(make_waves(seed + 22, BATCH)).cuda()
+    wav_len = torch.tensor([wav.shape[1] - 8000 * i for i in range(BATCH)],
+                           dtype=torch.int32, device=wav.device)
+    with torch.no_grad():
+        feats, feat_len = DeviceFrontend(["norm", "fbank:80"])(wav, wav_len)
+    rng = np.random.default_rng(seed + 22)
+    ys_in = torch.from_numpy(rng.integers(6, RECIPE["odim"],
+                                          (BATCH, AUX_TOKENS)))
+    ys_in[:, 0] = 1
+    maps, times = {}, {}
+    for where in ("card", "cpu"):
+        model = E2E_Conformer_CTC(**RECIPE, device=None if where == "card"
+                                  else "cpu")
+        load_model_weights(model, sd)
+        model.encoder.rot_fold = False
+        for m in model.modules():
+            if isinstance(m, RelPositionMultiHeadedAttention):
+                m.rot_fold = False
+        args = (feats, feat_len, ys_in) if where == "card" else (
+            feats[:AUX_ROWS].cpu(), feat_len[:AUX_ROWS].cpu(),
+            ys_in[:AUX_ROWS])
+        t = time.perf_counter()
+        maps[where] = calculate_all_attentions(model, *(
+            a.cuda() if where == "card" else a for a in args))
+        times[where] = time.perf_counter() - t
+        del model
+    torch.cuda.empty_cache()
+    launched = {k: fn.launches for k, fn in kernels.items()}
+    want = 2 * RECIPE["decoder_num_block"] + RECIPE["encoder_num_blocks"]
+    check(sorted(maps["card"]) == sorted(maps["cpu"])
+          and len(maps["card"]) == want,
+          f"{label}: the card harvested {len(maps['card'])} maps, the CPU "
+          f"{len(maps['cpu'])}, expected {want}")
+    check(not any(launched.values()), f"{label}: the plain path launched "
+          f"kernels: {launched}")
+    errs = {k: float(np.abs(maps["card"][k][:AUX_ROWS]
+                            - maps["cpu"][k]).max()) for k in maps["card"]}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= AUX_TOL, f"{label}: the card's {worst} map differs "
+          f"from the CPU's by {errs[worst]:.2e}")
+    log(f"{label}: {len(errs)} maps ({RECIPE['encoder_num_blocks']} "
+        f"encoder self, {RECIPE['decoder_num_block']} decoder self and "
+        f"src), B={BATCH} x {SECS:g} s (the CPU rows 0-{AUX_ROWS - 1}), "
+        f"{AUX_TOKENS} tokens, rotated fold off: equal key sets, largest "
+        f"difference {errs[worst]:.1e} "
+        f"({worst}); {times['card']:.2f} s card, {times['cpu']:.2f} s CPU "
+        f"[{card}]")
+    return dict(maps=len(errs), max_err=errs[worst], card_s=times["card"],
+                cpu_s=times["cpu"])
+
+
+def _aux_loader(state, tmp):
+    """(c) the native loader against the Python readers over a seeded
+    WAV / FLAC corpus."""
+    from lasr_tpu_torch.data import dataset, native_loader
+    from lasr_tpu_torch.data.flac import write_flac
+    from lasr_tpu_torch.data.reader import write_wav
+    from lasr_tpu_torch.data.tokenizer import CharTokenizer
+    label, card = "aux (c)", state["card"]
+    built = not native_loader._LIB_PATH.exists()
+    t = time.perf_counter()
+    check(native_loader.available(), f"{label}: the native loader "
+          f"(csrc/wavio.cc) did not build")
+    build_s = time.perf_counter() - t
+    rng = np.random.default_rng(state["seed"] + 23)
+    d = os.path.join(tmp, "loader")
+    os.makedirs(d)
+    kinds = {}
+    with open(os.path.join(d, "wav.scp"), "w") as ws, \
+            open(os.path.join(d, "text"), "w") as tx:
+        for i in range(AUX_UTTS):
+            flac, stereo = i % 2 == 1, i % 4 < 2
+            rate = 8000 if i % 8 in (1, 6) else SR
+            tt = np.arange(int(rng.uniform(*AUX_SECS) * rate)) / rate
+            w = _wave(rng, tt)
+            if stereo:
+                w = np.stack([w, _wave(rng, tt)], axis=1)
+            path = os.path.join(d, f"u{i:02d}." + ("flac" if flac else "wav"))
+            (write_flac if flac else write_wav)(path, w, rate)
+            key = ("flac" if flac else "wav") + (" stereo" if stereo else
+                                                 " mono") + f" {rate}"
+            kinds[key] = kinds.get(key, 0) + 1
+            ws.write(f"u{i:02d} {path}\n")
+            tx.write(f"u{i:02d} {LETTERS[i % 26] * 3}\n")
+    dict_path = _char_dict(tmp, RECIPE["odim"])
+    calls = []
+    read_batch = native_loader.read_batch
+
+    def counted(*a, **k):
+        calls.append(len(a[0]))
+        return read_batch(*a, **k)
+
+    def read(native):
+        ds = dataset.BatchAudioDataSet(
+            wav_list=[os.path.join(d, "wav.scp")],
+            text_list=[os.path.join(d, "text")],
+            tokenizer=CharTokenizer(dict_path), audio_trans=["fbank:80"],
+            batch_type="size", batch_size=AUX_BATCH, min_duration=0.0,
+            text_freq=0.0)
+        ds.load_check_data()
+        out, ms = [], []
+        available = native_loader.available
+        try:
+            if not native:
+                native_loader.available = lambda: False
+            native_loader.read_batch = counted
+            for g in ds.batch_indices():
+                t0 = time.perf_counter()
+                out.append(ds.merge_batch([ds.train_set[i] for i in g]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            native_loader.available = available
+            native_loader.read_batch = read_batch
+        return out, ms
+
+    native, native_ms = read(True)
+    check(len(calls) == len(native) and sum(calls) == AUX_UTTS,
+          f"{label}: BatchAudioDataSet decoded {sum(calls)} of {AUX_UTTS} "
+          f"utterances in {len(calls)} native batch reads")
+    python, python_ms = read(False)
+    check(len(calls) == len(native), f"{label}: the Python-reader run "
+          f"called the native loader")
+    for a, b in zip(native, python):
+        check(all(np.array_equal(a[k], b[k]) for k in (
+            "wav_array", "wav_len", "token_id", "token_len")),
+            f"{label}: a native batch differs from the Python readers' "
+            f"({a['id'][:2]}...)")
+    res = dict(built=built, build_s=build_s, batches=len(native),
+               native_ms=float(np.mean(native_ms)),
+               python_ms=float(np.mean(python_ms)), kinds=kinds)
+    log(f"{label}: native loader "
+        f"{'built with g++ and ' if built else 'found built, '}loaded in "
+        f"{build_s:.2f} s; "
+        f"{AUX_UTTS} utterances ("
+        + ", ".join(f"{v} {k}" for k, v in kinds.items()) + ") "
+        f"in {len(native)} batches of {AUX_BATCH}: bitwise equal to the "
+        f"Python readers'; host ms a batch {res['native_ms']:.1f} native, "
+        f"{res['python_ms']:.1f} Python [{card}]")
+    return res
+
+
+def _aux_wire(state, tmp):
+    """(d) the int16 wire and the device audio pool against the float32
+    wire in fit."""
+    import torch
+    from lasr_tpu_torch.data.dataset import BatchAudioDataSet
+    from lasr_tpu_torch.data.tokenizer import CharTokenizer
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.train import trainer as trainer_mod
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    label, seed, card = "aux (d)", state["seed"], state["card"]
+    train, dev, dict_path = _fit_corpus(tmp, seed)
+    cfg, _, _ = _fit_configs(tmp, train, dev, dict_path)
+    data_kw = dict(cfg["train_data_config"]["kwargs"])
+    chain = data_kw["audio_trans"]
+    kw = dict(RECIPE, encoder_num_blocks=2, decoder_num_block=1,
+              encoder_use_pallas_attention=True)
+    torch.manual_seed(seed)
+    sd = E2E_Conformer_CTC(**kw, device="cpu").state_dict()
+    runs = {}
+    resolve = trainer_mod._DeviceAudioPool.resolve
+    train_step = trainer_mod.Trainer.train_step
+    for name, wire in (("float32", {}), ("int16_pool", dict(
+            wire_dtype="int16", device_audio_cache=True))):
+        ds = BatchAudioDataSet(tokenizer=CharTokenizer(dict_path),
+                               **dict(data_kw, **wire))
+        ds.load_check_data()
+        model = E2E_Conformer_CTC(**kw)
+        load_model_weights(model, sd)
+        trainer = _trainer(model, chain, seed)
+        trainer.exp_dir = os.path.join(tmp, name)
+        rec = dict(waves=[], shipped=[], gathered=[], pool_mb=None)
+
+        def spy_resolve(pool, batch, rec=rec):
+            rec["pool_mb"] = pool.pool.numel() * pool.pool.element_size() \
+                / 2 ** 20
+            carried = "wav_array" in batch
+            rec["gathered"].append(not carried)
+            rec["shipped"].append(np.asarray(batch["wav_rows"]).nbytes + (
+                batch["wav_array"].nbytes if carried else 0))
+            return resolve(pool, batch)
+
+        def spy_step(self, tstate, batch, rec=rec):
+            w = torch.as_tensor(batch["wav_array"], device=self.device)
+            rec["waves"].append(w.float() * (1.0 / 32768.0)
+                                if w.dtype == torch.int16 else w)
+            return train_step(self, tstate, batch)
+
+        kernels = _kernel_counters()
+        trainer_mod._DeviceAudioPool.resolve = spy_resolve
+        trainer_mod.Trainer.train_step = spy_step
+        try:
+            t = time.perf_counter()
+            trainer.fit(trainer.init_state(), ds, num_epochs=2,
+                        num_workers=2, save_checkpoints=False)
+            fit_s = time.perf_counter() - t
+        finally:
+            trainer_mod._DeviceAudioPool.resolve = resolve
+            trainer_mod.Trainer.train_step = train_step
+        lines = _metrics(trainer.exp_dir)
+        steps = len(lines)
+        n_k3 = kernels["rel_attention_fwd"].launches
+        n_k4 = kernels["rel_attention_bwd"].launches
+        check(n_k3 == n_k4 == 2 * steps, f"{label}: {name}: K3 / K4 "
+              f"launched {n_k3} / {n_k4} times over {steps} steps, "
+              f"expected {2 * steps} each")
+        runs[name] = dict(rec, lines=lines, fit_s=fit_s, steps=steps)
+        del model, trainer
+        torch.cuda.empty_cache()
+    f32, pool = runs["float32"], runs["int16_pool"]
+    per_epoch = len(pool["gathered"]) // 2
+    check(pool["gathered"] == [False] * per_epoch + [True] * per_epoch,
+          f"{label}: the pool gathered {pool['gathered']} (carried in "
+          f"epoch 1, gathered in epoch 2 expected)")
+    check(len(f32["waves"]) == len(pool["waves"]) == f32["steps"] and all(
+        torch.equal(a, b) for a, b in zip(f32["waves"], pool["waves"])),
+        f"{label}: the int16 / pool waves on the card differ from the "
+        f"float32 wire's")
+    for a, b in zip(f32["lines"], pool["lines"]):
+        for k in ("loss_main", "att_loss", "ctc_loss"):
+            check(abs(a[k] - b[k]) <= AUX_WIRE_TOL * max(1.0, abs(a[k])),
+                  f"{label}: step {a['step']} {k} {b[k]} with the int16 "
+                  f"pool against {a[k]} with the float32 wire")
+
+    def wait(lines):
+        out = {}
+        for x in lines:
+            out[x["epoch"]] = out.get(x["epoch"], 0.0) + x["data_wait_s"]
+        return [out[e] for e in sorted(out)]
+
+    res = dict(steps=f32["steps"], pool_mb=pool["pool_mb"],
+               data_wait_s={k: wait(runs[k]["lines"]) for k in runs},
+               fit_s={k: runs[k]["fit_s"] for k in runs},
+               shipped_bytes=pool["shipped"],
+               float32_wave_bytes=[w.numel() * 4 for w in f32["waves"]],
+               losses=[x["loss_main"] for x in pool["lines"]])
+    log(f"{label}: {f32['steps']} steps a run (2 epochs of "
+        f"{per_epoch}), 2 + 1 blocks at d=320, K3 / K4 2 a step: the int16 "
+        f"wire with the pool gives the float32 wire's waves bitwise and "
+        f"its losses within {AUX_WIRE_TOL:g}; pool {res['pool_mb']:.1f} "
+        f"MB; data_wait_s an epoch {res['data_wait_s']}; bytes of wave "
+        f"and rows shipped a step {res['shipped_bytes']} (the float32 "
+        f"wire's waves {res['float32_wave_bytes']}); fit s {res['fit_s']} "
+        f"[{card}]")
+    return res
+
+
+def phase_aux(state):
+    """(a) the A5 modules, (b) the attention harvest, (c) the native
+    loader, (d) the int16 wire and the device audio pool."""
+    import torch
+    torch.cuda.empty_cache()
+    summary = {}
+    t = time.perf_counter()
+    summary["modules"] = _aux_modules(state)
+    summary["modules_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    summary["attentions"] = _aux_attentions(state,
+                                            _seeded_recipe(state["seed"]))
+    summary["attentions_s"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        summary["loader"] = _aux_loader(state, tmp)
+        summary["loader_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        summary["wire"] = _aux_wire(state, tmp)
+        summary["wire_s"] = time.perf_counter() - t
+    summary["card"] = state["card"]
+    torch.cuda.empty_cache()
+    print(json.dumps({"aux": summary}, default=float), flush=True)
+    state["timings"]["aux"] = summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4856,7 +5341,8 @@ def main(argv=None) -> int:
               ("train_stream", phase_train_stream),
               ("stream_rest", phase_stream_rest),
               ("fit_toy", phase_fit_toy), ("dp", phase_dp),
-              ("stretch_1b", phase_stretch_1b), ("queue_a", phase_queue_a)]
+              ("stretch_1b", phase_stretch_1b), ("queue_a", phase_queue_a),
+              ("aux", phase_aux)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()

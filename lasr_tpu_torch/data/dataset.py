@@ -17,9 +17,22 @@ masks.  The worker threads read and pad on the host only; they never
 touch the device.
 
 Every ``random.Random`` call is the JAX package's, so both packages give
-the same groups and the same epoch order for a seed.  Not ported:
-``wire_dtype="int16"`` and ``device_audio_cache`` (TPU host-link
-workarounds) raise ``NotImplementedError``.
+the same groups and the same epoch order for a seed.
+
+Decoding: an all-WAV/FLAC batch goes through the native C++ loader
+(``data.native_loader``, threads outside the GIL) where it builds, a
+rate other than 16 kHz then Kaiser-resampled; other batches, or a host
+without ``g++``, through the Python readers.  Both give the same bits.
+
+``wire_dtype="int16"``: the decoded-audio cache and the batch's
+``wav_array`` hold int16 on the readers' /32768 grid (PCM16 sources
+round-trip exactly; the padding value is quantized too), half the bytes
+of float32; the frontend dequantizes.  ``device_audio_cache``: every
+batch also carries ``wav_rows`` (each row's stable dataset row, padding
+rows the sentinel n) and ``wav_S``, from which the trainer's device
+audio pool (``train.trainer._DeviceAudioPool``) keeps the waves on the
+device after the first epoch; it needs waves that do not change with
+the epoch (no ``soxspeed``) and zero padding (``pad_audio`` 0).
 
 Data parallelism (``batches``): the hosts (``process_index`` of
 ``process_count``) take whole batches round-robin, as ``lasr_tpu``'s
@@ -40,7 +53,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from lasr_tpu_torch.data import reader, resample
+from lasr_tpu_torch.data import native_loader, reader, resample
 
 SAMPLE_RATE = 16000
 
@@ -70,6 +83,20 @@ def round_up(n: int, multiple: int) -> int:
     return ((max(n, 1) + multiple - 1) // multiple) * multiple
 
 
+def _quantize_i16(w: np.ndarray) -> np.ndarray:
+    """float [-1, 1) wave → int16 on the readers' /32768 grid; PCM-sourced
+    samples round-trip exactly."""
+    if w.dtype == np.int16:
+        return w
+    return np.clip(np.rint(w * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def _dequantize_i16(w: np.ndarray) -> np.ndarray:
+    if w.dtype == np.int16:
+        return w.astype(np.float32) / np.float32(32768.0)
+    return w
+
+
 def pad_stack(arrays: Sequence[np.ndarray], pad_value, length: int,
               dtype) -> np.ndarray:
     out = np.full((len(arrays), length) + arrays[0].shape[1:], pad_value,
@@ -96,14 +123,15 @@ class AudioDataSet:
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(
                 f"wire_dtype must be 'float32' or 'int16', got {wire_dtype!r}")
-        if wire_dtype != "float32":
-            raise NotImplementedError(
-                "wire_dtype='int16' (the TPU host-link format) is not ported "
-                "(ROADMAP A7)")
-        if device_audio_cache:
-            raise NotImplementedError(
-                "device_audio_cache (the TPU device waveform pool) is not "
-                "ported (ROADMAP A7)")
+        if device_audio_cache and audio_trans \
+                and "soxspeed" in list(audio_trans):
+            raise ValueError(
+                "device_audio_cache requires epoch-invariant waveforms; "
+                "soxspeed redraws the speed ratio per epoch — disable one")
+        if device_audio_cache and pad_audio:
+            raise ValueError(
+                "device_audio_cache requires pad_audio=0 (the pool's "
+                "sentinel row is zeros)")
         if isinstance(wav_list, str):
             wav_list = [wav_list]
         if isinstance(text_list, str):
@@ -120,9 +148,12 @@ class AudioDataSet:
         self.token_bucket = token_bucket
         self.batch_pad_multiple = batch_pad_multiple
         # decoded-audio RAM cache (MB budget; 0 = off): the post-resample
-        # 16 kHz float32 waves, before soxspeed (whose ratio changes with
-        # the epoch's seed), inserted until the budget is spent
+        # 16 kHz waves (int16 under wire_dtype 'int16'), before soxspeed
+        # (whose ratio changes with the epoch's seed), inserted until the
+        # budget is spent
         self.cache_audio_mb = cache_audio_mb
+        self.wire_dtype = wire_dtype
+        self.device_audio_cache = device_audio_cache
         self._wav_cache: Dict[str, np.ndarray] = {}
         self._wav_cache_bytes = 0
         self._cache_lock = threading.Lock()
@@ -140,6 +171,13 @@ class AudioDataSet:
         # stable row ids (after shuffle / sort / filter)
         for i, it in enumerate(self.train_set):
             it["row"] = i
+
+    def max_bucketed_samples(self) -> int:
+        """Upper bound of any batch's padded S (the device pool's row
+        width)."""
+        n = max((self.expected_samples(it) for it in self.train_set),
+                default=1)
+        return round_up(n, self.sample_bucket)
 
     def load_dataset(self) -> None:
         for wav_path, text_path in zip(self.wav_list, self.text_list):
@@ -181,32 +219,61 @@ class AudioDataSet:
     # ---- batch assembly ----
 
     def _read_waves(self, items: Sequence[Dict]) -> List[np.ndarray]:
-        """Batch audio as 16 kHz float32 waves, through the decoded-audio
-        cache when ``cache_audio_mb`` is set."""
+        """Batch audio as 16 kHz waves, through the decoded-audio cache
+        when ``cache_audio_mb`` is set: float32, or int16 when cached
+        under ``wire_dtype='int16'`` (``merge_batch`` takes both)."""
         paths = [it["wav"] for it in items]
         if not self.cache_audio_mb:
-            return [self._decode_wave(p) for p in paths]
-        out = []
+            return self._decode_waves(paths)
+        with self._cache_lock:
+            missing = [p for p in paths if p not in self._wav_cache]
+        decoded = dict(zip(missing, self._decode_waves(missing))) \
+            if missing else {}
         budget = self.cache_audio_mb * 2 ** 20
-        for p in paths:
-            w = self._wav_cache.get(p)
-            if w is None:
-                w = self._decode_wave(p)
-                with self._cache_lock:
-                    if p not in self._wav_cache and \
-                            self._wav_cache_bytes + w.nbytes <= budget:
-                        self._wav_cache[p] = w
-                        self._wav_cache_bytes += w.nbytes
-            out.append(w)
-        return out
+        with self._cache_lock:
+            for p, w in decoded.items():
+                if self.wire_dtype == "int16":
+                    w = decoded[p] = _quantize_i16(w)
+                if p not in self._wav_cache and \
+                        self._wav_cache_bytes + w.nbytes <= budget:
+                    # a copy: the native loader's rows are views into the
+                    # whole (B, max_s) batch buffer
+                    self._wav_cache[p] = np.ascontiguousarray(w)
+                    self._wav_cache_bytes += w.nbytes
+            return [decoded[p] if p in decoded else self._wav_cache[p]
+                    for p in paths]
 
     @staticmethod
-    def _decode_wave(path: str) -> np.ndarray:
-        wav, sr = reader.read_audio(path)
-        wav = reader.average_channels(wav)
-        if sr != SAMPLE_RATE:
-            wav = resample.resample_kaiser(wav, sr, SAMPLE_RATE)
-        return np.asarray(wav, dtype=np.float32)
+    def _decode_waves(paths: Sequence[str]) -> List[np.ndarray]:
+        """Decode audio paths: the native loader for an all-WAV/FLAC batch
+        when it builds, the Python readers otherwise; 16 kHz float32."""
+        if paths and all(p.lower().endswith((".wav", ".flac"))
+                         for p in paths):
+            try:
+                if native_loader.available():
+                    infos = [native_loader.wav_info(p) for p in paths]
+                    max_s = max(max(n for n, _, _ in infos), 1)
+                    wav, lens, rates = native_loader.read_batch(paths, max_s)
+                    out = []
+                    for i in range(len(paths)):
+                        w = wav[i, : lens[i]]
+                        if rates[i] != SAMPLE_RATE:
+                            w = resample.resample_kaiser(
+                                w, int(rates[i]), SAMPLE_RATE
+                            ).astype(np.float32)
+                        out.append(w)
+                    return out
+            except ValueError as e:
+                logging.warning("native loader failed (%s); python "
+                                "fallback", e)
+        out = []
+        for p in paths:
+            wav, sr = reader.read_audio(p)
+            wav = reader.average_channels(wav)
+            if sr != SAMPLE_RATE:
+                wav = resample.resample_kaiser(wav, sr, SAMPLE_RATE)
+            out.append(np.asarray(wav, dtype=np.float32))
+        return out
 
     def expected_samples(self, item: Dict, perturb_seed: int = 0) -> int:
         """Exact decoded length (16 kHz samples, soxspeed included) from
@@ -270,7 +337,7 @@ class AudioDataSet:
             # speed perturbation: resampling the wave by 1/ratio at a fixed
             # rate is the sox `speed` time-stretch
             waves = [self._speed_perturb(
-                w, _perturb_ratio(perturb_seed, it["id"]))
+                _dequantize_i16(w), _perturb_ratio(perturb_seed, it["id"]))
                 for w, it in zip(waves, items)]
         wave_lens = [len(w) for w in waves]
 
@@ -286,9 +353,17 @@ class AudioDataSet:
                     f"disagree")
             B, S, L = pad_to
 
-        wav_array = np.full((B, S), float(self.pad_audio), dtype=np.float32)
-        for i, w in enumerate(waves):
-            wav_array[i, : len(w)] = w
+        if self.wire_dtype == "int16":
+            pad_q = int(np.clip(round(float(self.pad_audio) * 32768.0),
+                                -32768, 32767))
+            wav_array = np.full((B, S), pad_q, dtype=np.int16)
+            for i, w in enumerate(waves):
+                wav_array[i, : len(w)] = _quantize_i16(w)
+        else:
+            wav_array = np.full((B, S), float(self.pad_audio),
+                                dtype=np.float32)
+            for i, w in enumerate(waves):
+                wav_array[i, : len(w)] = _dequantize_i16(w)
         wav_len = np.zeros((B,), dtype=np.int32)
         wav_len[: len(items)] = wave_lens
 
@@ -298,7 +373,7 @@ class AudioDataSet:
             token_id[i, : it["token_len"]] = it["token_id"]
             token_len[i] = it["token_len"]
 
-        return {
+        out = {
             "id": [it["id"] for it in items],
             "wav": [it["wav"] for it in items],
             "text": [it["text"] for it in items],
@@ -308,6 +383,13 @@ class AudioDataSet:
             "token_len": token_len,
             "n_utts": len(items),
         }
+        if self.device_audio_cache:
+            # padding rows point at the pool's zeros sentinel (row n)
+            rows = np.full((B,), len(self.train_set), dtype=np.int32)
+            rows[: len(items)] = [it["row"] for it in items]
+            out["wav_rows"] = rows
+            out["wav_S"] = int(S)
+        return out
 
     @staticmethod
     def _speed_perturb(wav: np.ndarray, ratio: float) -> np.ndarray:

@@ -130,3 +130,19 @@ class HuggingTokenizer(BaseTokenizer):
             ids = self.strip_special(ids)
         tokens = [self.get_id_token(i) for i in ids]
         return tokens, self.tokenizer.decode(ids).replace(" " + self.sc, "")
+
+    @staticmethod
+    def train_tokenizer(train_file, save_path, vocab_size=5000):
+        """Train a WordPiece model over whitespace pre-tokens of the text
+        file(s) ``train_file`` (the special tokens first) and save it as
+        ``save_path`` (pretty JSON)."""
+        from tokenizers import Tokenizer
+        from tokenizers.models import WordPiece
+        from tokenizers.pre_tokenizers import Whitespace
+        from tokenizers.trainers import WordPieceTrainer
+        tok = Tokenizer(WordPiece(unk_token=BaseTokenizer.ID_KEY_UNK))
+        tok.pre_tokenizer = Whitespace()
+        trainer = WordPieceTrainer(special_tokens=BaseTokenizer.SPECIAL_KEY,
+                                   vocab_size=vocab_size)
+        tok.train(files=train_file, trainer=trainer)
+        tok.save(save_path, pretty=True)

@@ -25,10 +25,21 @@ memory knob of the JAX module, is accepted and ignored at the model,
 a module holds ``n_head`` of the model's heads, its model rank's part
 (``head_shard``): every head-wise width is ``n_head * d_k``, and the
 replicated ``pos_bias_u`` / ``pos_bias_v`` are sliced to those heads.
+
+``capture_attention()`` is the counterpart of the JAX modules' ``sow`` of
+their probabilities into 'intermediates': inside the block, each module
+whose forward computes its probabilities (the softmax paths and the
+monotonic attention's forward) records the first (B, H, T1, T2) map of
+the block, before dropout.  The rot kernel's fold then takes its plain
+path, as the JAX fold leaves its Pallas kernel while intermediates are
+harvested; the rel kernel (``use_pallas``) computes no probabilities and
+records nothing, as in ``lasr_tpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 
@@ -43,6 +54,27 @@ from lasr_tpu_torch.modules.layers import Linear
 from lasr_tpu_torch.ops.rel_attention import rel_attention_context
 from lasr_tpu_torch.ops.rot_attention import rot_attention_context
 from lasr_tpu_torch.parallel import dist
+
+
+_CAPTURE: contextvars.ContextVar = contextvars.ContextVar(
+    "lasr_tpu_torch_attention_capture", default=None)
+
+
+@contextlib.contextmanager
+def capture_attention():
+    """Yields {module: its first detached probability map} of the block."""
+    maps = {}
+    token = _CAPTURE.set(maps)
+    try:
+        yield maps
+    finally:
+        _CAPTURE.reset(token)
+
+
+def _record(module: nn.Module, attn: torch.Tensor) -> None:
+    maps = _CAPTURE.get()
+    if maps is not None and module not in maps:
+        maps[module] = attn.detach()
 
 
 @functools.lru_cache(maxsize=8)
@@ -145,6 +177,7 @@ class MultiHeadedAttention(nn.Module):
             attn = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
         else:
             attn = torch.softmax(scores, dim=-1)
+        _record(self, attn)
         attn = dropout(attn, self.dropout_rate, self.training,
                        self._head_shard(1))
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v)
@@ -243,7 +276,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
             u = dropout(u, self.pos_dropout_rate, self.training,
                         self._head_shard(2))
         vt = torch.from_numpy(V).to(k.device, k.dtype)     # (T, M)
-        if self.rot_fold_pallas and self._kernel_ok(mask):
+        if self.rot_fold_pallas and self._kernel_ok(mask) \
+                and _CAPTURE.get() is None:
             hm = self._heads_major
             ctx = rot_attention_context(
                 hm(q_u), hm(u), hm(k), hm(v), vt,
@@ -351,6 +385,7 @@ class MTMultiHeadedAttention(MultiHeadedAttention):
         noise = standard_normal(scores) \
             if self.training and self.sigmoid_noise > 0 else None
         attn = self._monotonic(scores, mask, noise)
+        _record(self, attn)
         out = self._out(dropout(attn, self.dropout_rate, self.training), v)
         return (out, attn) if return_attn else out
 

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from lasr_tpu_torch.modules.dropout import dropout
+from lasr_tpu_torch.modules.layers import Conv1d
 
 
 def sinusoid_rows(positions, d_model: int) -> np.ndarray:
@@ -124,3 +125,17 @@ class RelPositionalEncoding(nn.Module):
                         self.training),
                 dropout(pos_emb, self.dropout_rate,
                         self.training and self.drop_pos))
+
+
+class ConvPosEmbedding(nn.Module):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1,
+                 kernel_size: int = 64, groups: int = 16):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.Conv_0 = Conv1d(d_model, d_model, kernel_size,
+                             padding=kernel_size // 2, groups=groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, T, d_model) → the same shape."""
+        h = self.Conv_0(x.transpose(1, 2))[..., : x.shape[1]].transpose(1, 2)
+        return x + torch.relu(dropout(h, self.dropout_rate, self.training))

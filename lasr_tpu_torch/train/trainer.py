@@ -57,6 +57,16 @@ above then hold over the data ranks, the model ranks of a data index
 drawing the same dropout.  Checkpoints stay whole reference ``.ckpt``
 files, gathered from the shards, so a run resumes on any layout.
 
+``fit`` also writes each ``metrics.jsonl`` train line's numeric fields
+(but ``epoch`` and ``step``) as TensorBoard scalars at the line's step,
+from rank 0, under ``exp_dir/tb`` (``_ScalarWriter``; without the
+``tensorboard`` package nothing is written).  A dataset with
+``device_audio_cache`` trains through a device audio pool
+(``_DeviceAudioPool``): the first epoch's batches scatter their waves
+into a (rows + 1, S_max) tensor on the device, later epochs ship only
+row indices and gather; under a process group of more than one rank the
+pool is off and the waves cross as they do without it.
+
 Checkpoints are reference Lightning ``.ckpt`` files named
 ``step-<step, 9 digits>.ckpt`` (names sort by step): ``state_dict`` with
 the model's weights and BatchNorm statistics under ``model.`` and the EMA
@@ -73,10 +83,12 @@ import json
 import logging
 import os
 import shutil
+import socket
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import yaml
 
@@ -166,6 +178,17 @@ class Trainer:
         # FSDP leaves' shards; the parameters themselves elsewhere)
         self.params = self.layout.params
         self.masters = self.layout.masters
+        self._tb = None
+
+    def _tb_writer(self):
+        """The TensorBoard writer of rank 0, made at first use; None
+        elsewhere, without ``exp_dir`` or without the package."""
+        if self._tb is None and self.exp_dir and self.rank == 0:
+            try:
+                self._tb = _ScalarWriter(os.path.join(self.exp_dir, "tb"))
+            except ImportError:
+                self._tb = False
+        return self._tb or None
 
     # ---- state ----
 
@@ -569,6 +592,18 @@ class Trainer:
             os.makedirs(self.exp_dir, exist_ok=True)
             metrics_path = os.path.join(self.exp_dir, "metrics.jsonl")
         save = save_checkpoints and bool(self.exp_dir)
+        pool = None
+        if getattr(train_dataset, "device_audio_cache", False):
+            if self.world > 1:
+                logging.warning("device_audio_cache is single-process only; "
+                                "falling back to the wire path")
+            else:
+                wire = getattr(train_dataset, "wire_dtype", "float32")
+                pool = _DeviceAudioPool(
+                    len(train_dataset.train_set),
+                    train_dataset.max_bucketed_samples(),
+                    torch.int16 if wire == "int16" else torch.float32,
+                    self.device)
 
         def checkpoint(valid_metrics, epoch_, batch_idx_):
             self.save_checkpoint(state, valid_metrics)
@@ -599,8 +634,12 @@ class Trainer:
             for batch in train_dataset.batches(
                     shuffle=True, seed=self.seed + epoch,
                     num_workers=num_workers, skip=skip, **shard):
+                if pool is not None:
+                    batch = pool.strip(batch)
                 t_data += time.perf_counter() - t_mark
                 t_mark = time.perf_counter()
+                if pool is not None:
+                    batch = pool.resolve(batch)
                 state, metrics = self.train_step(state, batch)
                 t_disp += time.perf_counter() - t_mark
                 batch_idx += 1
@@ -689,6 +728,98 @@ class Trainer:
                                           else v) for k, v in line.items()})
         if metrics_path:
             _append_line(metrics_path, line)
+        tb = self._tb_writer()
+        if tb is not None:
+            for k, v in line.items():
+                if isinstance(v, (int, float)) and k not in ("epoch", "step"):
+                    tb.add_scalar(k, v, step)
+            tb.flush()
+
+
+class _ScalarWriter:
+    """TensorBoard scalars in one events file under ``logdir``: the
+    ``Event`` records ``torch.utils.tensorboard.SummaryWriter`` writes for
+    ``add_scalar`` (tensorboard's protos and record framing), without that
+    module, whose import loads TensorFlow where it is installed (seconds
+    a process) and whose TensorFlow-free switch is process-wide."""
+
+    def __init__(self, logdir: str):
+        from tensorboard.summary.writer.record_writer import RecordWriter
+        from tensorboard.compat.proto import event_pb2, summary_pb2
+        self._event, self._summary = event_pb2.Event, summary_pb2.Summary
+        os.makedirs(logdir, exist_ok=True)
+        name = (f"events.out.tfevents.{int(time.time())}."
+                f"{socket.gethostname()}.{os.getpid()}")
+        self._records = RecordWriter(open(os.path.join(logdir, name), "wb"))
+        self._write(self._event(wall_time=time.time(),
+                                file_version="brain.Event:2"))
+
+    def _write(self, event) -> None:
+        self._records.write(event.SerializeToString())
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        self._write(self._event(
+            wall_time=time.time(), step=int(step),
+            summary=self._summary(value=[self._summary.Value(
+                tag=tag, simple_value=float(value))])))
+
+    def flush(self) -> None:
+        self._records.flush()
+
+    def close(self) -> None:
+        self._records.close()
+
+
+class _DeviceAudioPool:
+    """The waves of every dataset row, kept on the trainer's device
+    (dataset ``device_audio_cache``): an (n_rows + 1, S_max) tensor in the
+    wire dtype whose row n stays zeros (the row padding rows point at).
+    The first epoch's batches carry their waves, which ``resolve``
+    scatters into the pool at their stable rows; a batch whose rows are
+    all pooled loses its wave on the host (``strip``), ships only its row
+    indices, and ``resolve`` gathers it on the device.  ``fit`` strips
+    and resolves each batch in turn, so a stripped batch's rows were
+    scattered by an earlier batch.  Single-process only."""
+
+    def __init__(self, n_rows: int, s_max: int, dtype, device):
+        self.pool = torch.zeros((n_rows + 1, s_max), dtype=dtype,
+                                device=device)
+        self._have = np.zeros(n_rows + 1, dtype=bool)
+        self._have[n_rows] = True
+        logging.info("device audio pool: %d rows x %d samples (%s, %.1f "
+                     "MB)", n_rows, s_max, dtype,
+                     self.pool.numel() * self.pool.element_size() / 2 ** 20)
+
+    def strip(self, host_batch: Dict) -> Dict:
+        """Host side: drop the wave of a batch whose rows are all pooled
+        (and mark the rows of one that carries it)."""
+        rows = host_batch.get("wav_rows")
+        if rows is None:
+            return host_batch
+        if self._have[rows].all():
+            host_batch = dict(host_batch)
+            del host_batch["wav_array"]
+        else:
+            self._have[rows] = True
+        return host_batch
+
+    def resolve(self, batch: Dict) -> Dict:
+        """Device side: scatter a carried wave into the pool, or gather a
+        stripped batch's wave out of it."""
+        if batch.get("wav_rows") is None:
+            return batch
+        out = dict(batch)
+        rows = torch.as_tensor(batch["wav_rows"],
+                               device=self.pool.device).long()
+        out["wav_rows"] = rows
+        if "wav_array" in batch:
+            wav = torch.as_tensor(batch["wav_array"], device=self.pool.device)
+            self.pool[:, : wav.shape[1]].index_copy_(0, rows,
+                                                     wav.to(self.pool.dtype))
+            out["wav_array"] = wav
+        else:
+            out["wav_array"] = self.pool[rows, : batch["wav_S"]]
+        return out
 
 
 def _atomic_save(blob: Dict, path: str) -> None:

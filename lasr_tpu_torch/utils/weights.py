@@ -19,7 +19,15 @@ numpy arrays) into the reference-named torch ``state_dict``:
   batch_stats */{mean,var}      → */running_{mean,var} (+ num_batches_tracked)
 
 Layouts: Linear (in,out) → (out,in); Conv2d (kh,kw,in,out) →
-(out,in,kh,kw); Conv1d (k,in/g,out) → (out,in/g,k).
+(out,in,kh,kw); Conv1d (k,in/g,out) → (out,in/g,k), grouped or not; a
+``ConvTranspose_k`` kernel (kh,kw,in,out) → ``ConvTranspose2d``'s
+(in,out,kh,kw) flipped in both spatial axes (Flax correlates with the
+kernel as it is, torch with it flipped); a 3-D ``DenseGeneral`` kernel
+(in,out,steps) → (steps,out,in).  The auxiliary modules (``modules.vgg``,
+``fillier``, ``wav2vec``, ``ConvPosEmbedding``, ``Conv2dUpsampling``)
+keep Flax's layer names, so these rules carry them as they are, and
+``lasr_tpu``'s ``torch_to_flax`` carries them back (all but the
+transpose convs, which it reads as plain convs).
 
 ``state_dict_to_numpy`` is the step back: a trained state_dict as numpy
 arrays, which ``lasr_tpu``'s ``torch_to_flax`` reads.
@@ -113,6 +121,8 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 4 and names[-2].startswith("ConvTranspose_"):
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1).copy()
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 3:

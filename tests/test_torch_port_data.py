@@ -204,9 +204,17 @@ def test_error_rate_matches(ref, hyp):
     (dict(device_audio_cache=True), "device_audio_cache"),
 ])
 def test_unported_options_raise(corpus, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        dataset.BatchAudioDataSet(wav_list=[corpus[0]],
-                                  text_list=[corpus[1]], **kw)
+    """Both options were refused until the port took them: now each is
+    accepted, and what lasr_tpu refuses raises its ValueError."""
+    ds = dataset.BatchAudioDataSet(wav_list=[corpus[0]],
+                                   text_list=[corpus[1]], **kw)
+    assert {k: getattr(ds, k) for k in kw} == kw
+    for bad, words in ((dict(audio_trans=["soxspeed", "fbank:80"]),
+                        "soxspeed"), (dict(pad_audio=0.5), "pad_audio")):
+        for cls in (dataset.BatchAudioDataSet, jax_dataset.BatchAudioDataSet):
+            with pytest.raises(ValueError, match=words):
+                cls(wav_list=[corpus[0]], text_list=[corpus[1]],
+                    **dict(kw, device_audio_cache=True, **bad))
     with pytest.raises(ValueError, match="wire_dtype"):
         dataset.AudioDataSet(wire_dtype="int8")
 

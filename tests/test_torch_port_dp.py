@@ -30,6 +30,7 @@ Every multi-process case runs under its own timeout, which kills its
 whole process group.
 """
 
+import importlib.util
 import json
 import os
 
@@ -214,9 +215,13 @@ def test_train_cli_on_two_cpu_ranks_writes_once_and_resumes(tmp_path):
         out_k[-6000:]
     assert "backend gloo, world size 2" in out
 
-    # rank 0 alone wrote: one tree, each line once
+    # rank 0 alone wrote: one tree, each line once, and one TensorBoard
+    # events file where the tensorboard package is installed
+    tb = importlib.util.find_spec("tensorboard") is not None
     assert sorted(os.listdir(straight)) == [
-        "checkpoints", "hparams.yaml", "metrics.jsonl"]
+        "checkpoints", "hparams.yaml", "metrics.jsonl"] + ["tb"] * tb
+    if tb:
+        assert len(os.listdir(os.path.join(straight, "tb"))) == 1
     assert [(x["epoch"], x["step"], "valid_loss_main" in x)
             for x in _lines(straight)] == [
         (0, 1, False), (0, 2, False), (0, 2, True), (1, 3, False),

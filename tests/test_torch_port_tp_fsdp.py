@@ -41,6 +41,7 @@ Every multi-process case runs under its own timeout
 (``torch_port_dp_worker.TIMEOUT_S``), which kills its process group.
 """
 
+import importlib.util
 import json
 import os
 
@@ -272,10 +273,14 @@ def test_train_cli_sharded_writes_whole_checkpoints_and_resumes_anywhere(
         assert rc == 0, out[-6000:]
     assert "world size 4" in outs[1][1] and \
         "2 data x 2 model ranks, fsdp 1" in outs[1][1]
-    # rank 0 alone wrote, whole reference checkpoints
+    # rank 0 alone wrote, whole reference checkpoints (and one
+    # TensorBoard events file where the tensorboard package is installed)
     sharded = exps["sharded_first"]
+    tb = importlib.util.find_spec("tensorboard") is not None
     assert sorted(os.listdir(sharded)) == ["checkpoints", "hparams.yaml",
-                                           "metrics.jsonl"]
+                                           "metrics.jsonl"] + ["tb"] * tb
+    if tb:
+        assert len(os.listdir(os.path.join(sharded, "tb"))) == 1
     wav = str(tmp_path / "x.wav")
     write_wav(wav, (0.2 * np.random.default_rng(7).standard_normal(
         9000)).astype(np.float32), 16000)
