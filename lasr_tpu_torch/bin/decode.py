@@ -7,8 +7,8 @@
 Loads the training ``hparams.yaml``, rebuilds tokenizer and model, averages
 the ``-avg`` newest (``-choose last``) or best (``-choose best``)
 checkpoints of a checkpoints root (EMA shadow preferred; a single
-``.ckpt``/``.pt`` file or a directory of reference ``.ckpt`` files works
-too), reads the test set with ``AudioDataSet`` and decodes it in batches
+``.ckpt``/``.pt`` file, a directory of reference ``.ckpt`` files or an
+orbax checkpoint works too), reads the test set with ``AudioDataSet`` and decodes it in batches
 of ``-batch`` utterances with the decode config's ``decode_method``,
 the JAX CLI's set (``decode.dispatch``): ``ctc_att`` (joint
 CTC/attention beam search, with RNNLM shallow fusion, ``nbest`` and
@@ -19,9 +19,11 @@ long-form decoding), ``ctc_att_online`` (its streaming form, for
 the JAX CLI's spelling), the alignment summary and an RTF line of JSON;
 writes ``<hyp> (<id>)`` lines to ``-output_file`` and, with ``nbest`` >
 1, ``{id}-{rank} {score:.4f} {text}`` lines to ``-output_file.nbest``.
-The LM checkpoint (``lm_path``) is a ``.pt``/``.ckpt`` state_dict, not
-``lasr_tpu``'s orbax directory (``decode.lm``).  ``-device`` (default
-``cuda``) picks the device.
+``-model_path`` may be ``lasr_tpu``'s orbax checkpoints root
+(``<exp>/checkpoints``), averaged as the JAX CLI averages it, and the
+LM checkpoint (``lm_path``) an orbax directory or root of ``lasr_tpu`` as
+well as a ``.pt``/``.ckpt`` state_dict (``decode.lm``).  ``-device``
+(default ``cuda``) picks the device.
 """
 
 import argparse

@@ -11,7 +11,10 @@ train_data_config / valid_data_config, each a ``{name, kwargs}`` block
 ``exp_dir/hparams.yaml`` (the four config blocks the decode CLI reads),
 ``metrics.jsonl`` and ``checkpoints/{last,best}``; with ``-auto_resume 1``
 (the default) a run in an ``exp_dir`` that holds checkpoints continues at
-the exact epoch and batch of the newest.
+the exact epoch and batch of the newest.  ``-resume_ckpt`` names a port
+``.ckpt`` or an orbax step directory of ``lasr_tpu``'s Trainer
+(``<exp>/checkpoints/last/<step>``): a run trained on a TPU goes on here
+from its step, weights, Adam state and EMA.
 
 ``-fp16 16`` builds the model with ``dtype=torch.bfloat16`` (bf16
 compute, float32 parameters, optimizer state and checkpoints), as the JAX
@@ -87,7 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-ema", default=0, type=int,
                         help="1 = keep an EMA shadow of the params")
     parser.add_argument("-acc_grads", default=1, type=int)
-    parser.add_argument("-resume_ckpt", default=None, type=str)
+    parser.add_argument("-resume_ckpt", default=None, type=str,
+                        help="a port .ckpt, or an orbax step directory "
+                             "of lasr_tpu (<exp>/checkpoints/last/<step>)")
     parser.add_argument("-auto_resume", default=1, type=int,
                         help="restore the newest checkpoint in exp_dir and "
                              "continue at the exact epoch/batch (0 "

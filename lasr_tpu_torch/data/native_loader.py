@@ -2,8 +2,7 @@
 (``csrc/wavio.cc``; counterpart of ``lasr_tpu/data/native_loader.py``).
 
 A host decoder: the shared library is built with ``g++`` at first use
-into ``lasr_tpu_torch/_build/libwavio.so`` (rebuilt when the source is
-newer, written through a temporary file and an atomic rename).  Decode
+into ``lasr_tpu_torch/_build/libwavio.so`` (``utils/native.py``).  Decode
 and channel averaging run outside the GIL, so the batch read scales
 across cores.  ``available()`` is False when no compiler or library is
 there, and callers use the Python readers.
@@ -13,38 +12,24 @@ from __future__ import annotations
 
 import ctypes
 import logging
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "wavio.cc"
-_LIB_PATH = _PKG / "_build" / "libwavio.so"
+from lasr_tpu_torch.utils.native import build_shared, paths
 
+_SRC, _LIB_PATH = paths("wavio")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
 def _build() -> Optional[Path]:
-    if _LIB_PATH.exists() and \
-            _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime:
-        return _LIB_PATH
-    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.tmp{os.getpid()}")
     try:
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-             str(_SRC), "-o", str(tmp)],
-            check=True, capture_output=True)
-        os.replace(tmp, _LIB_PATH)
-        return _LIB_PATH
-    except (OSError, subprocess.CalledProcessError) as e:
-        tmp.unlink(missing_ok=True)
+        return build_shared("wavio", ("-pthread",))
+    except RuntimeError as e:
         logging.warning("native wavio build failed (%s); using python reader",
                         e)
         return None

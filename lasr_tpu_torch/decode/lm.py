@@ -7,44 +7,43 @@ The LM is described by the decode config's optional ``lm_config`` block
 ``lasr_tpu_torch.modules.rnn``) and ``lm_path``; shallow fusion is on
 when both are present and ``lm_rate`` > 0.
 
-Checkpoint format: ``lm_path`` is what ``utils.weights.
-load_reference_checkpoint`` reads — a ``.pt``/``.ckpt`` state_dict file
-of the port's ``RNNCellStack`` (``utils.weights.rnnlm_flax_to_state_dict``
-writes one from ``lasr_tpu``'s parameters) or a port checkpoints root.
-``lasr_tpu``'s ``lm_path`` is an orbax directory, which this package
-cannot read yet (ROADMAP A2, reading ``lasr_tpu``'s orbax checkpoints):
-given one, it raises.
+Checkpoint format: ``lm_path`` is read as ``lasr_tpu`` reads it: an
+orbax checkpoints root of ``lasr_tpu``'s Trainer (its newest ``last``
+step, the EMA shadow preferred) or one orbax checkpoint directory (its
+``params``), mapped through ``utils.weights.rnnlm_flax_to_state_dict``;
+or what ``utils.weights.load_reference_checkpoint`` reads — a
+``.pt``/``.ckpt`` state_dict file of the port's ``RNNCellStack`` or a
+port checkpoints root.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from typing import Optional, Tuple
 
 from lasr_tpu_torch import resolve_device
 from lasr_tpu_torch.modules.rnn import RNNLM
 from lasr_tpu_torch.utils.registry import BaseConfig
+from lasr_tpu_torch.utils.ocdbt import load_tree
 from lasr_tpu_torch.utils.weights import (load_model_weights,
-                                          load_reference_checkpoint)
+                                          load_reference_checkpoint,
+                                          orbax_item, orbax_variables,
+                                          read_orbax,
+                                          rnnlm_flax_to_state_dict)
 
 
-def _has_checkpoints(path: str) -> bool:
-    return any(os.path.isdir(d) and any(n.endswith(".ckpt")
-                                        for n in os.listdir(d))
-               for d in (path, os.path.join(path, "last")))
-
-
-def load_lm_state_dict(lm_path: str):
-    """The LM's state_dict from a checkpoint file or a checkpoints root
-    (its newest ``last`` checkpoint, as ``lasr_tpu`` restores it)."""
-    if os.path.isdir(lm_path) and not _has_checkpoints(lm_path):
-        raise NotImplementedError(
-            f"lm_path {lm_path!r} is a directory without .ckpt files (an "
-            f"orbax checkpoint of lasr_tpu?); the port reads a .pt/.ckpt "
-            f"state_dict or its checkpoints root; reading orbax is ROADMAP "
-            f"A2")
-    return load_reference_checkpoint(lm_path, "last", avg=1)
+def load_lm_state_dict(lm_path: str, typ: str = "lstm"):
+    """The LM's state_dict from ``lm_path`` (see the module docstring);
+    ``typ`` is the cell type of an orbax tree."""
+    item = orbax_item(lm_path)
+    if item is not None:
+        params = load_tree(item)
+    else:
+        tree = read_orbax(lm_path, "last", avg=1)
+        if tree is None:
+            return load_reference_checkpoint(lm_path, "last", avg=1)
+        params, _ = orbax_variables(tree)
+    return rnnlm_flax_to_state_dict(params, typ)
 
 
 def build_lm(decode_cfg: dict, device=None
@@ -65,5 +64,5 @@ def build_lm(decode_cfg: dict, device=None
                         "decoding without LM fusion", lm_rate)
         return None, 0.0
     module = BaseConfig(**lm_conf).generateExample(device=device)
-    load_model_weights(module, load_lm_state_dict(lm_path))
+    load_model_weights(module, load_lm_state_dict(lm_path, module.typ))
     return RNNLM(module), lm_rate

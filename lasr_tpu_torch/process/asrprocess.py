@@ -3,15 +3,15 @@
 
 Builds tokenizer and model from the training config (class names written
 for ``lasr_tpu`` or the reference resolve onto this package), loads a
-reference-format checkpoint (a ``.pt``/``.ckpt`` file, the port's
-checkpoints root or a directory of ``.ckpt`` files, averaged, EMA shadow
-preferred), resamples the WAV to 16 kHz with the dataset's Kaiser
+checkpoint (a ``.pt``/``.ckpt`` file, the port's checkpoints root, a
+directory of ``.ckpt`` files, or ``lasr_tpu``'s orbax checkpoints root or
+directory, averaged, EMA shadow preferred), resamples the WAV to 16 kHz with the dataset's Kaiser
 resampler, applies the decode config's ``audio_trans`` frontend on the
 device, decodes and detokenizes.
 
 Decode methods: those of the decode CLI (``decode.dispatch``):
 ``ctc_att`` (joint CTC/attention beam search; RNNLM shallow fusion with
-``lm_rate``, ``lm_config`` and a ``.pt``/``.ckpt`` ``lm_path``; long-form
+``lm_rate``, ``lm_config`` and a ``.pt``/``.ckpt`` or orbax ``lm_path``; long-form
 decoding with ``longform_segment_frames``), ``ctc_att_online`` (its
 streaming form, for ``E2E_Transformer_CTC_Online``), ``ctc_greedy``,
 ``ctc_bs``, ``ctc_kenlm`` / ``ctc_kenlm_lexcoin`` and ``wfst``, whose

@@ -74,7 +74,10 @@ shadow under ``model_ema.`` (the dots of each name removed, as LitEma keys
 it), which the ``ASRProcess`` of both packages reads; ``global_step``;
 ``optimizer_states`` (Adam's moments and count, in ``torch.optim.Adam``'s
 state_dict layout); and the accumulated gradient with ``mini_step``.
-Restoring one gives back the whole train state.
+Restoring one gives back the whole train state.  ``restore_checkpoint``
+also takes an orbax step directory of ``lasr_tpu``'s Trainer (the train
+CLI's ``-resume_ckpt``): its step, weights, BatchNorm statistics, optax
+Adam state and EMA, mapped by the weight bridge's names.
 """
 
 from __future__ import annotations
@@ -99,7 +102,10 @@ from lasr_tpu_torch.parallel import dist, sharding
 from lasr_tpu_torch.parallel.tensor import apply_tensor_parallel
 from lasr_tpu_torch.train.ema import ema_init, ema_update
 from lasr_tpu_torch.train.optimizer import clip_by_global_norm
-from lasr_tpu_torch.utils.weights import checkpoint_name, checkpoint_steps
+from lasr_tpu_torch.utils.ocdbt import load_tree
+from lasr_tpu_torch.utils.weights import (checkpoint_name, checkpoint_steps,
+                                          flax_to_state_dict, orbax_item,
+                                          unstack_scan_layers)
 
 # a step's metrics under E2E_Loss (a criterion's own keys and grad_norm
 # in general)
@@ -492,8 +498,11 @@ class Trainer:
         device: the model's weights and BatchNorm statistics in place, and
         the returned ``TrainState`` (step, Adam moments and count, the
         EMA, the accumulated gradient and ``mini_step``).  ``path`` names a
-        file; otherwise ``step`` (default: the newest) of
+        file, or an orbax step directory of ``lasr_tpu``'s Trainer
+        (``_restore_orbax``); otherwise ``step`` (default: the newest) of
         ``exp_dir/checkpoints/last``."""
+        if path is not None and os.path.isdir(path):
+            return self._restore_orbax(path)
         if path is None:
             step = self.latest_step() if step is None else step
             if step is None:
@@ -503,32 +512,76 @@ class Trainer:
                                 checkpoint_name(step))
         blob = torch.load(path, map_location="cpu", weights_only=False)
         sd = blob["state_dict"]
-        model_sd = {k[len("model."):]: v for k, v in sd.items()
-                    if k.startswith("model.")}
+        self._load_model({k[len("model."):]: v for k, v in sd.items()
+                          if k.startswith("model.")}, path)
+        opt = blob["optimizer_states"][0]["state"]
+        order = range(len(self.params))
+        opt_state = {"count": int(opt[0]["step"]) if opt else 0,
+                     "mu": self._local([opt[i]["exp_avg"] for i in order]),
+                     "nu": self._local([opt[i]["exp_avg_sq"]
+                                        for i in order])}
+        ema = None
+        if self.use_ema:
+            ema = {"shadow": self._local([sd["model_ema." + n.replace(".", "")]
+                                          for n in self.names]),
+                   "num_updates": int(sd["model_ema.num_updates"])}
+        acc = blob.get("accumulated_grads")
+        return TrainState(step=int(blob["global_step"]), opt_state=opt_state,
+                          ema=ema,
+                          acc_grads=None if acc is None else self._local(acc),
+                          mini_step=int(blob.get("mini_step", 0)))
+
+    def _load_model(self, model_sd: Dict, source: str) -> None:
+        """The model's weights and buffers from a whole state_dict."""
         missing = set(self.model.state_dict()) - set(model_sd)
         if missing:
-            raise KeyError(f"{path} lacks {sorted(missing)[:5]}")
+            raise KeyError(f"{source} lacks {sorted(missing)[:5]}")
         params = set(self.names)
         self.model.load_state_dict({k: v for k, v in model_sd.items()
                                     if k not in params}, strict=False)
         self.layout.load_full(model_sd)
-        # every rank's shard of each whole leaf
-        dev = lambda ts: self.layout.local_list(  # noqa: E731
-            [t.to(self.device) for t in ts])
-        opt = blob["optimizer_states"][0]["state"]
-        order = range(len(self.params))
-        opt_state = {"count": int(opt[0]["step"]) if opt else 0,
-                     "mu": dev([opt[i]["exp_avg"] for i in order]),
-                     "nu": dev([opt[i]["exp_avg_sq"] for i in order])}
+
+    def _local(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole leaves (in ``self.names`` order) as this rank's shards on
+        the trainer's device."""
+        return self.layout.local_list([t.to(self.device) for t in tensors])
+
+    def _restore_orbax(self, path: str) -> TrainState:
+        """Resume from ``lasr_tpu``'s orbax checkpoint of a train state
+        (``<root>/last/<step>`` or its ``default``): the step, the
+        parameters and BatchNorm statistics, optax's Adam state (its
+        ``count``, and ``mu`` / ``nu`` named as the parameters are by
+        the weight bridge, in ``self.names`` order), the EMA and, under
+        ``optax.MultiSteps``, the accumulated gradient and ``mini_step``.
+        ``encoder_scan_layers`` trees are unstacked."""
+        item = orbax_item(path)
+        if item is None:
+            raise FileNotFoundError(f"{path} holds no orbax checkpoint")
+        tree = load_tree(item)
+
+        def named(params) -> List[torch.Tensor]:
+            sd = flax_to_state_dict({"params": unstack_scan_layers(params)})
+            return self._local([sd[n] for n in self.names])
+
+        self._load_model(flax_to_state_dict({
+            "params": unstack_scan_layers(tree["params"]),
+            "batch_stats": unstack_scan_layers(tree.get("batch_stats")
+                                               or {})}), path)
+        adam = _find_node(tree["opt_state"], ("count", "mu", "nu"))
+        if adam is None:
+            raise ValueError(f"{path}: the optimizer state holds no Adam "
+                             f"moments (count, mu, nu)")
+        multi = _find_node(tree["opt_state"], ("mini_step", "acc_grads"))
+        opt_state = {"count": int(adam["count"]), "mu": named(adam["mu"]),
+                     "nu": named(adam["nu"])}
         ema = None
         if self.use_ema:
-            ema = {"shadow": dev([sd["model_ema." + n.replace(".", "")]
-                                  for n in self.names]),
-                   "num_updates": int(sd["model_ema.num_updates"])}
-        acc = blob.get("accumulated_grads")
-        return TrainState(step=int(blob["global_step"]), opt_state=opt_state,
-                          ema=ema, acc_grads=None if acc is None else dev(acc),
-                          mini_step=int(blob.get("mini_step", 0)))
+            ema = {"shadow": named(tree["ema"]["shadow"]),
+                   "num_updates": int(tree["ema"]["num_updates"])}
+        return TrainState(
+            step=int(tree["step"]), opt_state=opt_state, ema=ema,
+            acc_grads=None if multi is None else named(multi["acc_grads"]),
+            mini_step=0 if multi is None else int(multi["mini_step"]))
 
     # the loop state (epoch, batch index within it) of each saved step, so
     # a resumed run re-enters the same deterministic batch order mid-epoch
@@ -820,6 +873,24 @@ class _DeviceAudioPool:
         else:
             out["wav_array"] = self.pool[rows, : batch["wav_S"]]
         return out
+
+
+def _find_node(tree, keys):
+    """The first dict in ``tree`` (an orbax optimizer state: dicts and
+    lists) that holds every one of ``keys``, or None."""
+    if isinstance(tree, dict):
+        if all(k in tree for k in keys):
+            return tree
+        children = tree.values()
+    elif isinstance(tree, list):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _find_node(child, keys)
+        if found is not None:
+            return found
+    return None
 
 
 def _atomic_save(blob: Dict, path: str) -> None:

@@ -40,6 +40,14 @@ checkpoints root of the port's ``Trainer`` (``…/checkpoints``, whose
 two): its ``avg`` highest steps are averaged, as ``lasr_tpu``'s
 ``average_checkpoints`` picks them; or a directory of other ``.ckpt``
 files, averaged with the reference's filename-sort rule.
+
+``lasr_tpu``'s own checkpoints are orbax directories (``utils.ocdbt``
+reads them): a checkpoints root ``<root>/{last,best}/<step>/default``, of
+which ``read_orbax`` averages the ``avg`` highest steps of ``choose``'s
+manager as ``lasr_tpu``'s ``average_checkpoints`` does (the best manager
+keeps only its best steps), or one bare checkpoint directory.
+``orbax_variables`` takes the EMA shadow where there is one and names an
+``encoder_scan_layers`` tree's stacked blocks ``layers_{i}``.
 """
 
 from __future__ import annotations
@@ -47,11 +55,12 @@ from __future__ import annotations
 import logging
 import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from lasr_tpu_torch.utils.ocdbt import is_checkpoint_dir, load_tree
 
 CHECKPOINT_NAME = re.compile(r"step-(\d+)\.ckpt")
 
@@ -71,6 +80,15 @@ def checkpoint_steps(directory: str) -> Dict[int, str]:
         return {}
     return {int(m.group(1)): n for n in names
             if (m := CHECKPOINT_NAME.fullmatch(n))}
+
+
+def _numpy(leaf) -> np.ndarray:
+    """A tree leaf (numpy, JAX or torch) as numpy; a torch bfloat16 leaf,
+    which numpy lacks, widened to float32."""
+    if torch.is_tensor(leaf):
+        leaf = leaf.detach().cpu()
+        return (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
+    return np.asarray(leaf)
 
 
 def _flatten(tree, prefix=()):
@@ -115,7 +133,7 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     named torch state_dict of float32 tensors."""
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables.get("params", {})):
-        arr = np.asarray(arr)
+        arr = _numpy(arr)
         names = _torch_path(path)
         leaf = names[-1]
         if leaf == "kernel":
@@ -134,11 +152,92 @@ def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     for path, arr in _flatten(variables.get("batch_stats", {})):
         names = _torch_path(path)
         names[-1] = {"mean": "running_mean", "var": "running_var"}[names[-1]]
-        sd[".".join(names)] = torch.tensor(np.asarray(arr))
+        sd[".".join(names)] = torch.tensor(_numpy(arr))
         if names[-1] == "running_mean":
             sd[".".join(names[:-1] + ["num_batches_tracked"])] = \
                 torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def _flax_path(names):
+    """The inverse of ``_torch_path``."""
+    out, i = [], 0
+    while i < len(names):
+        p = names[i]
+        nxt = names[i + 1] if i + 1 < len(names) else None
+        step = 2
+        if p in ("encoders", "decoders"):
+            out.append(f"layers_{nxt}")
+        elif p == "embed" and nxt == "conv":
+            out += ["embed", f"Conv_{int(names[i + 2]) // 2}"]
+            step = 3
+        elif p == "embed" and nxt == "out":
+            out += ["embed", "Dense_0"]
+            step = 3
+        elif p == "embed" and nxt == "0":
+            out.append("embed_tok")
+        elif p == "feed_forward" and nxt in ("w_1", "w_2"):
+            out += [p, "Dense_0" if nxt == "w_1" else "Dense_1"]
+        elif p == "ctc" and nxt == "1":
+            out += ["ctc", "Dense_0"]
+        else:
+            out.append(p)
+            step = 1
+        i += step
+    return out
+
+
+def _insert(tree: Dict, path, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def model_to_flax(model: torch.nn.Module, tensors: Optional[Dict] = None
+                  ) -> Dict:
+    """The inverse of ``flax_to_state_dict`` for a port model:
+    ``{"params", "batch_stats"}`` in ``lasr_tpu``'s names and layouts,
+    numpy leaves, from the model's parameters and BatchNorm running
+    statistics, or from ``tensors`` named as its parameters (Adam moments,
+    an EMA shadow; then ``batch_stats`` is empty).  Each weight's module
+    type names it: ``embedding``, ``scale`` (norms) or ``kernel``.
+
+    No entry point of the port calls it: it exists so that a port model's
+    state can be written as ``lasr_tpu``'s tree by ``utils.ocdbt.save_tree``
+    (how ``chip_smoke.py`` makes a full-width orbax checkpoints root on a
+    machine without orbax, and how the tests write one)."""
+    from torch import nn
+    from torch.nn.modules.batchnorm import _NormBase
+    values = dict(model.named_parameters()) if tensors is None else tensors
+    out: Dict = {"params": {}, "batch_stats": {}}
+    for prefix, module in model.named_modules():
+        names = prefix.split(".") if prefix else []
+        for leaf, _ in module.named_parameters(recurse=False):
+            name = ".".join(names + [leaf])
+            if name not in values:
+                continue
+            arr = values[name].detach().cpu()
+            if leaf == "weight":
+                if isinstance(module, nn.Embedding):
+                    leaf = "embedding"
+                elif isinstance(module, (nn.LayerNorm, _NormBase)):
+                    leaf = "scale"
+                elif isinstance(module, nn.ConvTranspose2d):
+                    leaf, arr = "kernel", arr.permute(2, 3, 0, 1).flip(0, 1)
+                else:
+                    leaf = "kernel"
+                    arr = {2: lambda a: a.t(),
+                           3: lambda a: a.permute(2, 1, 0),
+                           4: lambda a: a.permute(2, 3, 1, 0)}[arr.ndim](arr)
+            _insert(out["params"], _flax_path(names) + [leaf],
+                    arr.contiguous().numpy())
+        if tensors is None and isinstance(module, _NormBase) \
+                and module.track_running_stats:
+            for buf, leaf in (("running_mean", "mean"), ("running_var",
+                                                         "var")):
+                _insert(out["batch_stats"], _flax_path(names) + [leaf],
+                        getattr(module, buf).detach().cpu().numpy())
+    return out
 
 
 _GATES = {"lstm": "ifgo", "gru": "rzn"}
@@ -151,12 +250,12 @@ def _cell_state_dict(cell, typ: str, prefix: str, suffix: str = ""):
     hidden-side Dense: the LSTM's biases sit on the hidden side, the
     GRU's on the input side except ``hn``'s."""
     def kernel(name):
-        return np.asarray(cell[name]["kernel"]).T
+        return _numpy(cell[name]["kernel"]).T
 
     def bias(name, like):
         b = cell[name].get("bias")
         return np.zeros(like.shape[0], like.dtype) if b is None \
-            else np.asarray(b)
+            else _numpy(b)
 
     gates = _GATES[typ]
     w_ih = [kernel("i" + g) for g in gates]
@@ -180,15 +279,15 @@ def rnnlm_flax_to_state_dict(params, typ: str = "lstm"
     sd: Dict[str, torch.Tensor] = {}
     embed = params["embed"]
     if "embedding" in embed:
-        sd["embed.weight"] = torch.tensor(np.asarray(embed["embedding"]))
+        sd["embed.weight"] = torch.tensor(_numpy(embed["embedding"]))
     else:
-        sd["embed.weight"] = torch.tensor(np.asarray(embed["kernel"]).T)
-        sd["embed.bias"] = torch.tensor(np.asarray(embed["bias"]))
+        sd["embed.weight"] = torch.tensor(_numpy(embed["kernel"]).T)
+        sd["embed.bias"] = torch.tensor(_numpy(embed["bias"]))
     n = sum(1 for k in params if k.startswith("cell_"))
     for i in range(n):
         sd.update(_cell_state_dict(params[f"cell_{i}"], typ, f"rnn.{i}."))
-    sd["lo.weight"] = torch.tensor(np.asarray(params["lo"]["kernel"]).T)
-    sd["lo.bias"] = torch.tensor(np.asarray(params["lo"]["bias"]))
+    sd["lo.weight"] = torch.tensor(_numpy(params["lo"]["kernel"]).T)
+    sd["lo.bias"] = torch.tensor(_numpy(params["lo"]["bias"]))
     return sd
 
 
@@ -300,6 +399,110 @@ def average_port_checkpoints(path: str, avg: int = 1):
             for k, v in total.items()}, names
 
 
+def orbax_item(path: str) -> Optional[str]:
+    """The orbax checkpoint directory at ``path`` (a bare one, or a
+    manager step holding ``default/``), or None."""
+    for item in (path, os.path.join(path, "default")):
+        if is_checkpoint_dir(item):
+            return item
+    return None
+
+
+def orbax_steps(directory: str) -> Dict[int, str]:
+    """{step: checkpoint directory} of an orbax ``CheckpointManager``
+    directory: its numeric step directories (orbax's unfinished
+    ``<step>.orbax-checkpoint-tmp-*`` ones are not numeric)."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return {}
+    return {int(n): item for n in names if n.isdigit()
+            and (item := orbax_item(os.path.join(directory, n)))}
+
+
+AVERAGED = ("params", "ema", "batch_stats")
+
+
+def average_orbax_checkpoints(directory: str, avg: int = 1):
+    """The ``params`` / ``ema`` / ``batch_stats`` trees averaged over the
+    ``avg`` highest steps of an orbax manager directory, as ``lasr_tpu``'s
+    ``average_checkpoints``: float leaves as float64 sums, newest step
+    first, divided and cast back to their dtype; other leaves the newest
+    step's.  Returns ``(tree, chosen_steps)``."""
+    steps = orbax_steps(directory)
+    chosen = sorted(steps, reverse=True)[:avg]
+    if not chosen:
+        raise FileNotFoundError(f"no orbax checkpoints under {directory}")
+    total = None
+    for step in chosen:
+        tree = load_tree(steps[step], top=AVERAGED)
+        leaves = dict(_flatten({k: v for k, v in tree.items() if v}))
+        if total is None:
+            dtypes = {p: t.dtype for p, t in leaves.items()
+                      if torch.is_floating_point(t)}
+            total = {p: t.double() if p in dtypes else t
+                     for p, t in leaves.items()}
+        else:
+            for p in dtypes:
+                total[p] += leaves[p].double()
+    out: Dict = {}
+    for path, leaf in total.items():
+        _insert(out, path, (leaf / len(chosen)).to(dtypes[path])
+                if path in dtypes else leaf)
+    return out, chosen
+
+
+def read_orbax(path: str, choose: str = "last", avg: int = 1
+               ) -> Optional[Dict]:
+    """The tree of a bare orbax checkpoint directory, or the average of
+    the ``avg`` highest steps of a checkpoints root's ``choose`` manager
+    (or of ``path`` itself when it is a manager directory); None when
+    ``path`` holds no orbax checkpoint."""
+    item = orbax_item(path)
+    if item is not None:
+        return load_tree(item, top=AVERAGED)
+    for directory in (os.path.join(path, choose), path):
+        if orbax_steps(directory):
+            tree, chosen = average_orbax_checkpoints(directory, avg)
+            logging.info("averaged orbax checkpoints of %s: steps %s",
+                         directory, chosen)
+            return tree
+    return None
+
+
+def unstack_scan_layers(tree):
+    """``encoder_scan_layers`` stacks the Conformer blocks' leaves
+    ``[num_blocks, …]`` under ``layers/block`` (``lasr_tpu/modules/
+    conformer.py``); return the tree with them as ``layers_{i}``.  A
+    pipelined encoder's ``pipe_stages`` tree raises: pipeline parallelism
+    is not ported (ROADMAP A8)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "pipe_stages":
+            raise NotImplementedError(
+                "a pipelined encoder's checkpoint (encoder_pipeline_stages "
+                "> 1): pipeline parallelism is not ported (ROADMAP A8)")
+        if k == "layers" and isinstance(v, dict) and set(v) == {"block"}:
+            leaves = list(_flatten(v["block"]))
+            for i in range(len(leaves[0][1])):
+                for path, leaf in leaves:
+                    _insert(out, (f"layers_{i}",) + path, leaf[i])
+        else:
+            out[k] = unstack_scan_layers(v)
+    return out
+
+
+def orbax_variables(tree: Dict) -> Tuple[Dict, Dict]:
+    """``(params, batch_stats)`` to decode with from an orbax train-state
+    tree: the EMA shadow where there is one (as ``lasr_tpu``'s
+    ``load_averaged_params``), the scanned blocks unstacked."""
+    params = tree["ema"]["shadow"] if tree.get("ema") else tree["params"]
+    return (unstack_scan_layers(params),
+            unstack_scan_layers(tree.get("batch_stats") or {}))
+
+
 def load_averaged_state_dict(path: str, choose: str = "last",
                              avg: int = 1) -> Dict:
     """The Lightning state_dict of a checkpoint file, or the average of a
@@ -308,6 +511,11 @@ def load_averaged_state_dict(path: str, choose: str = "last",
         return _read(path)
     if not os.path.isdir(path):
         raise FileNotFoundError(path)
+    tree = read_orbax(path, choose, avg)
+    if tree is not None:
+        params, batch_stats = orbax_variables(tree)
+        return flax_to_state_dict({"params": params,
+                                   "batch_stats": batch_stats})
     sub = os.path.join(path, choose)
     directory = sub if os.path.isdir(sub) else path
     ckpts = [n for n in os.listdir(directory) if n.endswith(".ckpt")]

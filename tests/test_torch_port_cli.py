@@ -15,7 +15,8 @@
     ``wfst`` (a lexicon, ARPA and TLG built here), on a checkpoint
     whose CTC head is made to emit letters (``write_emitting_checkpoint``).
     The LM is written twice from one set of weights: orbax for
-    ``lasr_tpu``, ``.pt`` for the port;
+    ``lasr_tpu``, ``.pt`` for the port; the port's decode with the orbax
+    LM equals its decode with the ``.pt`` one;
   - training flags the port lacks raise.
 
 This module imports no JAX at its top (the JAX CLIs load inside the
@@ -375,13 +376,23 @@ def test_train_cli_refuses_unported_flags(flag, value, tmp_path):
                          "-device", "cpu"])
 
 
-def test_decode_cli_refuses_an_orbax_lm(run, decoders, tmp_path):
-    cfg = write_decode_config(str(tmp_path / "decode.yaml"), run["valid"],
-                              "ctc_att", lm_path=decoders["orbax"],
-                              **decoders["lm"])
-    with pytest.raises(NotImplementedError, match="orbax"):
-        port_decode.main([
+def test_decode_cli_refuses_an_orbax_lm(run, decoders, tmp_path, capsys):
+    """Once a refusal, now the other way: the orbax LM directory that
+    ``lasr_tpu`` reads decodes (ctc_att, the RNNLM, nbest 2) exactly as
+    the ``.pt`` LM written from the same weights."""
+    outs = {}
+    for name in ("orbax", "pt"):
+        cfg = write_decode_config(str(tmp_path / f"{name}.yaml"),
+                                  run["valid"], "ctc_att",
+                                  lm_path=decoders[name], nbest=2,
+                                  **decoders["lm"])
+        out = str(tmp_path / f"{name}.txt")
+        assert port_decode.main([
             "-train_config", os.path.join(run["exp"], "hparams.yaml"),
-            "-decode_config", cfg, "-model_path",
-            os.path.join(run["exp"], "checkpoints"),
-            "-output_file", str(tmp_path / "x.txt"), "-device", "cpu"])
+            "-decode_config", cfg, "-model_path", decoders["ckpts"],
+            "-choose", "last", "-output_file", out, "-device", "cpu"]) == 0
+        with open(out) as f, open(out + ".nbest") as g:
+            outs[name] = (f.read(), g.read(),
+                          _decode_lines(capsys.readouterr().out))
+    assert outs["orbax"] == outs["pt"]
+    assert len(outs["pt"][0].splitlines()) == 3

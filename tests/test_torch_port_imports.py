@@ -1,5 +1,5 @@
-"""The port imports no JAX (nor flax, orbax or tensorstore) and nothing
-of lasr_tpu, and its entry points refuse to fall back to the CPU when no
+"""The port imports no JAX (nor flax, orbax, tensorstore or zstandard)
+and nothing of lasr_tpu, and its entry points refuse to fall back to the CPU when no
 GPU is present."""
 
 import ast
@@ -18,7 +18,7 @@ import lasr_tpu_torch
 for m in pkgutil.walk_packages(lasr_tpu_torch.__path__, "lasr_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-top = ("jax", "flax", "orbax", "tensorstore", "lasr_tpu")
+top = ("jax", "flax", "orbax", "tensorstore", "zstandard", "lasr_tpu")
 bad = [n for n in sys.modules
        if n in top or n.startswith(tuple(t + "." for t in top))]
 # the codecs, which the reader imports lazily, are among those walked
@@ -32,7 +32,8 @@ sys.exit(1 if bad else 0)
 
 def _is_forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "flax", "orbax", "tensorstore", "lasr_tpu")
+    return top in ("jax", "flax", "orbax", "tensorstore", "zstandard",
+                   "lasr_tpu")
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -8,10 +8,12 @@ same weights (carried across by ``rnnlm_flax_to_state_dict`` /
   - ``CTCAttBeamDecoder(lm=…, lm_weight=0.3)`` token-exact with scores
     within 1e-3, nbest 3 lists equal, offline on the tiny Conformer in
     configurations table, A and B, and online on the streaming model;
-  - ``build_lm``'s three-way rule, and the orbax ``lm_path`` it refuses.
+  - ``build_lm``'s three-way rule, and orbax ``lm_path``s (a directory
+    and a checkpoints root) loading as the ``.pt`` of the same weights.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +32,7 @@ from lasr_tpu_torch.decode.lm import build_lm
 from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
 from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
 from lasr_tpu_torch.modules.rnn import RNNLM, LSTMStack, RNNCellStack
+from lasr_tpu_torch.utils.ocdbt import save_step
 from lasr_tpu_torch.utils.weights import (flax_to_state_dict,
                                           load_model_weights,
                                           lstm_stack_flax_to_state_dict,
@@ -162,7 +165,12 @@ def test_lm_fused_online_beam_token_exact():
 
 
 def test_build_lm_rule_and_orbax_refusal(tmp_path, caplog):
-    _, _, lm_p = lm_pair(9, seed=1)
+    """``build_lm``'s three-way rule; and the orbax LMs it once refused,
+    a directory orbax wrote and a checkpoints root (in the layout of
+    ``lasr_tpu``'s Trainer, written by ``utils.ocdbt.save_step``), load
+    as the ``.pt`` of the same weights."""
+    import orbax.checkpoint as ocp
+    _, v, lm_p = lm_pair(9, seed=1)
     torch.save(lm_p.state_dict(), tmp_path / "lm.pt")
     conf = {"name": "lasr_tpu.modules.rnn:RNNCellStack",
             "kwargs": dict(input_dim=9, output_dim=9, n_layers=2,
@@ -172,14 +180,16 @@ def test_build_lm_rule_and_orbax_refusal(tmp_path, caplog):
                     device="cpu") == (None, 0.0)
     assert build_lm({"lm_rate": 0.3}, device="cpu") == (None, 0.0)
     assert "lm_config/lm_path missing" in caplog.text
-    lm, weight = build_lm({"lm_rate": 0.3, "lm_config": conf,
-                           "lm_path": str(tmp_path / "lm.pt")}, device="cpu")
-    assert weight == 0.3 and isinstance(lm.module, RNNCellStack)
-    for k, x in lm_p.state_dict().items():
-        assert torch.equal(lm.module.state_dict()[k], x)
-    orbax_dir = tmp_path / "orbax_lm"
-    orbax_dir.mkdir()
-    (orbax_dir / "_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        build_lm({"lm_rate": 0.3, "lm_config": conf,
-                  "lm_path": str(orbax_dir)}, device="cpu")
+    orbax_dir = str(tmp_path / "orbax_lm")
+    with ocp.StandardCheckpointer() as ckptr:
+        ckptr.save(orbax_dir, {"params": v["params"]})
+    root = str(tmp_path / "checkpoints")
+    for step, scale in ((1, 0.5), (2, 1.0)):       # the newest is read
+        save_step(os.path.join(root, "last"), step, {
+            "params": jax.tree.map(lambda a: a * scale, v["params"])})
+    for path in (str(tmp_path / "lm.pt"), orbax_dir, root):
+        lm, weight = build_lm({"lm_rate": 0.3, "lm_config": conf,
+                               "lm_path": path}, device="cpu")
+        assert weight == 0.3 and isinstance(lm.module, RNNCellStack)
+        for k, x in lm_p.state_dict().items():
+            assert torch.equal(lm.module.state_dict()[k], x), (path, k)
