@@ -345,6 +345,27 @@ Phases, always all of them, in this order:
            Adam count and EMA updates carried.  Write, read, average,
            restore and decode seconds.  Prints an {"orbax": ...} line;
            the kernel list gains ``launches_orbax``.
+  queue_a8_a9  queue A's A8-A9: (a) two gloo ranks sharing the card on the
+           1B config at full width (d=1280, 16 heads of 80), 4 + 1 blocks,
+           B=4 x 15.575 s (an encoder length of 388, which 2 seq ranks
+           divide), configuration B (K3 / K4), f32, dropout 0: seq_parallel
+           2, then pipeline_parallel 2 (2 stages, 4 microbatches), each
+           against the one-process gradient (loss 1e-4, gradients 1e-3
+           relative L2) and one timed step, each rank's peak memory, K3 /
+           K4 launched on every rank; (b) the stream phase's online model
+           (4 + 2 blocks, the monotonic source attention's sigmoid noise
+           on) over model_parallel 2 the same way (one spawn, the three
+           layouts in turn on one process group); (c) the recipe
+           Conformer at full width (12 + 6 blocks) in bf16, configuration
+           B, encoder_ff_int8: two steps on B=32 x 15.6 s (the second
+           timed), block 0's int8 feed-forward on its first step's input
+           within 3e-3 (relative L2) of the CPU's int8 path, and the same
+           weights without int8 on the card beyond it, and the int8 GEMM (torch._int_mm; and
+           int8_matmul with its quantization) beside the bf16 product at
+           12,416 x 320 -> 2,048; (d) the seed-recompute dropout's output
+           and gradient bitwise those of dropout on the card.  Prints a
+           {"queue_a8_a9": ...} line; the kernel list gains
+           ``launches_queue_a8_a9`` (K3 / K4 over (a)'s ranks and (c)).
 
 Weights, waves and the token dictionary come from ``--seed``; nothing is
 downloaded.  The second-to-last line is the kernel list as JSON, the last
@@ -5905,6 +5926,332 @@ def phase_orbax(state):
     state["timings"]["orbax"] = summary
 
 
+# queue A's A8-A9 (queue_a8_a9): the 1B config's layouts in (a), the online
+# model's in (b)
+QA89_BLOCKS = (4, 1)
+QA89_ROWS = 4
+# 249,200 samples (15.575 s): 1,556 fbank frames, an encoder length of 388,
+# which the 2 seq ranks divide (their pad adds no frame), so a seq step is
+# comparable with the one-process step on the same batch
+QA89_SAMPLES = 249200
+QA89_MICROBATCHES = 4
+QA89_STREAM_DEPTH = dict(encoder_num_blocks=4, decoder_num_block=2)
+QA89_STREAM_SECS = 4.0
+# ff: the card's int8 feed-forward against the CPU's (a sound card reads
+# ~6e-4); the same feed-forward without int8 reads ~1.6e-2 there (the
+# rounding of two quantized products), so the gate must part the two
+QA89_TOL = dict(loss=1e-4, l2=1e-3, ff=3e-3)
+# the recipe's feed-forward GEMM on a B=32 x 15.6 s batch: 32 x 388 rows,
+# 320 -> 2,048
+INT8_SHAPE = (12416, 320, 2048)
+
+
+def _qa89_rank(rendezvous, root):
+    """A rank of queue_a8_a9 (a) / (b) on cuda:0 (gloo): the layouts of
+    the spec in turn on one process group (``dist.set_grid``)."""
+    import torch
+    from lasr_tpu_torch.parallel import dist
+    spec = torch.load(os.path.join(root, "spec.pt"), weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init(dev, "gloo", rendezvous, timeout_s=DP_TIMEOUT_S)
+    try:
+        for name, layout in spec["layouts"].items():
+            dist.set_grid(**layout["grid"])
+            out = _qa89_layout(spec["seed"], layout, dev)
+            torch.save(out, os.path.join(root, f"{name}_rank{dist.rank()}"
+                                               f".pt"))
+    finally:
+        dist.shutdown()
+
+
+def _qa89_model(layout, dev):
+    import torch
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
+    cls = E2E_Transformer_CTC_Online if layout["online"] \
+        else E2E_Conformer_CTC
+    with torch.device(dev):
+        return cls(**layout["kw"])
+
+
+def _qa89_layout(seed, layout, dev):
+    """The global gradient of the layout's batch (K3 / K4 counted), then
+    one timed step; the rank's peak memory over both."""
+    import torch
+    from lasr_tpu_torch.parallel import dist
+    rank = dist.rank()
+    torch.manual_seed(1000 + rank)
+    model = _qa89_model(layout, dev)
+    if rank == 0:
+        model.load_state_dict(layout["init"])
+    trainer = _trainer(model, ["norm", "fbank:80"], seed,
+                       odim=layout["kw"]["odim"], device=dev)
+    rows = dist.shard_rows(layout["batch"], dist.data_rank(),
+                           dist.data_size())
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = _kernel_counters()
+    m0, g0 = trainer.loss_and_grads(rows, 0)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    model.load_state_dict(start)
+    full = [g.cpu() for g in trainer.layout.full_list(g0)]
+    del g0
+    tstate = trainer.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstate, m = trainer.train_step(tstate, rows)
+    torch.cuda.synchronize()
+    out = dict(loss0=float(m0["loss_main"].detach()), step=m,
+               step_ms=(time.perf_counter() - t0) * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches=launches)
+    if rank == 0:
+        out.update(grads0=full, names=trainer.names)
+    return out
+
+
+def _qa89_layouts(state):
+    """(a) seq_parallel 2, then pipeline_parallel 2 (4 microbatches), on
+    the 1B config at full width, 4 + 1 blocks, configuration B, f32; (b)
+    the stream phase's online model (4 + 2 blocks) over 2 model ranks;
+    all two gloo ranks sharing the card, against the one-process
+    gradient."""
+    import torch
+    from lasr_tpu_torch.parallel import dist
+    seed, card, tol = state["seed"], state["card"], QA89_TOL
+    enc, dec = QA89_BLOCKS
+    kw = _stretch_kwargs(encoder_num_blocks=enc, decoder_num_block=dec,
+                         encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
+                         ctc_dropout=0.0, encoder_remat=False)
+    batch = _stretch_batch(seed + 41, QA89_ROWS)
+    batch["wav_array"] = batch["wav_array"][:, :QA89_SAMPLES]
+    batch["wav_len"] = np.minimum(batch["wav_len"], QA89_SAMPLES)
+    stream_kw = dict(STREAM, **QA89_STREAM_DEPTH, encoder_dropout_rate=0.0,
+                     decoder_dropout_rate=0.0, ctc_dropout=0.0)
+    srng = np.random.default_rng(seed + 43)
+    swav = make_waves(seed + 43, QA89_ROWS, QA89_STREAM_SECS)
+    stream_batch = {
+        "wav_array": swav,
+        "wav_len": np.full((QA89_ROWS,), swav.shape[1], np.int32),
+        "token_id": srng.integers(6, STREAM["odim"], (QA89_ROWS, 12)
+                                  ).astype(np.int32),
+        "token_len": np.full((QA89_ROWS,), 12, np.int32)}
+    layouts = {
+        "seq_parallel": dict(grid=dict(seq_parallel=2), kw=kw,
+                             batch=batch, online=False),
+        "pipeline_parallel": dict(
+            grid=dict(pipeline_parallel=2), batch=batch, online=False,
+            kw=dict(kw, encoder_pipeline_stages=2,
+                    encoder_pipeline_microbatches=QA89_MICROBATCHES)),
+        "model_parallel_online": dict(grid=dict(model_parallel=2),
+                                      kw=stream_kw, batch=stream_batch,
+                                      online=True)}
+    dev = torch.device("cuda", 0)
+    for layout in layouts.values():
+        torch.manual_seed(seed)
+        layout["init"] = {k: v.cpu() for k, v in _qa89_model(
+            layout, dev).state_dict().items()}
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(seed=seed, layouts=layouts),
+                   os.path.join(tmp, "spec.pt"))
+        t0 = time.perf_counter()
+        dist.spawn(_qa89_rank, 2, (tmp,))
+        wall = time.perf_counter() - t0
+        launches = {}
+        for name, layout in layouts.items():
+            ranks = [torch.load(os.path.join(tmp, f"{name}_rank{r}.pt"),
+                                weights_only=False) for r in range(2)]
+            model = _qa89_model(layout, dev)
+            model.load_state_dict(layout["init"])
+            trainer = _trainer(model, ["norm", "fbank:80"], seed,
+                               odim=layout["kw"]["odim"])
+            kernels = _kernel_counters()
+            m1, g1 = trainer.loss_and_grads(layout["batch"], 0)
+            one_launches = {k: fn.launches for k, fn in kernels.items()}
+            loss1 = float(m1["loss_main"].detach())
+            r0 = ranks[0]
+            loss_err = abs(r0["loss0"] - loss1) / abs(loss1)
+            # the monotonic attention's key bias has a true gradient
+            zero = ("self_attn.linear_k.bias",) if layout["online"] \
+                else ZERO_GRADIENT_LEAVES
+            l2 = {n: float((a.cuda() - b).norm()) / max(float(b.norm()),
+                                                        1e-30)
+                  for n, a, b in zip(r0["names"], r0["grads0"], g1)
+                  if not n.endswith(zero)}
+            worst = max(l2, key=l2.get)
+            same = ranks[0]["loss0"] == ranks[1]["loss0"]
+            k3 = [r["launches"]["rel_attention_fwd"] for r in ranks]
+            k4 = [r["launches"]["rel_attention_bwd"] for r in ranks]
+            log(f"queue_a8_a9 {name}: 2 gloo ranks sharing the card (the "
+                f"three layouts {wall:.1f} s with start-up); loss "
+                f"{r0['loss0']:.6f} vs one process {loss1:.6f} (rel "
+                f"{loss_err:.2e}, tol {tol['loss']:g}); worst gradient "
+                f"{worst} {l2[worst]:.2e} (relative L2, tol {tol['l2']:g}); "
+                f"ranks' losses equal: {same}; K3 / K4 a rank {k3} / {k4} "
+                f"(one process {one_launches['rel_attention_fwd']} / "
+                f"{one_launches['rel_attention_bwd']}); a rank's step "
+                f"{[round(r['step_ms'], 1) for r in ranks]} ms, peak "
+                f"memory {[round(r['peak_gb'], 3) for r in ranks]} GB "
+                f"[{card}]")
+            check(loss_err <= tol["loss"], f"queue_a8_a9: {name} loss "
+                  f"differs by {loss_err}")
+            check(l2[worst] <= tol["l2"], f"queue_a8_a9: {name} gradient "
+                  f"of {worst} differs by {l2[worst]}")
+            check(same, f"queue_a8_a9: {name} ranks disagree")
+            check(all(math.isfinite(v) for r in ranks
+                      for v in r["step"].values()),
+                  f"queue_a8_a9: {name} step not finite")
+            if not layout["online"]:
+                check(min(k3) > 0 and min(k4) > 0, f"queue_a8_a9: {name} "
+                      f"K3 / K4 not launched on a rank ({k3} / {k4})")
+                for r in ranks:
+                    for k, n in r["launches"].items():
+                        launches[k] = launches.get(k, 0) + n
+            summary[name] = dict(loss_err=loss_err, worst_l2=l2[worst],
+                                 step_ms=[r["step_ms"] for r in ranks],
+                                 peak_gb=[r["peak_gb"] for r in ranks],
+                                 k3=k3, k4=k4)
+            del model, trainer, g1
+            torch.cuda.empty_cache()
+    summary["wall_s"] = wall
+    return summary, launches
+
+
+def _qa89_int8(state):
+    """(c) the recipe Conformer at full width in bf16, configuration B,
+    encoder_ff_int8: two steps on B=32 x 15.6 s (K3 / K4 counted in the
+    first, the second timed); block 0's feed-forward on the first step's
+    input, eval, on the card against the CPU's int8 path, and the same
+    weights without int8 beyond the gate; the int8 GEMM beside the bf16
+    product at INT8_SHAPE."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
+    from lasr_tpu_torch.modules.layers import set_compute_dtype
+    from lasr_tpu_torch.ops.quant import (absmax_scale, int8_matmul,
+                                          quantize_int8)
+    from lasr_tpu_torch.utils.weights import load_model_weights
+    seed, card = state["seed"], state["card"]
+    model = E2E_Conformer_CTC(**RECIPE, encoder_use_pallas_attention=True,
+                              encoder_ff_int8=True, dtype=torch.bfloat16)
+    load_model_weights(model, _seeded_recipe(seed))
+    trainer = _trainer(model, ["norm", "fbank:80", "specaug"], seed)
+    tstate = trainer.init_state()
+    ff = model.encoder.encoders[0].feed_forward
+    seen = []
+    hook = ff.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0].detach()))
+    kernels = _kernel_counters()
+    batch = _train_batch(seed + 47)
+    tstate, m = trainer.train_step(tstate, batch)
+    hook.remove()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    # the second step timed (the first pays first calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstate, m2 = trainer.train_step(tstate, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(all(math.isfinite(v) for v in list(m.values())
+              + list(m2.values())), "queue_a8_a9 (c): int8 step not finite")
+    check(launches["rel_attention_fwd"] >= 12
+          and launches["rel_attention_bwd"] == 12,
+          f"queue_a8_a9 (c): K3 / K4 launched {launches}")
+    x = seen[0]
+    ff.eval()
+    # the same weights without int8, on the card: what a path that lost
+    # the quantization would read
+    with torch.device("cuda"):
+        plain = PositionwiseFeedForward(ff.w_1.in_features,
+                                        ff.w_1.out_features, 0.0,
+                                        ff.activation).eval()
+    plain.load_state_dict(ff.state_dict())
+    set_compute_dtype(plain, torch.bfloat16)
+    with torch.no_grad():
+        got = ff(x).float().cpu()
+        want = copy.deepcopy(ff).cpu()(x.cpu()).float()
+        unquant = plain(x).float().cpu()
+    ff_err = float((got - want).norm() / want.norm())
+    plain_err = float((unquant - want).norm() / want.norm())
+    check(ff_err <= QA89_TOL["ff"] < plain_err, f"queue_a8_a9 (c): the "
+          f"card's int8 feed-forward is {ff_err} from the CPU's, the "
+          f"unquantized one {plain_err} (the gate {QA89_TOL['ff']} must "
+          f"part them)")
+    M, K, N = INT8_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed + 53)
+    xa = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(K, N, generator=g, device="cuda") / K ** 0.5
+    qa, qb = quantize_int8(xa, absmax_scale(xa, 1)), \
+        quantize_int8(w, absmax_scale(w, 0))
+    wb = w.to(torch.bfloat16)
+    times = dict(int_mm_ms=time_ms(lambda: torch._int_mm(qa, qb)),
+                 int8_matmul_ms=time_ms(lambda: int8_matmul(xa, w)),
+                 bf16_ms=time_ms(lambda: F.linear(xa, wb.t())))
+    log(f"queue_a8_a9 (c): the recipe Conformer (12 + 6 blocks, bf16, "
+        f"configuration B, encoder_ff_int8) on B=32 x 15.6 s: a second "
+        f"step in {step_ms:.1f} ms, the first's loss {m['loss_main']:.4f}, "
+        f"K3 / K4 in the first "
+        f"{launches['rel_attention_fwd']} / "
+        f"{launches['rel_attention_bwd']}; block 0's int8 feed-forward on "
+        f"its step input {ff_err:.2e} (relative L2, tol "
+        f"{QA89_TOL['ff']:g}) from the CPU's, the unquantized one "
+        f"{plain_err:.2e}; at {M} x {K} -> {N}: "
+        f"torch._int_mm {times['int_mm_ms']:.4f} ms, int8_matmul (quantize "
+        f"both, product, dequantize) {times['int8_matmul_ms']:.4f} ms, the "
+        f"bf16 product {times['bf16_ms']:.4f} ms [{card}]")
+    del model, trainer, tstate
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, loss=m["loss_main"], ff_err=ff_err,
+                plain_ff_err=plain_err, launches=launches, **times)
+
+
+def _qa89_dropout(state):
+    """(d) the seed-recompute dropout on the card: output and gradient
+    bitwise those of dropout on the same generator state."""
+    import torch
+    from lasr_tpu_torch.modules.dropout import dropout, dropout_generator
+    from lasr_tpu_torch.ops.dropout import seed_dropout
+    seed = state["seed"]
+    x = torch.randn(32, 388, 320, device="cuda", requires_grad=True)
+    g = torch.randn(32, 388, 320, device="cuda")
+    outs = []
+    for fn in (dropout, seed_dropout):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 59)
+        with dropout_generator(gen):
+            y = fn(x, 0.1, True)
+        (dx,) = torch.autograd.grad(y, x, g)
+        outs.append((y.detach(), dx))
+    same = torch.equal(outs[0][0], outs[1][0]) and \
+        torch.equal(outs[0][1], outs[1][1])
+    log(f"queue_a8_a9 (d): seed dropout on (32, 388, 320) at rate 0.1: "
+        f"output and gradient bitwise those of dropout: {same}")
+    check(same, "queue_a8_a9 (d): the seed dropout differs from dropout")
+    return dict(bitwise=same)
+
+
+def phase_queue_a8_a9(state):
+    """Queue A's A8-A9: sequence and pipeline parallelism and the
+    monotonic attention's tensor parallelism (a, b), the int8
+    feed-forward (c), the seed-recompute dropout (d)."""
+    import torch
+    torch.cuda.empty_cache()
+    summary = {"card": state["card"]}
+    summary["ranks"], launches = _qa89_layouts(state)
+    summary["int8"] = _qa89_int8(state)
+    summary["seed_dropout"] = _qa89_dropout(state)
+    for k, n in summary["int8"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    state["qa89_launches"] = {k: n for k, n in launches.items() if n}
+    print(json.dumps({"queue_a8_a9": summary}, default=float), flush=True)
+    state["timings"]["queue_a8_a9"] = summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5929,6 +6276,7 @@ def main(argv=None) -> int:
              "family_launches": {}, "dp_launches": {},
              "decoders_launches": {}, "stretch_launches": {},
              "queue_a_launches": {}, "orbax_launches": {},
+             "qa89_launches": {},
              "timings": {},
              "card": "not measured"}
     phases = [("device", phase_device), ("build", phase_build),
@@ -5941,7 +6289,8 @@ def main(argv=None) -> int:
               ("stream_rest", phase_stream_rest),
               ("fit_toy", phase_fit_toy), ("dp", phase_dp),
               ("stretch_1b", phase_stretch_1b), ("queue_a", phase_queue_a),
-              ("aux", phase_aux), ("orbax", phase_orbax)]
+              ("aux", phase_aux), ("orbax", phase_orbax),
+              ("queue_a8_a9", phase_queue_a8_a9)]
     t_start = time.perf_counter()
     for name, run in phases:
         t0 = time.perf_counter()
@@ -5982,6 +6331,8 @@ def main(argv=None) -> int:
             entry["launches_queue_a"] = state["queue_a_launches"][name]
         if name in state["orbax_launches"]:
             entry["launches_orbax"] = state["orbax_launches"][name]
+        if name in state["qa89_launches"]:
+            entry["launches_queue_a8_a9"] = state["qa89_launches"][name]
         if entry["launches"] <= 0:
             print(f"chip_smoke: {name} was not launched on the main path",
                   file=sys.stderr)

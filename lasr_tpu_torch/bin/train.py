@@ -37,18 +37,22 @@ step on the global batch (``lasr_tpu_torch/parallel/dist.py``), rank 0
 writes, and a rank that fails ends the run with a non-zero exit.  At one
 rank the group is one process and nothing is communicated.
 
-The (data x model) grid, as the JAX CLI's mesh: ``-model_parallel N``
-makes N ranks a model group that splits the attention and feed-forward
-layers, the token embedding and the logits heads (tensor parallelism,
-``parallel/tensor.py``), and ``-num_devices`` counts the data ranks, so a
-run has ``num_devices x N`` ranks (rank r: data index r // N, model index
-r % N; ``-num_devices -1`` takes every GPU's worth of model groups).
+The (data, pipe, seq, model) grid, as the JAX CLI's mesh:
+``-model_parallel M`` makes M ranks a model group that splits the
+attention and feed-forward layers, the token embedding and the logits
+heads (tensor parallelism, ``parallel/tensor.py``); ``-seq_parallel S``
+splits the encoder's time axis over S ranks (sequence parallelism, the
+Conformer and Transformer encoders); ``-pipeline_parallel P`` splits the
+encoder's blocks into GPipe stages over P ranks (``modules/pipeline.py``)
+and sets the model's ``encoder_pipeline_stages`` to P unless the YAML
+sets it (to a multiple of P).  ``-num_devices`` counts the data ranks, so
+a run has ``num_devices x P x S x M`` ranks (rank r: model index r % M,
+seq index (r // M) % S, pipe index (r // (M·S)) % P, data index
+r // (M·S·P); ``-num_devices -1`` takes every GPU's worth of them).
 ``-fsdp 1`` shards the large leaves' parameters, gradients, Adam moments,
 accumulated gradient and EMA shadow over the data ranks
 (``parallel/sharding.py``).  Checkpoints stay whole reference ``.ckpt``
-files, so a run resumes at any layout.  ``-seq_parallel`` and
-``-pipeline_parallel`` > 1 raise ``NotImplementedError`` naming ROADMAP
-A8.
+files, so a run resumes at any layout.
 """
 
 import argparse
@@ -60,9 +64,6 @@ import time
 import yaml
 
 _PROC_T0 = time.time()
-
-# flag -> (its default, the ROADMAP item of the feature it selects)
-_UNPORTED = {"seq_parallel": (1, "A8"), "pipeline_parallel": (1, "A8")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,9 +77,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-model_parallel", default=1, type=int,
                         help="tensor-parallel ranks of a model group")
     parser.add_argument("-seq_parallel", default=1, type=int,
-                        help="sequence parallelism (not ported)")
+                        help="sequence-parallel ranks: the encoder's time "
+                             "axis splits over them")
     parser.add_argument("-pipeline_parallel", default=1, type=int,
-                        help="pipeline parallelism (not ported)")
+                        help="pipeline ranks: GPipe stages of the "
+                             "encoder's blocks (sets the model's "
+                             "encoder_pipeline_stages unless the YAML "
+                             "does)")
     parser.add_argument("-fsdp", default=0, type=int,
                         help="1 = FSDP/ZeRO: shard params, gradients, "
                              "optimizer moments, the grad accumulator and "
@@ -123,41 +128,41 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def refuse_unported(args) -> None:
-    """Raise for a flag that selects a feature the port lacks."""
-    for flag, (default, item) in _UNPORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"-{flag} {getattr(args, flag)}: not ported (ROADMAP "
-                f"{item}); the port trains data- and tensor-parallel, "
-                f"with or without FSDP")
-
-
 def _log_config(rank: int) -> None:
     logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(message)s")
 
 
+def replicas(args) -> int:
+    """The ranks of a data index: ``-pipeline_parallel`` x
+    ``-seq_parallel`` x ``-model_parallel`` (each checked >= 1)."""
+    out = 1
+    for flag in ("pipeline_parallel", "seq_parallel", "model_parallel"):
+        k = getattr(args, flag)
+        if k < 1:
+            raise ValueError(f"-{flag} {k}: expected a count >= 1")
+        out *= k
+    return out
+
+
 def num_ranks(args) -> int:
-    """The ranks ``-num_devices`` and ``-model_parallel`` ask for on this
-    host: data ranks times model ranks, -1 data ranks meaning every local
-    GPU (one data rank on the CPU); more GPUs than there are raise."""
+    """The ranks the grid's flags ask for on this host: data ranks times
+    ``replicas``, -1 data ranks meaning every local GPU's worth (one data
+    rank on the CPU); more GPUs than there are raise."""
     import torch
 
     from lasr_tpu_torch import resolve_device
     device = resolve_device(args.device)
-    n, mp = args.num_devices, args.model_parallel
+    n, mp = args.num_devices, replicas(args)
     if n == 0 or n < -1:
         raise ValueError(f"-num_devices {n}: expected -1 or a count >= 1")
-    if mp < 1:
-        raise ValueError(f"-model_parallel {mp}: expected a count >= 1")
     if device.type != "cuda":
         return (1 if n == -1 else n) * mp
     count = torch.cuda.device_count()
     n = count // mp if n == -1 else n
     if n < 1 or n * mp > count:
-        raise ValueError(f"-num_devices {n} x -model_parallel {mp} exceeds "
-                         f"the {count} available GPUs")
+        raise ValueError(f"-num_devices {n} x {mp} ranks of a data index "
+                         f"exceeds the {count} available GPUs")
     n *= mp
     if n > 1 and device.index is not None:
         raise ValueError(f"-device {args.device}: with -num_devices {n} "
@@ -167,16 +172,15 @@ def num_ranks(args) -> int:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     from lasr_tpu_torch.parallel import dist
     if dist.launched_by_torchrun():
         _log_config(int(os.environ["RANK"]))
         local = int(os.environ.get("LOCAL_WORLD_SIZE",
                                    os.environ["WORLD_SIZE"]))
         if args.num_devices != -1 and \
-                args.num_devices * args.model_parallel != local:
+                args.num_devices * replicas(args) != local:
             raise ValueError(f"-num_devices {args.num_devices} x "
-                             f"-model_parallel {args.model_parallel}: "
+                             f"{replicas(args)} ranks of a data index: "
                              f"torchrun started {local} ranks on this host")
         return run(args)
     _log_config(0)
@@ -214,12 +218,15 @@ def run(args, rendezvous=None, wall_t0=None) -> int:
         torch.set_num_threads(max(1, torch.get_num_threads()
                                   // rendezvous.world_size))
     backend = dist.init(device, rendezvous=rendezvous,
-                        model_parallel=args.model_parallel)
+                        model_parallel=args.model_parallel,
+                        seq_parallel=args.seq_parallel,
+                        pipeline_parallel=args.pipeline_parallel)
     try:
         logging.info("data parallel: backend %s, world size %d, device %s; "
-                     "%d data x %d model ranks, fsdp %d", backend,
-                     dist.world_size(), device, dist.data_size(),
-                     dist.model_size(), args.fsdp)
+                     "%d data x %d model ranks, fsdp %d; %d pipe x %d seq "
+                     "ranks", backend, dist.world_size(), device,
+                     dist.data_size(), dist.model_size(), args.fsdp,
+                     dist.pipe_size(), dist.seq_size())
         fit(args, *build(args, device),
             wall_t0=_PROC_T0 if wall_t0 is None else wall_t0)
         return 0
@@ -260,6 +267,12 @@ def build(args, device):
         tokenizer=tokenizer)
     valid_dataset = BaseConfig(**valid_data_config).generateExample(
         tokenizer=tokenizer)
+
+    if args.pipeline_parallel > 1:
+        # stage the encoder unless the YAML did (the Trainer checks that
+        # the stages divide over the pipe ranks)
+        model_config["kwargs"].setdefault("encoder_pipeline_stages",
+                                          args.pipeline_parallel)
 
     output_dim = tokenizer.dict_size()
     if "odim" in model_config["kwargs"]:

@@ -130,7 +130,10 @@ class E2E_Transformer_CTC(E2EBase):
     Accepts every constructor kwarg of the JAX class.  The encoder's input
     layer is conv2d, linear, embed or None, the decoder's embed or linear
     (``modules.transformer``); ``encoder_remat`` recomputes each encoder
-    block in the backward (``modules.remat``); a sharding object raises.
+    block in the backward (``modules.remat``); ``encoder_act_sharding``
+    (any value but None; the ``Trainer`` sets it under ``-seq_parallel``)
+    splits the encoder's time axis over the grid's seq ranks, as the
+    Conformer model does.
     ``device=None`` means CUDA (raises without a GPU); ``dtype`` is the compute dtype (float32, or bfloat16 with
     float32 parameters, gradients and optimizer state: the casts of
     ``modules.layers``, as ``lasr_tpu``'s ``dtype=jnp.bfloat16``)."""
@@ -154,10 +157,6 @@ class E2E_Transformer_CTC(E2EBase):
                  ctc_dropout: float = 0.1, encoder_remat: bool = False,
                  encoder_act_sharding=None, dtype=None, device=None):
         super().__init__()
-        if encoder_act_sharding is not None:
-            raise NotImplementedError(
-                "encoder_act_sharding (sequence parallelism) is not ported "
-                "(ROADMAP A8)")
         dtype = check_dtype(dtype)
         device = resolve_device(device)
         self.encoder = Encoder(
@@ -167,7 +166,8 @@ class E2E_Transformer_CTC(E2EBase):
             num_blocks=encoder_num_blocks, dropout_rate=encoder_dropout_rate,
             positional_dropout_rate=encoder_dropout_rate,
             attention_dropout_rate=encoder_attention_dropout_rate,
-            input_layer=encoder_input_layer, remat=encoder_remat)
+            input_layer=encoder_input_layer, remat=encoder_remat,
+            act_sharding=encoder_act_sharding is not None)
         self.decoder = Decoder(
             odim=odim, attention_dim=decoder_attention_dim,
             attention_heads=decoder_attention_heads,
@@ -194,12 +194,18 @@ class E2E_Conformer_CTC(E2EBase):
     kernels; ``encoder_pos_dropout_mode`` places positional dropout as in
     the JAX encoder.  ``encoder_remat`` recomputes each Conformer block
     in the backward (``modules.remat``; the kernels run again in the
-    recompute).  Knobs that only shape TPU training
-    (``encoder_remat_attend``, ``encoder_scan_layers``, the pipeline
-    microbatch count and the sharding objects) are accepted and ignored;
-    ``encoder_pipeline_stages > 1`` changes the parameter layout and
-    ``encoder_ff_int8`` the feed-forward's numbers (int8 GEMMs, at eval
-    too), and both raise.  ``device=None`` means CUDA (raises without a
+    recompute).  ``encoder_ff_int8`` runs every encoder feed-forward's
+    GEMMs through int8 (``ops.quant``; at eval too).
+    ``encoder_pipeline_stages`` > 1 trains the encoder's blocks through
+    GPipe's tick schedule over ``encoder_pipeline_microbatches``
+    microbatches (``modules.pipeline``; across the grid's pipe ranks under
+    ``-pipeline_parallel``), the parameters staying per block.
+    ``encoder_act_sharding`` (any value but None; the ``Trainer`` sets it
+    under ``-seq_parallel``) splits the encoder's time axis over the
+    grid's seq ranks.  Knobs that only shape TPU training
+    (``encoder_remat_attend``, ``encoder_scan_layers`` (with the pipeline
+    it raises, as in ``lasr_tpu``), ``encoder_pipe_sharding``) are
+    accepted and ignored.  ``device=None`` means CUDA (raises without a
     GPU); ``dtype`` is the compute dtype (float32, or bfloat16 with
     float32 parameters, gradients and BatchNorm statistics: the casts of
     ``modules.layers``, as ``lasr_tpu``'s ``dtype=jnp.bfloat16``)."""
@@ -236,14 +242,9 @@ class E2E_Conformer_CTC(E2EBase):
                  encoder_act_sharding=None, encoder_pipe_sharding=None,
                  dtype=None, device=None):
         super().__init__()
-        if encoder_pipeline_stages > 1:
-            raise NotImplementedError(
-                "encoder_pipeline_stages > 1 stacks the blocks into another "
-                "parameter layout; not ported")
-        if encoder_ff_int8:
-            raise NotImplementedError(
-                "encoder_ff_int8 makes every feed-forward GEMM an int8 "
-                "matmul (ops/quant.py); not ported")
+        if encoder_pipeline_stages > 1 and encoder_scan_layers:
+            raise ValueError("pipeline_stages>1 already scans the layers "
+                             "within each stage; unset scan_layers")
         dtype = check_dtype(dtype)
         device = resolve_device(device)
         self.encoder = ConformerEncoder(
@@ -260,7 +261,11 @@ class E2E_Conformer_CTC(E2EBase):
             cnn_module_kernel=encoder_cnn_kernel,
             use_pallas_attention=encoder_use_pallas_attention,
             rot_fold_pallas=encoder_rot_fold_pallas,
-            pos_dropout_mode=encoder_pos_dropout_mode, remat=encoder_remat)
+            pos_dropout_mode=encoder_pos_dropout_mode, remat=encoder_remat,
+            ff_int8=encoder_ff_int8,
+            pipeline_stages=encoder_pipeline_stages,
+            pipeline_microbatches=encoder_pipeline_microbatches,
+            act_sharding=encoder_act_sharding is not None)
         self.decoder = Decoder(
             odim=odim, attention_dim=decoder_attention_dim,
             attention_heads=decoder_attention_heads,

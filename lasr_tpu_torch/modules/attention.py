@@ -25,6 +25,21 @@ memory knob of the JAX module, is accepted and ignored at the model,
 a module holds ``n_head`` of the model's heads, its model rank's part
 (``head_shard``): every head-wise width is ``n_head * d_k``, and the
 replicated ``pos_bias_u`` / ``pos_bias_v`` are sliced to those heads.
+Where the model ranks do not divide the heads (the streaming decoder's
+one-head monotonic attention, ``column_shard``) the projections split by
+columns, cutting inside a head, as ``lasr_tpu``'s name rules split them:
+the model ranks gather the projections' columns, compute the energies,
+probabilities (and the sigmoid noise, from their shared generator) or a
+kernel whole, and each feeds its columns of the context to its rows of
+the row-parallel ``linear_out``.
+
+Under sequence parallelism (``parallel.dist.seq_split``) a self-attention
+gets the seq rank's rows of the time axis as queries: the keys and
+values (and the mask's keys, which every rank holds whole) are gathered
+over the seq ranks, the relative positions taken at the rank's offset;
+with a kernel flag the kernel's operands are gathered, the kernel runs
+over the whole sequence and the rank keeps its rows, the backward summing
+the operands' gradients over the seq ranks.
 
 ``capture_attention()`` is the counterpart of the JAX modules' ``sow`` of
 their probabilities into 'intermediates': inside the block, each module
@@ -48,7 +63,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lasr_tpu_torch.modules.dropout import dropout, standard_normal
+from lasr_tpu_torch.modules.dropout import (dropout, standard_normal,
+                                            time_shard)
 from lasr_tpu_torch.modules.embedding import sinusoid_table
 from lasr_tpu_torch.modules.layers import Linear
 from lasr_tpu_torch.ops.rel_attention import rel_attention_context
@@ -102,13 +118,15 @@ def build_skewed_pos_table(pos_emb: torch.Tensor) -> torch.Tensor:
     return x[:, :T]
 
 
-def rel_shift(x: torch.Tensor) -> torch.Tensor:
-    """Transformer-XL relative shift: x (B, H, T1, P = 2T1-1) scored
-    against distances [T1-1 .. -(T1-1)] → (B, H, T1, T1) with column j at
-    distance i-j."""
+def rel_shift(x: torch.Tensor, n_keys=None) -> torch.Tensor:
+    """Transformer-XL relative shift: x (B, H, T1, P) scored against
+    distances [T1-1 .. T1-P] → (B, H, T1, n_keys) with column j at
+    distance i-j, out[i, j] = x[i, T1-1-i+j]; P = 2T1-1 and n_keys = T1
+    by default (P = T1 + n_keys - 1 in general)."""
     B, H, T1, P = x.shape
     x = F.pad(x, (1, 0)).reshape(B, H, P + 1, T1)
-    return x[:, :, 1:].reshape(B, H, T1, P)[..., : P // 2 + 1]
+    n_keys = P // 2 + 1 if n_keys is None else n_keys
+    return x[:, :, 1:].reshape(B, H, T1, P)[..., :n_keys]
 
 
 def _key_lengths(mask, B: int, T: int, H: int, device) -> torch.Tensor:
@@ -128,6 +146,9 @@ def _is_key_prefix_mask(mask) -> bool:
 class MultiHeadedAttention(nn.Module):
     # (rank, size): the heads are this model rank's part; None when whole
     head_shard = None
+    # (rank, size): the projections' columns are this model rank's part,
+    # the heads whole (see the module docstring); None when unsplit
+    column_shard = None
 
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
@@ -159,11 +180,35 @@ class MultiHeadedAttention(nn.Module):
         """Rows of the (H, ...) parameter ``b`` of this module's heads."""
         return b if self.head_shard is None else dist.slice_replicated(b, 0)
 
+    def _columns(self, x: torch.Tensor) -> torch.Tensor:
+        """A projection's whole width under a column split (its columns
+        gathered over the model ranks); ``x`` itself otherwise."""
+        return x if self.column_shard is None else dist.gather_from_model(x)
+
+    def _project_out(self, x: torch.Tensor) -> torch.Tensor:
+        """linear_out of the concatenated heads; under a column split the
+        model ranks' whole contexts enter through ``copy_to_model`` (so
+        each computes the whole gradient of the replicated part) and each
+        keeps its columns."""
+        if self.column_shard is not None:
+            r, n = self.column_shard
+            w = x.shape[-1] // n
+            x = dist.copy_to_model(x).narrow(-1, r * w, w)
+        return self.linear_out(x)
+
+    def _seq_keys(self, k, v):
+        """Keys and values (B, T, H, dk) of the whole sequence under a
+        seq split (gathered over the seq ranks)."""
+        if dist.current_seq_split() is None:
+            return k, v
+        return dist.seq_gather(k, 1), dist.seq_gather(v, 1)
+
     def project_q(self, query):
-        return self._split(self.linear_q(query))          # (B, T1, H, dk)
+        return self._split(self._columns(self.linear_q(query)))
 
     def project_kv(self, key, value):
-        return self._split(self.linear_k(key)), self._split(self.linear_v(value))
+        return (self._split(self._columns(self.linear_k(key))),
+                self._split(self._columns(self.linear_v(value))))
 
     def _softmax_attend(self, scores, v, mask):
         """scores: (B, H, T1, T2); v: (B, T2, H, dk); mask broadcastable to
@@ -179,10 +224,10 @@ class MultiHeadedAttention(nn.Module):
             attn = torch.softmax(scores, dim=-1)
         _record(self, attn)
         attn = dropout(attn, self.dropout_rate, self.training,
-                       self._head_shard(1))
+                       (self._head_shard(1), time_shard(2)))
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         B, T1 = x.shape[:2]
-        return self.linear_out(x.reshape(B, T1, self._width))
+        return self._project_out(x.reshape(B, T1, self._width))
 
     def attend(self, q, k, v, mask=None):
         """q: (B, T1, H, dk); k/v: (B, T2, H, dk)."""
@@ -191,7 +236,7 @@ class MultiHeadedAttention(nn.Module):
 
     def forward(self, query, key, value, mask=None):
         q = self.project_q(query)
-        k, v = self.project_kv(key, value)
+        k, v = self._seq_keys(*self.project_kv(key, value))
         return self.attend(q, k, v, mask)
 
 
@@ -236,36 +281,58 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
     def _from_heads_major(self, ctx, B, T):
         ctx = ctx.reshape(B, self.n_head, T, self.d_k).permute(0, 2, 1, 3)
-        return self.linear_out(ctx.reshape(B, T, self._width))
+        return self._project_out(ctx.reshape(B, T, self._width))
 
     def _pos_kernel(self):
         """linear_pos as (M, H, dk): contracted into the query side."""
-        return self.linear_pos.weight.t().reshape(self.n_feat, self.n_head,
-                                                  self.d_k)
+        return self._columns(self.linear_pos.weight.t()).reshape(
+            self.n_feat, self.n_head, self.d_k)
+
+    def _kernel_rows(self, kernel, qs, kv, B, T, mask):
+        """``kernel(*heads-major operands, kv_len)`` → the context of the
+        query rows (B, T, ·) through linear_out.  ``qs`` are query-side
+        operands (B, T, H, e), ``kv`` the keys and values; under a seq
+        split the query side is gathered (keys and values come whole) and
+        the rank keeps its rows of the whole sequence's context."""
+        split = dist.current_seq_split()
+        n = T if split is None else split.length
+        if split is not None:
+            qs = [dist.seq_gather(q, 1) for q in qs]
+        hm = self._heads_major
+        ctx = kernel(*[hm(x) for x in qs + kv],
+                     _key_lengths(mask, B, n, self.n_head, kv[0].device))
+        if split is not None:
+            ctx = ctx.narrow(1, split.offset, T)
+        return self._from_heads_major(ctx, B, T)
 
     def _rel_kernel_attend(self, query, key, value, pos_emb, mask):
         B, T, _ = query.shape
         q = self.project_q(query)
-        k, v = self.project_kv(key, value)
-        p = self._split(self.linear_pos(pos_emb))[0]       # (2T-1, H, dk)
+        k, v = self._seq_keys(*self.project_kv(key, value))
+        p = self._split(self._columns(self.linear_pos(pos_emb)))[0]
         q_u = q + self._heads(self.pos_bias_u).to(q.dtype)
         q_v = q + self._heads(self.pos_bias_v).to(q.dtype)
-        hm = self._heads_major
-        ctx = rel_attention_context(
-            hm(q_u), hm(q_v), hm(k), hm(v), p.permute(1, 0, 2).contiguous(),
-            _key_lengths(mask, B, T, self.n_head, query.device))
-        return self._from_heads_major(ctx, B, T)
+        pt = p.permute(1, 0, 2).contiguous()               # (H, 2T-1, dk)
+        return self._kernel_rows(
+            lambda qu, qv, kk, vv, kv_len: rel_attention_context(
+                qu, qv, kk, vv, pt, kv_len),
+            [q_u, q_v], [k, v], B, T, mask)
 
     def _rot_fold_attend(self, q_u, q_v, k, v, mask):
         """``bd[i,j] = q_v_i · p(i−j)`` decomposes exactly as ``u_i · V_j``
         with ``u = rot_i(q_v @ W_pos)`` a per-query 2x2 rotation per
-        frequency pair, so scores = [q_u ; u] @ [k ; V]^T / sqrt(dk)."""
+        frequency pair, so scores = [q_u ; u] @ [k ; V]^T / sqrt(dk).
+        ``k`` / ``v`` span the whole sequence (its ``n`` frames); the
+        queries are the rows from the seq split's offset."""
         B, T = q_u.shape[:2]
+        n = k.shape[1]
+        split = dist.current_seq_split()
+        off = 0 if split is None else split.offset
         M, H, dk = self.n_feat, self.n_head, self.d_k
         z = torch.einsum("bqhd,mhd->bqhm", q_v,
                          self._pos_kernel().to(q_v.dtype))  # (B, T, H, M)
-        W, V = _rot_tables(T, M)
-        W = torch.from_numpy(W).to(z.device, z.dtype)
+        W, V = _rot_tables(n, M)
+        W = torch.from_numpy(W[off:off + T]).to(z.device, z.dtype)
         si = W[None, :, None, 0::2]
         ci = W[None, :, None, 1::2]
         zs, zc = z[..., 0::2], z[..., 1::2]
@@ -274,17 +341,16 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         if self.rot_fold_train:
             # rotated-space positional dropout (training only)
             u = dropout(u, self.pos_dropout_rate, self.training,
-                        self._head_shard(2))
-        vt = torch.from_numpy(V).to(k.device, k.dtype)     # (T, M)
+                        (self._head_shard(2), time_shard(1)))
+        vt = torch.from_numpy(V).to(k.device, k.dtype)     # (n, M)
         if self.rot_fold_pallas and self._kernel_ok(mask) \
                 and _CAPTURE.get() is None:
-            hm = self._heads_major
-            ctx = rot_attention_context(
-                hm(q_u), hm(u), hm(k), hm(v), vt,
-                _key_lengths(mask, B, T, H, q_u.device))
-            return self._from_heads_major(ctx, B, T)
+            return self._kernel_rows(
+                lambda qu, uu, kk, vv, kv_len: rot_attention_context(
+                    qu, uu, kk, vv, vt, kv_len),
+                [q_u, u], [k, v], B, T, mask)
         qcat = torch.cat([q_u, u], dim=-1)                 # (B, T, H, dk+M)
-        kcat = torch.cat([k, vt[None, :, None, :].expand(B, T, H, M)], dim=-1)
+        kcat = torch.cat([k, vt[None, :, None, :].expand(B, n, H, M)], dim=-1)
         scores = torch.einsum("bqhe,bkhe->bhqk", qcat, kcat) / math.sqrt(dk)
         return self._softmax_attend(scores, v, mask)
 
@@ -294,32 +360,42 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         ``(q_v @ W_pos)[b,h,i,:] · pos_table[i,j,:]``, the same rel-shift
         contraction with the shift on the shared table."""
         T1, T2 = query.shape[1], key.shape[1]
+        split = dist.current_seq_split()
+        # the whole sequence's frames, and the query rows' first
+        n, off = (T1, 0) if split is None else (split.length, split.offset)
         shared_table = (pos_emb is not None and pos_emb.shape[0] == 1
-                        and pos_emb.shape[1] == 2 * T1 - 1)
+                        and pos_emb.shape[1] == 2 * n - 1)
         square = not self.zero_triu and T1 == T2
         if self.use_pallas and square and shared_table \
                 and self._kernel_ok(mask):
             return self._rel_kernel_attend(query, key, value, pos_emb, mask)
         q = self.project_q(query)
-        k, v = self.project_kv(key, value)
+        k, v = self._seq_keys(*self.project_kv(key, value))
+        T2 = k.shape[1]
         q_u = q + self._heads(self.pos_bias_u).to(q.dtype)
         q_v = q + self._heads(self.pos_bias_v).to(q.dtype)
         if (self.rot_fold and (not self.training or self.rot_fold_train)
                 and square and shared_table):
             return self._rot_fold_attend(q_u, q_v, k, v, mask)
         ac = torch.einsum("bqhd,bkhd->bhqk", q_u, k)
-        if pos_table is not None and square and pos_table.shape[0] == T1:
+        if pos_table is not None and square and pos_table.shape[0] == n:
             z = torch.einsum("bqhd,mhd->bhqm", q_v,
                              self._pos_kernel().to(q_v.dtype))
-            bd = torch.einsum("bhqm,qkm->bhqk", z, pos_table.to(z.dtype))
+            bd = torch.einsum("bhqm,qkm->bhqk", z,
+                              pos_table[off:off + T1].to(z.dtype))
             return self._softmax_attend((ac + bd) / math.sqrt(self.d_k), v,
                                         mask)
-        p = self._split(self.linear_pos(pos_emb))       # (1|B, 2T-1, H, dk)
+        p = self._split(self._columns(self.linear_pos(pos_emb)))
         if p.shape[0] == 1:
             bd = torch.einsum("bqhd,phd->bhqp", q_v, p[0])
         else:
             bd = torch.einsum("bqhd,bphd->bhqp", q_v, p)
-        scores = (ac + rel_shift(bd)[..., :T2]) / math.sqrt(self.d_k)
+        if split is not None:
+            # the rows' distances: i - j from off+T1-1 down to off-n+1
+            bd = bd[..., n - off - T1:2 * n - 1 - off]
+            scores = (ac + rel_shift(bd, n)) / math.sqrt(self.d_k)
+        else:
+            scores = (ac + rel_shift(bd)[..., :T2]) / math.sqrt(self.d_k)
         if self.zero_triu:
             tri = torch.ones(T1, T2, dtype=torch.bool,
                              device=scores.device).tril(T2 - T1)
@@ -374,7 +450,7 @@ class MTMultiHeadedAttention(MultiHeadedAttention):
     def _out(self, attn, v):
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         B, T1 = x.shape[:2]
-        return self.linear_out(x.reshape(B, T1, self.n_feat))
+        return self._project_out(x.reshape(B, T1, self.n_feat))
 
     def forward(self, query, key, value, mask=None, return_attn=False):
         """In train mode with ``sigmoid_noise > 0`` the scores take

@@ -7,6 +7,18 @@ feed-forward (the model hard-codes ``macaron_style=False``).  The
 ConvolutionModule is pointwise → GLU → depthwise → BatchNorm (eps 1e-5;
 Flax's batch statistics in training, see ``FlaxBatchNorm1d``) → swish →
 pointwise.
+
+Sequence parallelism (``act_sharding`` with a grid of several seq ranks,
+``parallel.dist``): the encoder pads its input as ``lasr_tpu`` does, so
+that the encoder's length divides the seq ranks (``seq_pad_input``), runs
+the input layer whole on every seq rank, gives each rank its rows of the
+time axis for the blocks (``dist.seq_split``) and gathers them after the
+after-norm.  Inside the blocks the attention gathers keys and values, the
+depthwise conv the GLU output (``dist.seq_gather``: a rank's rows need
+(K-1)/2 frames of each neighbour), BatchNorm sums over data x seq, and
+dropout draws the whole time axis's mask and keeps the rank's rows, so
+an S-rank step equals the one-process step on the padded batch.
+``pipeline_stages`` > 1 runs the blocks through ``modules.pipeline``.
 """
 
 from __future__ import annotations
@@ -18,15 +30,18 @@ from torch import nn
 from lasr_tpu_torch.modules.attention import (
     MultiHeadedAttention, RelPositionMultiHeadedAttention,
     build_skewed_pos_table)
-from lasr_tpu_torch.modules.dropout import dropout
+from lasr_tpu_torch.modules.dropout import dropout, time_shard
 from lasr_tpu_torch.modules.embedding import (PositionalEncoding,
                                               RelPositionalEncoding,
                                               ScaledPositionalEncoding)
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 from lasr_tpu_torch.modules.layers import Computes, Conv1d, LayerNorm, Linear
+from lasr_tpu_torch.modules.pipeline import run_pipeline
 from lasr_tpu_torch.modules.remat import checkpointed, recomputing
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
-from lasr_tpu_torch.modules.transformer import LAYERNORM_EPS
+from lasr_tpu_torch.modules.transformer import (LAYERNORM_EPS,
+                                                seq_pad_input,
+                                                time_split_blocks)
 from lasr_tpu_torch.parallel import dist
 
 
@@ -46,7 +61,8 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
     (Σx, Σx², count) summed over the ranks by a differentiable all-reduce,
     whose backward carries the cross-rank terms; the running statistics
     stay identical on every rank.  (``nn.SyncBatchNorm`` moves
-    ``running_var`` with the unbiased variance.)  A remat recompute
+    ``running_var`` with the unbiased variance.)  Under a seq split the
+    sums run over the data x seq ranks.  A remat recompute
     (``modules.remat``) normalizes again but moves nothing."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,11 +71,12 @@ class FlaxBatchNorm1d(Computes, nn.BatchNorm1d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(self.dtype)
-        if dist.data_size() > 1:
+        group = "data" if dist.current_seq_split() is None else "data_seq"
+        if dist.group_size(group) > 1:
             C = x.shape[1]
             sums = dist.all_reduce_sum(torch.cat([
                 x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
-                x.new_full((1,), x.shape[0] * x.shape[2])]))
+                x.new_full((1,), x.shape[0] * x.shape[2])]), group)
             mean, sq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
         else:
             mean, sq = x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
@@ -91,7 +108,20 @@ class ConvolutionModule(nn.Module):
         h = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
         if zero_mask is not None:
             h = h.masked_fill(~zero_mask[:, None, :], 0.0)
-        h = self.norm(self.depthwise_conv(h))
+        split = dist.current_seq_split()
+        if split is None:
+            h = self.depthwise_conv(h)
+        else:
+            # the rank's rows and (K-1)/2 frames on each side, from the
+            # whole sequence (zeros past its ends: the conv's padding)
+            conv = self.depthwise_conv
+            pad = conv.padding[0]
+            whole = F.pad(dist.seq_gather(h, 2), (pad, pad))
+            window = whole[..., split.offset:split.offset + split.local
+                           + 2 * pad]
+            h = F.conv1d(*conv._cast(window, conv.weight, conv.bias),
+                         groups=conv.groups)
+        h = self.norm(h)
         return self.pointwise_conv2(F.silu(h)).transpose(1, 2)
 
 
@@ -103,7 +133,7 @@ class ConformerEncoderLayer(nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  use_pallas_attention: bool = False, rot_fold: bool = False,
                  rot_fold_pallas: bool = False, rot_fold_train: bool = False,
-                 pos_dropout_rate: float = 0.0):
+                 pos_dropout_rate: float = 0.0, ff_int8: bool = False):
         super().__init__()
         self.rel = selfattention_layer_type == "rel_selfattn"
         self.dropout_rate = dropout_rate
@@ -128,10 +158,11 @@ class ConformerEncoderLayer(nn.Module):
             self.norm_final = LayerNorm(size, eps=LAYERNORM_EPS)
         self.norm_ff = LayerNorm(size, eps=LAYERNORM_EPS)
         self.feed_forward = PositionwiseFeedForward(
-            size, linear_units, dropout_rate, activation=F.silu)
+            size, linear_units, dropout_rate, activation=F.silu,
+            int8=ff_int8)
 
     def _drop(self, x):
-        return dropout(x, self.dropout_rate, self.training)
+        return dropout(x, self.dropout_rate, self.training, time_shard(1))
 
     def forward(self, x, mask=None, pos_emb=None, conv_zero_mask=None,
                 pos_table=None):
@@ -167,7 +198,10 @@ class ConformerEncoder(nn.Module):
     for T <= 1024, else the per-layer rel-shift), ``"rotated"`` on the
     rotated position-query u, so training runs the rotated fold (and, with
     ``rot_fold_pallas``, the rot kernels).  ``remat`` recomputes each
-    block's activations in the backward (``modules.remat``)."""
+    block's activations in the backward (``modules.remat``).
+    ``ff_int8`` runs every feed-forward's GEMMs through int8
+    (``ops.quant``); ``pipeline_stages`` / ``pipeline_microbatches`` and
+    ``act_sharding`` are in the module docstring."""
 
     def __init__(self, idim: int, attention_dim: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
@@ -180,9 +214,17 @@ class ConformerEncoder(nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  use_pallas_attention: bool = False, rot_fold: bool = True,
                  rot_fold_pallas: bool = False,
-                 pos_dropout_mode: str = "table", remat: bool = False):
+                 pos_dropout_mode: str = "table", remat: bool = False,
+                 ff_int8: bool = False, pipeline_stages: int = 1,
+                 pipeline_microbatches: int = 0, act_sharding: bool = False):
         super().__init__()
+        if pipeline_stages > 1 and num_blocks % pipeline_stages:
+            raise ValueError(f"pipeline: num_layers={num_blocks} not "
+                             f"divisible by stages={pipeline_stages}")
         self.remat = remat
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
+        self.act_sharding = act_sharding
         if input_layer not in ("conv2d", "linear", None):
             raise ValueError(f"unknown input_layer: {input_layer}")
         self.input_layer = input_layer
@@ -229,7 +271,8 @@ class ConformerEncoder(nn.Module):
                 use_pallas_attention=use_pallas_attention,
                 rot_fold=self.rot_fold, rot_fold_pallas=rot_fold_pallas,
                 rot_fold_train=rotated,
-                pos_dropout_rate=positional_dropout_rate if rotated else 0.0)
+                pos_dropout_rate=positional_dropout_rate if rotated else 0.0,
+                ff_int8=ff_int8)
             for _ in range(num_blocks)])
         self.after_norm = LayerNorm(attention_dim, eps=LAYERNORM_EPS)
 
@@ -253,9 +296,16 @@ class ConformerEncoder(nn.Module):
         before the conv module.  ``pos_offset``: the absolute encoding's
         start position(s) in encoder frames, an int or a (B,) tensor; a
         no-op under ``rel_pos`` (translation-invariant)."""
+        split = self.act_sharding and dist.seq_size() > 1
+        len_cap = None
+        if split:
+            x, len_cap = seq_pad_input(x, self.input_layer == "conv2d",
+                                       dist.seq_size())
         out, h_len = self.embed_input(x, x_len, solo_pad,
                                       0 if self.rel else pos_offset)
         h, pos_emb = out if self.rel else (out, None)
+        if len_cap is not None:
+            h_len = torch.clamp(h_len, max=len_cap)
         T = h.shape[1]
         pad = torch.arange(T, device=h.device)[None, :] < h_len[:, None]
         mask = pad[:, None, :]
@@ -266,10 +316,18 @@ class ConformerEncoder(nn.Module):
         if (self.table_fold and (self.training or not self.rot_fold)
                 and pos_emb.shape[1] == 2 * T - 1 and T <= 1024):
             pos_table = build_skewed_pos_table(pos_emb)
-        for layer in self.encoders:
-            if self.remat:
-                h = checkpointed(layer, h, mask, pos_emb, conv_zero,
-                                 pos_table)
-            else:
-                h = layer(h, mask, pos_emb, conv_zero, pos_table)
-        return self.after_norm(h), h_len
+
+        def blocks(h, conv_zero):
+            if self.pipeline_stages > 1:
+                return run_pipeline(self, h, mask, conv_zero, pos_emb,
+                                    pos_table)
+            for layer in self.encoders:
+                if self.remat:
+                    h = checkpointed(layer, h, mask, pos_emb, conv_zero,
+                                     pos_table)
+                else:
+                    h = layer(h, mask, pos_emb, conv_zero, pos_table)
+            return h
+
+        return time_split_blocks(blocks, h, conv_zero, self.after_norm,
+                                 split), h_len

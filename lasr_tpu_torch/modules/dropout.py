@@ -23,6 +23,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lasr_tpu_torch.parallel import dist
+
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
     "lasr_tpu_torch_dropout_generator", default=None)
 _SHARED: contextvars.ContextVar = contextvars.ContextVar(
@@ -75,25 +77,51 @@ def shared_randint(high: int) -> int:
     return int(torch.randint(high, (1,), generator=gen, device=gen.device))
 
 
+def _shards(shard):
+    """``shard`` as a list of (dim, rank, size): one triple, or a sequence
+    of triples and Nones."""
+    if shard is None:
+        return []
+    if isinstance(shard[0], int):
+        return [shard]
+    return [s for s in shard if s is not None]
+
+
+def time_shard(dim: int):
+    """``dropout``'s ``shard`` for a time axis ``dim`` that the seq ranks
+    split (``parallel.dist.seq_split``); None outside such a split."""
+    split = dist.current_seq_split()
+    return None if split is None else (dim, split.rank, split.size)
+
+
+def keep_mask(x: torch.Tensor, rate: float, shard=None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The boolean keep mask ``dropout`` draws for ``x`` (from the block's
+    generator unless one is given)."""
+    shards = _shards(shard)
+    shape = list(x.shape)
+    for dim, _, size in shards:
+        shape[dim] *= size
+    gen = _generator() if generator is None else generator
+    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    for dim, rank, _ in shards:
+        keep = keep.narrow(dim, rank * x.shape[dim], x.shape[dim])
+    return keep
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             shard=None) -> torch.Tensor:
-    """``shard`` = (dim, rank, size): ``x`` is part ``rank`` of ``size``
-    equal parts along ``dim`` of a whole tensor (a tensor-parallel split,
-    ``parallel.tensor``); the whole tensor's mask is drawn and the part's
-    kept, so the draw is the one the whole tensor would take."""
+    """``shard`` = (dim, rank, size), or a sequence of such (Nones
+    skipped): ``x`` is part ``rank`` of ``size`` equal parts along ``dim``
+    of a whole tensor (a tensor-parallel split, ``parallel.tensor``, or
+    the seq ranks' time split, ``time_shard``); the whole tensor's mask is
+    drawn and the part's kept, so the draw is the one the whole tensor
+    would take."""
     if not training or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    shape = list(x.shape)
-    if shard is not None:
-        dim, rank, size = shard
-        shape[dim] *= size
-    keep = torch.rand(shape, generator=_generator(),
-                      device=x.device) >= rate
-    if shard is not None:
-        keep = keep.narrow(dim, rank * x.shape[dim], x.shape[dim])
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    return torch.where(keep_mask(x, rate, shard), x / (1.0 - rate), 0.0)
 
 
 class Dropout(nn.Module):

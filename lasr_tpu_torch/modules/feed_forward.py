@@ -1,6 +1,8 @@
 """Position-wise feed-forward (counterpart of
 ``lasr_tpu/modules/feed_forward.py``): w_2(dropout(act(w_1(x)))), swish
-in the Conformer blocks and ReLU in the decoder."""
+in the Conformer blocks and ReLU in the decoder.  ``int8=True`` runs both
+Linears through int8 products (``ops.quant.QuantLinear``, the same
+parameters and names)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from lasr_tpu_torch.modules.dropout import dropout
+from lasr_tpu_torch.modules.dropout import dropout, time_shard
 from lasr_tpu_torch.modules.layers import Linear
 
 
@@ -20,10 +22,15 @@ class PositionwiseFeedForward(nn.Module):
 
     def __init__(self, idim: int, hidden_units: int,
                  dropout_rate: float = 0.1,
-                 activation: Callable = torch.relu):
+                 activation: Callable = torch.relu, int8: bool = False):
         super().__init__()
-        self.w_1 = Linear(idim, hidden_units)
-        self.w_2 = Linear(hidden_units, idim)
+        if int8:
+            from lasr_tpu_torch.ops.quant import QuantLinear as linear
+        else:
+            linear = Linear
+        self.int8 = int8
+        self.w_1 = linear(idim, hidden_units)
+        self.w_2 = linear(hidden_units, idim)
         self.activation = activation
         self.dropout_rate = dropout_rate
 
@@ -31,5 +38,5 @@ class PositionwiseFeedForward(nn.Module):
         shard = None if self.hidden_shard is None \
             else (-1, *self.hidden_shard)
         h = dropout(self.activation(self.w_1(x)), self.dropout_rate,
-                    self.training, shard)
+                    self.training, (shard, time_shard(1)))
         return self.w_2(h)

@@ -11,7 +11,9 @@ the generator's state is saved when ``fn`` starts, and the recompute
 draws from a copy of the generator in that state (and of the block's
 shared generator), inside its own ``dropout_generator`` block: its
 masks are the forward's, and the caller's generator advances once, as
-without remat.  During a recompute
+without remat.  The recompute runs in a copy of the forward's context
+variables, so a seq split (``parallel.dist.seq_split``) holds there too.
+During a recompute
 ``recomputing()`` is true, and BatchNorm leaves its running statistics
 alone (the forward moved them already).  Custom autograd functions (the
 attention kernels' wrappers) inside ``fn`` run again in the recompute,
@@ -54,18 +56,20 @@ def checkpointed(fn, *args):
         gen.set_state(kept[1])
         return gen
 
+    context = contextvars.copy_context()
+
+    def recompute(*a):
+        _RECOMPUTING.set(True)
+        if saved[0] is None:
+            return fn(*a)
+        with dropout_generator(*map(replay, saved)):
+            return fn(*a)
+
     def run(*a):
         calls[0] += 1
         if calls[0] == 1:
             return fn(*a)
-        token = _RECOMPUTING.set(True)
-        try:
-            if saved[0] is None:
-                return fn(*a)
-            with dropout_generator(*map(replay, saved)):
-                return fn(*a)
-        finally:
-            _RECOMPUTING.reset(token)
+        return context.copy().run(recompute, *a)
 
     return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)

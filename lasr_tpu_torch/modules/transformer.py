@@ -29,14 +29,45 @@ import torch
 from torch import nn
 
 from lasr_tpu_torch.modules.attention import MultiHeadedAttention
-from lasr_tpu_torch.modules.dropout import dropout
+from lasr_tpu_torch.modules.dropout import dropout, time_shard
 from lasr_tpu_torch.modules.embedding import PositionalEncoding, sinusoid_rows
 from lasr_tpu_torch.modules.feed_forward import PositionwiseFeedForward
 from lasr_tpu_torch.modules.layers import Embedding, LayerNorm, Linear
 from lasr_tpu_torch.modules.remat import checkpointed
 from lasr_tpu_torch.modules.subsampling import Conv2dSubsampling
+from lasr_tpu_torch.parallel import dist
 
 LAYERNORM_EPS = 1e-12  # reference layer_norm.py eps
+
+
+def seq_pad_input(x: torch.Tensor, conv2d: bool, size: int):
+    """(x padded at the end of its time axis so that the encoder's length
+    divides ``size`` seq ranks, the unpadded encoder length or None when
+    nothing was padded), as ``lasr_tpu``'s encoders pad under an
+    activation sharding: 4·((−T_enc) mod size) input frames under the
+    conv2d subsampling (T_enc its output length), (−T) mod size
+    otherwise.  The padded frames are batch padding past every row's
+    length, which the caller caps at the unpadded length."""
+    t_enc = ((x.shape[1] - 1) // 2 - 1) // 2 if conv2d else x.shape[1]
+    pad = (4 if conv2d else 1) * ((-t_enc) % size)
+    if not pad:
+        return x, None
+    zeros = x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))
+    return torch.cat([x, zeros], dim=1), t_enc
+
+
+def time_split_blocks(blocks, h, conv_zero, after_norm, split: bool):
+    """``after_norm(blocks(h, conv_zero))``; with ``split``, over this seq
+    rank's rows of h's time axis (``dist.seq_split``), gathered after the
+    norm (each rank's loss is the whole one, so the gather's backward
+    keeps the rank's rows)."""
+    if not split:
+        return after_norm(blocks(h, conv_zero))
+    with dist.seq_split(h.shape[1]) as s:
+        def rows(a):
+            return None if a is None else a.narrow(1, s.offset, s.local)
+        out = after_norm(blocks(rows(h), rows(conv_zero)))
+    return dist.seq_gather_output(out, 1)
 
 
 class EncoderLayer(nn.Module):
@@ -55,7 +86,7 @@ class EncoderLayer(nn.Module):
         self.dropout_rate = dropout_rate
 
     def _drop(self, x):
-        return dropout(x, self.dropout_rate, self.training)
+        return dropout(x, self.dropout_rate, self.training, time_shard(1))
 
     def forward(self, x, mask, q_rows=None):
         """``q_rows``: only the last q_rows positions are queries (keys
@@ -78,10 +109,12 @@ class Encoder(nn.Module):
                  num_blocks: int = 6, dropout_rate: float = 0.1,
                  positional_dropout_rate: float = 0.1,
                  attention_dropout_rate: float = 0.0,
-                 input_layer: str = "conv2d", remat: bool = False):
+                 input_layer: str = "conv2d", remat: bool = False,
+                 act_sharding: bool = False):
         super().__init__()
         self.input_layer = input_layer
         self.remat = remat
+        self.act_sharding = act_sharding
         pos_enc = PositionalEncoding(attention_dim, positional_dropout_rate)
         if input_layer == "conv2d":
             self.embed = Conv2dSubsampling(idim, attention_dim, pos_enc,
@@ -117,12 +150,22 @@ class Encoder(nn.Module):
     def forward(self, x, x_len, solo_pad: bool = False, pos_offset=0):
         """``solo_pad``: per-row lengths as if each utterance were encoded
         alone (decode time).  ``pos_offset``: the positional encoding's
-        start position(s), an int or a (B,) tensor (long-form windows)."""
+        start position(s), an int or a (B,) tensor (long-form windows).
+        ``act_sharding`` with several seq ranks splits the blocks' time
+        axis over them, as the Conformer encoder does."""
+        split = self.act_sharding and dist.seq_size() > 1
+        len_cap = None
+        if split:
+            x, len_cap = seq_pad_input(x, self.input_layer == "conv2d",
+                                       dist.seq_size())
         h, h_len = self.embed_input(x, x_len, solo_len=solo_pad,
                                     pos_offset=pos_offset)
+        if len_cap is not None:
+            h_len = torch.clamp(h_len, max=len_cap)
         mask = (torch.arange(h.shape[1], device=h.device)[None, :]
                 < h_len[:, None])[:, None, :]
-        return self.after_norm(self.run_layers(h, mask)), h_len
+        return time_split_blocks(lambda h, _: self.run_layers(h, mask), h,
+                                 None, self.after_norm, split), h_len
 
     def run_layers(self, h, mask):
         """The blocks over h (B, T, D) under a (B, 1 or T, T) mask."""

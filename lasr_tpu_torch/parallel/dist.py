@@ -27,14 +27,19 @@ four places:
 At world size 1 nothing is communicated: every function here returns its
 input, and the one-device paths keep their numbers.
 
-The grid (``init(..., model_parallel=N)``, counterpart of the ``(data,
-model)`` axes of ``lasr_tpu/parallel/mesh.py``): rank r is data index
-r // N and model index r % N.  The N ranks of a data index (a model group)
-hold the same rows and split each tensor-parallel layer
-(``parallel.tensor``); the ranks of a model index (a data group) split the
-batch, and the four data-parallel places above (rows, BatchNorm sums, loss
-denominators, the gradient) run over the data group only.  With N = 1
-the data group is the whole world.
+The grid (``init(..., model_parallel=M, seq_parallel=S,
+pipeline_parallel=P)``, counterpart of the ``(data, pipe, seq, model)``
+axes of ``lasr_tpu/parallel/mesh.py``, in ``make_mesh``'s order): rank r
+is model index r % M, seq index (r // M) % S, pipe index (r // (M·S)) % P
+and data index r // (M·S·P).  The P·S·M ranks of a data index hold the
+same rows and share a dropout generator: the model ranks split each
+tensor-parallel layer (``parallel.tensor``), the seq ranks the encoder's
+time (``seq_split``: the Conformer and Transformer encoders), the pipe
+ranks its blocks (``modules.pipeline``).  The ranks of one (pipe, seq,
+model) index (a data group) split the batch, and the four data-parallel
+places above run over the data group only, BatchNorm's sums over data x
+seq while the time is split.  With P = S = M = 1 the data group is the
+whole world.
 
 Ranks come from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``)
@@ -48,6 +53,10 @@ go through host memory under ``gloo`` with CUDA tensors.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import itertools
+import math
 import os
 import socket
 from datetime import timedelta
@@ -70,15 +79,28 @@ class Rendezvous(NamedTuple):
     init_method: str
 
 
+AXES = ("data", "pipe", "seq", "model")
+
+
 class Grid(NamedTuple):
-    """A rank's place in the (data x model) grid and its two groups (None:
-    the whole world for ``data``, no group for a size of 1)."""
+    """A rank's place in the (data, pipe, seq, model) grid: each axis's
+    size, this rank's index on it and its process group (None: the whole
+    world where the axis is the world, no group for a size of 1); and
+    the data x seq group (``data_seq``), over which BatchNorm sums while
+    the encoder's time is split."""
     data_size: int
     model_size: int
     data_rank: int
     model_rank: int
     data: Optional[object]
     model: Optional[object]
+    pipe_size: int = 1
+    pipe_rank: int = 0
+    pipe: Optional[object] = None
+    seq_size: int = 1
+    seq_rank: int = 0
+    seq: Optional[object] = None
+    data_seq: Optional[object] = None
 
 
 # the grid of the process group that ``init`` joined (set with it, cleared
@@ -94,7 +116,7 @@ def grid() -> Grid:
 
 
 def data_size() -> int:
-    """The data-parallel ranks: the world divided by the model axis."""
+    """The data-parallel ranks: the world divided by the other axes."""
     return grid().data_size
 
 
@@ -111,26 +133,72 @@ def model_rank() -> int:
     return grid().model_rank
 
 
-def _make_grid(model_parallel: int) -> Grid:
+def seq_size() -> int:
+    """The sequence-parallel ranks of a seq group (1 without one)."""
+    return grid().seq_size
+
+
+def seq_rank() -> int:
+    return grid().seq_rank
+
+
+def pipe_size() -> int:
+    """The pipeline ranks of a pipe group (1 without one)."""
+    return grid().pipe_size
+
+
+def pipe_rank() -> int:
+    return grid().pipe_rank
+
+
+def replicas() -> int:
+    """The ranks of a data index: pipe x seq x model."""
+    g = grid()
+    return g.pipe_size * g.seq_size * g.model_size
+
+
+def _make_grid(model_parallel: int, seq_parallel: int = 1,
+               pipeline_parallel: int = 1) -> Grid:
     """Every rank makes every group, in the same order (new_group's
     rule)."""
     n, r = world_size(), rank()
-    if model_parallel < 1 or n % model_parallel:
-        raise ValueError(f"-model_parallel {model_parallel} does not divide "
-                         f"the world size {n}")
-    m = model_parallel
-    d = n // m
-    data_group = model_group = None
-    if m > 1:
-        for i in range(m):
-            g = dist.new_group([j * m + i for j in range(d)])
-            if i == r % m:
-                data_group = g
-        for j in range(d):
-            g = dist.new_group([j * m + i for i in range(m)])
-            if j == r // m:
-                model_group = g
-    return Grid(d, m, r // m, r % m, data_group, model_group)
+    for flag, k in (("pipeline_parallel", pipeline_parallel),
+                    ("seq_parallel", seq_parallel),
+                    ("model_parallel", model_parallel)):
+        if k < 1:
+            raise ValueError(f"-{flag} {k}: expected a count >= 1")
+    inner = pipeline_parallel * seq_parallel * model_parallel
+    if n % inner:
+        raise ValueError(f"-pipeline_parallel {pipeline_parallel} x "
+                         f"-seq_parallel {seq_parallel} x -model_parallel "
+                         f"{model_parallel} = {inner} does not divide the "
+                         f"world size {n}")
+    shape = (n // inner, pipeline_parallel, seq_parallel, model_parallel)
+    coords = list(itertools.product(*map(range, shape)))
+    mine = coords[r]
+
+    def group(axes):
+        """The group of the ranks that differ from this one on ``axes``
+        alone (made on every rank, for every such set, in one order)."""
+        if all(shape[AXES.index(a)] == 1 for a in axes):
+            return None
+        if len(coords) == math.prod(shape[AXES.index(a)] for a in axes):
+            return None
+        fixed = [i for i, a in enumerate(AXES) if a not in axes]
+        found = None
+        keys = sorted({tuple(c[i] for i in fixed) for c in coords})
+        for key in keys:
+            members = [j for j, c in enumerate(coords)
+                       if tuple(c[i] for i in fixed) == key]
+            g = dist.new_group(members)
+            if key == tuple(mine[i] for i in fixed):
+                found = g
+        return found
+
+    groups = {a: group((a,)) for a in AXES}
+    return Grid(shape[0], shape[3], mine[0], mine[3], groups["data"],
+                groups["model"], shape[1], mine[1], groups["pipe"],
+                shape[2], mine[2], groups["seq"], group(("data", "seq")))
 
 
 def world_size() -> int:
@@ -166,25 +234,27 @@ def layout() -> Tuple[int, int, int, int]:
     rank r lies on host r // LOCAL_WORLD_SIZE; ``spawn``'s ranks are one
     host.  The dataset hands the hosts whole batches round-robin (as
     ``lasr_tpu`` hands its processes) and a host's data ranks its rows;
-    the model ranks of a data index take the same rows."""
+    the pipe, seq and model ranks of a data index take the same rows."""
     n, r = world_size(), rank()
     if n == 1:
         return 0, 1, 0, 1
-    m = model_size()
+    m = replicas()
     local_n = int(os.environ.get("LOCAL_WORLD_SIZE", n))
     if local_n < 1 or n % local_n or local_n % m:
         raise RuntimeError(f"LOCAL_WORLD_SIZE={local_n} does not divide "
-                           f"the world size {n} in whole model groups of "
-                           f"{m}")
+                           f"the world size {n} in whole data indices of "
+                           f"{m} ranks")
     return r // local_n, n // local_n, (r % local_n) // m, local_n // m
 
 
 def init(device, backend: Optional[str] = None,
          rendezvous: Optional[Rendezvous] = None,
          timeout_s: float = DEFAULT_TIMEOUT_S,
-         model_parallel: int = 1) -> str:
-    """Join this rank's process group and return its backend;
-    ``model_parallel`` ranks make a model group (``Grid``).
+         model_parallel: int = 1, seq_parallel: int = 1,
+         pipeline_parallel: int = 1) -> str:
+    """Join this rank's process group and return its backend; the grid's
+    model, seq and pipe axes have ``model_parallel``, ``seq_parallel``
+    and ``pipeline_parallel`` ranks (``Grid``).
 
     ``rendezvous``: ``spawn``'s; without one, ``torchrun``'s environment
     (``env://``) when it is set, else a group of one.  ``backend``
@@ -229,11 +299,19 @@ def init(device, backend: Optional[str] = None,
             raise RuntimeError(f"the {backend} group's first all-reduce "
                                f"gave {float(probe)}, not its size {world}")
     try:
-        _GRID[:] = [_make_grid(model_parallel)]
+        set_grid(model_parallel, seq_parallel, pipeline_parallel)
     except ValueError:
         shutdown()
         raise
     return backend
+
+
+def set_grid(model_parallel: int = 1, seq_parallel: int = 1,
+             pipeline_parallel: int = 1) -> Grid:
+    """(Re)divide the joined group into the grid of these axes (every
+    rank calls it, with the same sizes) and return this rank's place."""
+    _GRID[:] = [_make_grid(model_parallel, seq_parallel, pipeline_parallel)]
+    return _GRID[0]
 
 
 def shutdown() -> None:
@@ -258,13 +336,13 @@ class _AllReduceSum(torch.autograd.Function):
         return out, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the data ranks, differentiable: the backward
-    sums the incoming gradient over them, so that each rank's gradient is
-    its share of the gradient of the summed losses.  ``x`` itself with
-    one data rank."""
-    g = grid()
-    return x if g.data_size == 1 else _AllReduceSum.apply(x, g.data)
+def all_reduce_sum(x: torch.Tensor, group: str = "data") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (the data ranks by
+    default), differentiable: the backward sums the incoming gradient over
+    them, so that each rank's gradient is its share of the gradient of the
+    summed losses.  ``x`` itself with one rank."""
+    size, handle = _group(group)
+    return x if size == 1 else _AllReduceSum.apply(x, handle)
 
 
 @torch.no_grad()
@@ -282,9 +360,10 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def all_reduce_flat(tensors: Sequence[torch.Tensor],
                     group: str = "data") -> List[torch.Tensor]:
-    """The sum over the ranks of ``group`` ("data", "model" or "world")
-    of each of ``tensors`` (one dtype), through one all-reduce of a flat
-    buffer.  The tensors themselves where the group is one rank."""
+    """The sum over the ranks of ``group`` (an axis, "data_seq" or
+    "world") of each of ``tensors`` (one dtype), through one all-reduce
+    of a flat buffer.  The tensors themselves where the group is one
+    rank."""
     size, handle = _group(group)
     if size == 1 or not tensors:
         return list(tensors)
@@ -297,15 +376,21 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor],
 
 
 def _group(name: str):
-    """(size, process group handle) of "data", "model" or "world"."""
+    """(size, process group handle) of an axis of the grid, of
+    "data_seq" or of "world"."""
     g = grid()
-    if name == "data":
-        return g.data_size, g.data
-    if name == "model":
-        return g.model_size, g.model
     if name == "world":
         return world_size(), None
+    if name == "data_seq":
+        return g.data_size * g.seq_size, g.data_seq
+    if name in AXES:
+        return getattr(g, f"{name}_size"), getattr(g, name)
     raise ValueError(f"unknown group {name!r}")
+
+
+def group_size(name: str) -> int:
+    """The ranks of an axis of the grid, of "data_seq" or of "world"."""
+    return _group(name)[0]
 
 
 def _host_route(t: torch.Tensor) -> bool:
@@ -449,6 +534,143 @@ def slice_replicated(x, dim: int):
     """The model rank's 1/N of the replicated ``x`` along ``dim``."""
     n = x.shape[dim] // model_size()
     return _SliceReplicated.apply(x, dim, model_rank() * n, n)
+
+
+# ---- sequence parallelism: the encoder's time split over the seq ranks ----
+
+class SeqSplit(NamedTuple):
+    """The seq rank's rows of a time axis of ``length`` (a multiple of
+    ``size``): ``local`` rows from ``offset``."""
+    rank: int
+    size: int
+    length: int
+
+    @property
+    def local(self) -> int:
+        return self.length // self.size
+
+    @property
+    def offset(self) -> int:
+        return self.rank * self.local
+
+
+_SEQ: contextvars.ContextVar = contextvars.ContextVar(
+    "lasr_tpu_torch_seq_split", default=None)
+
+
+@contextlib.contextmanager
+def seq_split(length: int):
+    """Inside the block, the encoder's blocks see this seq rank's rows of
+    a ``length``-frame time axis (``current_seq_split``)."""
+    g = grid()
+    if length % g.seq_size:
+        raise ValueError(f"{length} frames do not split over "
+                         f"{g.seq_size} seq ranks")
+    token = _SEQ.set(SeqSplit(g.seq_rank, g.seq_size, length))
+    try:
+        yield _SEQ.get()
+    finally:
+        _SEQ.reset(token)
+
+
+def current_seq_split() -> Optional[SeqSplit]:
+    """The innermost ``seq_split`` block's split, or None."""
+    return _SEQ.get()
+
+
+def _seq_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return gather_dim(x.float(), dim, "seq").to(x.dtype)
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather along ``dim``; the backward sums the ranks' gradients of
+    the whole and keeps the rank's part (reduce-scatter): for keys,
+    values and a kernel's operands, which every rank's rows read."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.meta = (dim, x.dtype)
+        return _seq_all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, dtype = ctx.meta
+        return reduce_scatter_dim(grad.float(), dim, "seq").to(dtype), None
+
+
+class _SeqGatherOwn(torch.autograd.Function):
+    """All-gather along ``dim``; the backward keeps the rank's part of the
+    gradient: for the encoder's output, whose loss every seq rank
+    computes alike."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.meta = (dim, x.shape[dim], seq_rank())
+        return _seq_all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, n, r = ctx.meta
+        return grad.narrow(dim, r * n, n).contiguous(), None
+
+
+def seq_gather(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The seq ranks' ``x`` concatenated along ``dim``, differentiable (a
+    reduce-scatter backward)."""
+    return x if seq_size() == 1 else _SeqGather.apply(x, dim)
+
+
+def seq_gather_output(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """``seq_gather`` whose backward takes the rank's rows of a gradient
+    that every seq rank holds whole."""
+    return x if seq_size() == 1 else _SeqGatherOwn.apply(x, dim)
+
+
+# ---- pipeline parallelism: point to point between pipe ranks ----
+
+def _pipe_peer(offset: int) -> int:
+    """The world rank of the pipe rank ``offset`` away (same data, seq
+    and model index)."""
+    g = grid()
+    return rank() + offset * g.seq_size * g.model_size
+
+
+class _Sent(NamedTuple):
+    work: object
+    buf: torch.Tensor
+
+    def wait(self) -> None:
+        self.work.wait()
+
+
+def pipe_send(x: torch.Tensor, offset: int) -> _Sent:
+    """Start sending ``x`` to the pipe rank ``offset`` away (under
+    ``gloo`` a CUDA tensor goes through host memory); ``wait()`` on the
+    result ends it."""
+    src = x.detach().contiguous()
+    if _host_route(src):
+        src = src.cpu()
+    return _Sent(dist.isend(src, _pipe_peer(offset)), src)
+
+
+def pipe_recv(like: torch.Tensor, offset: int) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device from the pipe rank
+    ``offset`` away."""
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      device="cpu" if _host_route(like) else like.device)
+    dist.recv(buf, _pipe_peer(offset))
+    return buf.to(like.device)
+
+
+@torch.no_grad()
+def pipe_broadcast(x: torch.Tensor, src: int) -> torch.Tensor:
+    """Pipe rank ``src``'s ``x`` on every pipe rank (in place)."""
+    size, handle = _group("pipe")
+    if size == 1:
+        return x
+    root = rank() + (src - pipe_rank()) * grid().seq_size * grid().model_size
+    dist.broadcast(x, root, group=handle)
+    return x
 
 
 # ---- rows of a global batch ----

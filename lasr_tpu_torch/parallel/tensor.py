@@ -23,7 +23,15 @@ its model rank's part:
     v, pos projections column-parallel, ``linear_out`` row-parallel,
     ``pos_bias_u`` / ``pos_bias_v`` sliced), so the rel kernels run on
     BH = B·H/N with the positional table of the local heads; a
-    feed-forward runs its rank's hidden units.
+    feed-forward runs its rank's hidden units;
+  - the monotonic attention (``MTMultiHeadedAttention``, one head in the
+    streaming decoder), and any attention whose heads the model ranks do
+    not divide, splits the same projections by columns, inside a head
+    (``column_shard``): the ranks gather the projections' columns, compute
+    the energies, the probabilities (the sigmoid noise drawn alike from
+    the shared generator) or a kernel whole, and each takes its columns
+    of the context into its rows of ``linear_out``
+    (``modules.attention``).
 
 Everything else (norms, the conv module, subsampling, BatchNorm) is
 computed whole on every model rank, on the same inputs, so its gradient
@@ -132,34 +140,32 @@ def _split(parent: nn.Module, child: str, spec: Spec, gather: bool):
 @torch.no_grad()
 def apply_tensor_parallel(model: nn.Module, specs: Dict[str, Spec]) -> None:
     """Replace, in place, every layer that ``specs`` splits over the model
-    ranks by its rank's part (see the module docstring).  Raises where a
-    split would cut an attention head or a model the rules do not cover
-    (the streaming decoder's monotonic attention)."""
+    ranks by its rank's part (see the module docstring).  Raises where the
+    rules split some of an attention's projections and not the others."""
     n, r = dist.model_size(), dist.model_rank()
     if n == 1:
         return
     for name, mod in list(model.named_modules()):
         prefix = f"{name}." if name else ""
-        if isinstance(mod, MTMultiHeadedAttention):
-            raise NotImplementedError(
-                "tensor parallelism of the monotonic attention is not "
-                "ported (ROADMAP A8)")
         if isinstance(mod, MultiHeadedAttention):
             split = [specs[prefix + f"{c}.weight"].tp is not None
                      for c in ("linear_q", "linear_k", "linear_v",
                                "linear_out")]
             if not any(split):
                 continue
-            if not all(split) or mod.n_head % n:
+            if not all(split):
                 raise NotImplementedError(
-                    f"{name}: {mod.n_head} heads do not split over {n} "
-                    f"model ranks")
+                    f"{name}: the projections of {mod.n_feat} features do "
+                    f"not all split over {n} model ranks")
             for c in ("linear_q", "linear_k", "linear_v", "linear_pos",
                       "linear_out"):
                 if hasattr(mod, c):
                     _split(mod, c, specs[prefix + f"{c}.weight"], False)
-            mod.n_head //= n
-            mod.head_shard = (r, n)
+            if isinstance(mod, MTMultiHeadedAttention) or mod.n_head % n:
+                mod.column_shard = (r, n)
+            else:
+                mod.n_head //= n
+                mod.head_shard = (r, n)
         elif isinstance(mod, PositionwiseFeedForward):
             if specs[prefix + "w_1.weight"].tp is None:
                 continue

@@ -45,9 +45,18 @@ CER), and other calls report -1.  Rank 0's initial weights are broadcast
 to every rank; rank 0 alone writes checkpoints, ``hparams.yaml``,
 ``metrics.jsonl`` and the loop state, and every rank restores.
 
-The (data x model) grid (``dist.init(..., model_parallel=N)``): the
-Trainer splits the model's layers over the N model ranks of each data
-index (``parallel.tensor``, the rules of ``parallel.sharding``) after the
+The (data, pipe, seq, model) grid (``dist.init(..., model_parallel=M,
+seq_parallel=S, pipeline_parallel=P)``), as ``lasr_tpu``'s Trainer
+takes its mesh: with P > 1 the model's ``encoder_pipeline_stages`` must
+be a multiple of P (``ValueError`` otherwise), and each pipe rank keeps
+the encoder blocks of its stages (``modules.pipeline``); with S > 1 (and
+P = 1) the Trainer sets the encoder's ``act_sharding``, so the encoder's
+time axis splits over the S seq ranks and the encoder's gradients sum
+over them (a model without the field trains with the seq ranks
+repeating the work, with a warning; with P > 1 too the time stays whole
+inside the pipeline stages, as ``lasr_tpu`` logs).  The Trainer splits
+the model's layers over the M model ranks of each data index
+(``parallel.tensor``, the rules of ``parallel.sharding``) after the
 broadcast, and with ``fsdp`` keeps every large leaf's parameters,
 gradients, Adam moments, accumulated gradient and EMA shadow as the data
 rank's shard (``sharding.ShardLayout``): the whole weights are gathered
@@ -174,9 +183,11 @@ class Trainer:
         self.rank, self.world = dist.rank(), dist.world_size()
         grid = dist.grid()
         self.data_world = grid.data_size
+        seq_split = _setup_grid_model(model, grid)
         dist.broadcast_module(model)
         specs = sharding.param_specs(model, grid.model_size, grid.data_size,
-                                     fsdp, fsdp_min_size)
+                                     fsdp, fsdp_min_size, grid.pipe_size,
+                                     seq_split)
         apply_tensor_parallel(model, specs)
         self.layout = sharding.ShardLayout(model, specs)
         self.names = self.layout.names
@@ -216,7 +227,8 @@ class Trainer:
         source = self.masters if source is None else source
         index = {n: i for i, n in enumerate(self.names)}
         out = {}
-        for k, v in self.model.state_dict().items():
+        for k, v in self.layout.full_buffers(
+                self.model.state_dict()).items():
             i = index.get(k)
             out[k] = v if i is None else self.layout.full(i, source[i])
         return out
@@ -325,7 +337,8 @@ class Trainer:
             metrics, grads = self._local_loss_and_grads(batch, state.step)
         finally:
             self.layout.release()
-        reduced = self.layout.fsdp or self.data_world == 1
+        reduced = self.layout.fsdp or (self.data_world == 1
+                                       and not self.layout.seq)
         if self.layout.fsdp:
             grads = self.layout.reduce(grads)
         emit = True
@@ -787,6 +800,39 @@ class Trainer:
                 if isinstance(v, (int, float)) and k not in ("epoch", "step"):
                     tb.add_scalar(k, v, step)
             tb.flush()
+
+
+def _setup_grid_model(model, grid) -> bool:
+    """Fit ``model`` to the grid's pipe and seq axes (``lasr_tpu``'s
+    Trainer's mesh checks); returns whether the encoder's time splits over
+    the seq ranks."""
+    encoder = getattr(model, "encoder", None)
+    if grid.pipe_size > 1:
+        stages = getattr(encoder, "pipeline_stages", 1)
+        if stages % grid.pipe_size:
+            raise ValueError(
+                f"the grid's pipe axis is {grid.pipe_size} but the model "
+                f"has encoder_pipeline_stages={stages}; set the model's "
+                f"pipeline stages to a multiple of the pipe axis "
+                f"(-pipeline_parallel N sets it to N)")
+    if grid.seq_size <= 1:
+        return False
+    if grid.pipe_size > 1:
+        # the time stays whole inside the pipeline stages
+        if hasattr(encoder, "act_sharding"):
+            encoder.act_sharding = False
+        logging.info("pipe+seq grid: encoder activations are not "
+                     "time-sharded inside the pipeline stages")
+        return False
+    if not hasattr(encoder, "act_sharding"):
+        logging.warning(
+            "the grid has a seq axis of %d but %s has no "
+            "encoder_act_sharding field; sequence parallelism is a no-op "
+            "for this model and those ranks repeat the same work",
+            grid.seq_size, type(model).__name__)
+        return False
+    encoder.act_sharding = True
+    return True
 
 
 class _ScalarWriter:

@@ -130,8 +130,11 @@ def _torch_path(path: Tuple[str, ...]):
 
 def flax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) → reference-
-    named torch state_dict of float32 tensors."""
+    named torch state_dict of float32 tensors; stacked encoder blocks
+    (``encoder_scan_layers``, a pipelined encoder's ``pipe_stages``) are
+    unstacked (``unstack_scan_layers``)."""
     sd: Dict[str, torch.Tensor] = {}
+    variables = {k: unstack_scan_layers(v) for k, v in variables.items()}
     for path, arr in _flatten(variables.get("params", {})):
         arr = _numpy(arr)
         names = _torch_path(path)
@@ -471,26 +474,33 @@ def read_orbax(path: str, choose: str = "last", avg: int = 1
 
 
 def unstack_scan_layers(tree):
-    """``encoder_scan_layers`` stacks the Conformer blocks' leaves
-    ``[num_blocks, …]`` under ``layers/block`` (``lasr_tpu/modules/
-    conformer.py``); return the tree with them as ``layers_{i}``.  A
-    pipelined encoder's ``pipe_stages`` tree raises: pipeline parallelism
-    is not ported (ROADMAP A8)."""
+    """Return ``tree`` with stacked encoder blocks as ``layers_{i}``:
+    ``encoder_scan_layers``'s ``[num_blocks, …]`` leaves under
+    ``layers/block`` (``lasr_tpu/modules/conformer.py``), and a pipelined
+    encoder's ``[stages, blocks_per_stage, …]`` leaves under
+    ``pipe_stages/block`` (``lasr_tpu/modules/pipeline.py``: stage p's
+    layer l is block p·blocks_per_stage + l), parameters and BatchNorm
+    statistics alike."""
     if not isinstance(tree, dict):
         return tree
     out = {}
     for k, v in tree.items():
-        if k == "pipe_stages":
-            raise NotImplementedError(
-                "a pipelined encoder's checkpoint (encoder_pipeline_stages "
-                "> 1): pipeline parallelism is not ported (ROADMAP A8)")
-        if k == "layers" and isinstance(v, dict) and set(v) == {"block"}:
-            leaves = list(_flatten(v["block"]))
-            for i in range(len(leaves[0][1])):
-                for path, leaf in leaves:
-                    _insert(out, (f"layers_{i}",) + path, leaf[i])
-        else:
+        stacked = k in ("layers", "pipe_stages") and isinstance(v, dict) \
+            and set(v) == {"block"}
+        if not stacked:
             out[k] = unstack_scan_layers(v)
+            continue
+        leaves = list(_flatten(v["block"]))
+        if k == "layers":
+            blocks = [(i, lambda a, i=i: a[i])
+                      for i in range(len(leaves[0][1]))]
+        else:
+            stages, per = leaves[0][1].shape[:2]
+            blocks = [(p * per + i, lambda a, p=p, i=i: a[p][i])
+                      for p in range(stages) for i in range(per)]
+        for i, take in blocks:
+            for path, leaf in leaves:
+                _insert(out, (f"layers_{i}",) + path, take(leaf))
     return out
 
 

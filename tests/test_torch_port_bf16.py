@@ -34,6 +34,7 @@ run in interpret mode, the port's wrappers run their plain versions.
 """
 
 import collections
+import functools
 import json
 import os
 
@@ -96,6 +97,13 @@ NODROP = dict(encoder_dropout_rate=0.0, decoder_dropout_rate=0.0,
               ctc_dropout=0.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _pair(config):
+    """``bf16_pair`` of a SERVED configuration, made once for every test
+    that reads it (none changes it)."""
+    return bf16_pair(SERVED[config])
+
+
 def _ragged_labels(ys):
     ys = ys.copy()
     ys[1, -2:] = -1
@@ -153,7 +161,7 @@ def _flax_dtype_map(fm, variables, x, xlen, ys_in):
 
 @pytest.mark.parametrize("config", list(SERVED))
 def test_dtype_map_equals_flax(config):
-    _, fb, v, pm = bf16_pair(SERVED[config])
+    _, fb, v, pm = _pair(config)
     x, xlen, ys = bf16_batch()
     ys_in, _, _ = _ragged_labels(ys)
     got = _port_dtype_map(pm, x, xlen, ys_in)
@@ -198,7 +206,7 @@ def test_train_state_stays_float32():
 
 @pytest.mark.parametrize("config", list(SERVED))
 def test_forward_matches_jax_bf16(config):
-    f32m, fb, v, pm = bf16_pair(SERVED[config])
+    f32m, fb, v, pm = _pair(config)
     x, xlen, ys = bf16_batch(seed=1)
     ys_in, att_label, ctc_label = _ragged_labels(ys)
 
@@ -254,7 +262,7 @@ def test_bf16_state_dict_round_trips_through_the_jax_bridge():
     """f32 in and out whatever the compute dtype: the bf16 model's
     state_dict is the weights it was loaded from, and the JAX bf16 model
     runs on them."""
-    _, fb, v, pm = bf16_pair(SERVED["B"])
+    _, fb, v, pm = _pair("B")
     assert all(x.dtype == torch.float32 for x in pm.state_dict().values()
                if x.is_floating_point())
     round_trip(v, pm)
@@ -448,7 +456,7 @@ def _score_jax(fm, v, x, xlen, hyps, eos=2):
 
 @pytest.mark.parametrize("config", list(SERVED))
 def test_beam_search_over_bf16_model(config, monkeypatch):
-    _, fb, v, pm = bf16_pair(SERVED[config])
+    _, fb, v, pm = _pair(config)
     x, xlen, _ = bf16_batch(seed=3)
     kw = dict(beam=4, ctc_beam=5, ctc_weight=W, nbest=1)
     want = JaxBeam(fb, v, **kw)(x, xlen)

@@ -17,7 +17,8 @@
     The LM is written twice from one set of weights: orbax for
     ``lasr_tpu``, ``.pt`` for the port; the port's decode with the orbax
     LM equals its decode with the ``.pt`` one;
-  - training flags the port lacks raise.
+  - the train CLI's ``-seq_parallel`` and ``-pipeline_parallel`` train on
+    2 ``gloo`` ranks.
 
 This module imports no JAX at its top (the JAX CLIs load inside the
 tests): its corpus and config writers serve the card's tests too.
@@ -367,13 +368,54 @@ def _nbest_lines(path):
     return [(k, float(sc), text) for k, sc, text in rows]
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("-seq_parallel", "2"), ("-pipeline_parallel", "2")])
-def test_train_cli_refuses_unported_flags(flag, value, tmp_path):
-    with pytest.raises(NotImplementedError, match=flag.lstrip("-")):
-        port_train.main(["-config", str(tmp_path / "none.yaml"),
-                         "-exp_dir", str(tmp_path), flag, value,
-                         "-device", "cpu"])
+GRID_FLAGS = [("-seq_parallel", "2"), ("-pipeline_parallel", "2")]
+
+
+@pytest.fixture(scope="module")
+def grid_runs(tmp_path_factory):
+    """The train CLI started once for each of GRID_FLAGS, the runs side
+    by side: {flag: (exit code, output, exp_dir)}."""
+    from tests.torch_port_dp_worker import Worker
+    tmp = tmp_path_factory.mktemp("grid")
+    train = write_corpus(str(tmp / "train"), n16=4, n8=0, seed=33,
+                         secs=(0.5, 0.8), n_words=(1, 3), word_len=(1, 4))
+    valid = write_corpus(str(tmp / "dev"), n16=2, n8=0, seed=34,
+                         secs=(0.5, 0.8), n_words=(1, 3), word_len=(1, 4))
+    config = write_config(str(tmp / "config.yaml"), train, valid,
+                          TINY_CONFORMER, train_batch=4, valid_batch=2)
+    workers = {}
+    for flag, value in GRID_FLAGS:
+        exp = str(tmp / flag.lstrip("-"))
+        workers[flag] = (exp, Worker(
+            ["-config", config, "-exp_dir", exp, "-num_epochs", "1",
+             "-log_interval", "1", "-num_workers", "1", "-device", "cpu",
+             flag, value], str(tmp), module="lasr_tpu_torch.bin.train",
+            name=flag.lstrip("-")))
+    return {flag: w.wait() + (exp,) for flag, (exp, w) in workers.items()}
+
+
+@pytest.mark.parametrize("flag,value", GRID_FLAGS)
+def test_train_cli_refuses_unported_flags(flag, value, grid_runs):
+    """Once refused, now the grid's seq and pipe axes: the train CLI runs
+    an epoch on 2 ``gloo`` ranks, rank 0 writes one checkpoint tree (the
+    pipelined run's ``hparams.yaml`` naming its 2 stages) whose weights a
+    one-process model loads."""
+    rc, out, exp = grid_runs[flag]
+    assert rc == 0, out[-6000:]
+    pipe = int(flag == "-pipeline_parallel")
+    assert "world size 2" in out and \
+        f"{1 + pipe} pipe x {2 - pipe} seq ranks" in out
+    with open(os.path.join(exp, "hparams.yaml")) as f:
+        kwargs = yaml.safe_load(f)["model_config"]["kwargs"]
+    assert kwargs.get("encoder_pipeline_stages", 1) == 1 + pipe
+    last = os.path.join(exp, "checkpoints", "last")
+    (name,) = checkpoint_steps(last).values()
+    from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+    from lasr_tpu_torch.utils.weights import (load_model_weights,
+                                              load_reference_checkpoint)
+    model = E2E_Conformer_CTC(**kwargs, device="cpu")
+    load_model_weights(model, load_reference_checkpoint(
+        os.path.join(last, name)))
 
 
 def test_decode_cli_refuses_an_orbax_lm(run, decoders, tmp_path, capsys):

@@ -54,53 +54,78 @@ from lasr_tpu_torch.utils.weights import checkpoint_steps
 from tests.test_torch_port_cli import write_corpus
 from tests.torch_port_common import flax_state_dict
 from tests.torch_port_dp_worker import (KW, Worker, assert_step_equal,
-                                        build_trainer, ranks_result,
-                                        run_steps, start_ranks, wav_batch)
+                                        build_trainer, layout_result,
+                                        one_process_results,
+                                        start_one_process, start_ranks,
+                                        wav_batch)
 
 ADAM = dict(lr=1e-3, eps=1e-3)
 
 
-@pytest.mark.parametrize("acc_grads", [1, 2])
-def test_two_ranks_equal_one_process_on_the_global_batch(acc_grads,
-                                                         tmp_path):
-    spec = dict(kw=KW, chain=["norm", "fbank:20", "specaug"], adam=ADAM,
-                acc_grads=acc_grads, device="cpu",
-                batches=[wav_batch(0, 3, 3), wav_batch(1, 4, 4)])
-    torch.manual_seed(0)
-    model, trainer = build_trainer(spec, "cpu")
-    spec["init"] = {k: v.clone() for k, v in model.state_dict().items()}
-    worker = start_ranks(str(tmp_path), spec)
-    want = run_steps(trainer, model, spec["batches"],
-                     lambda b: dist.pad_rows(b, 2))
-    got = ranks_result(str(tmp_path), worker)
-
-    assert_step_equal(got, want)
-    # the update moved the weights, and the BatchNorm statistics
-    moved = [k for k, w in want["state_dict"].items()
-             if not torch.equal(w, spec["init"][k])]
-    assert any(k.endswith("norm.running_var") for k in moved)
-    assert len(moved) > len(want["names"]) // 2
+def _mesh_trainer(chain):
+    return JaxTrainer(jax_models.E2E_Conformer_CTC(**KW),
+                      JaxLoss(KW["odim"], smoothing=0.1, rate=0.3),
+                      JaxAdam(**ADAM).make(), JaxFrontend(chain),
+                      mesh=make_mesh(data=2, devices=jax.devices()[:2]),
+                      use_ema=True, seed=0, log_interval=1)
 
 
-def test_two_ranks_equal_lasr_tpu_mesh_step(tmp_path):
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """One group of two ranks runs the three layouts below in turn
+    (``acc_grads`` 1 and 2 on the port's initial weights, then
+    lasr_tpu's mesh batches on its weights); the port's one-process steps
+    (in a process of their own) and lasr_tpu's mesh steps run
+    meanwhile."""
+    tmp = str(tmp_path_factory.mktemp("two"))
+    runs = {}
+    for acc_grads in (1, 2):
+        spec = dict(kw=KW, chain=["norm", "fbank:20", "specaug"], adam=ADAM,
+                    acc_grads=acc_grads, device="cpu",
+                    batches=[wav_batch(0, 3, 3), wav_batch(1, 4, 4)])
+        torch.manual_seed(0)
+        model, _ = build_trainer(spec, "cpu")
+        spec["init"] = {k: v.clone() for k, v in model.state_dict().items()}
+        runs[acc_grads] = spec
+    one_tmp = str(tmp_path_factory.mktemp("one"))
+    one_worker = start_one_process(one_tmp, [
+        (spec, ("pad", 2), None) for spec in runs.values()])
     chain = ["norm", "fbank:20"]
     batches = [wav_batch(2, 4, 4), wav_batch(3, 3, 4), wav_batch(2, 4, 4)]
-    jt = JaxTrainer(jax_models.E2E_Conformer_CTC(**KW),
-                    JaxLoss(KW["odim"], smoothing=0.1, rate=0.3),
-                    JaxAdam(**ADAM).make(), JaxFrontend(chain),
-                    mesh=make_mesh(data=2, devices=jax.devices()[:2]),
-                    use_ema=True, seed=0, log_interval=1)
+    jt = _mesh_trainer(chain)
     jstate = jt.init_state(batches[0])
-    spec = dict(kw=KW, chain=chain, adam=ADAM, acc_grads=1, device="cpu",
+    mesh = dict(kw=KW, chain=chain, adam=ADAM, acc_grads=1, device="cpu",
                 batches=batches,
                 init=flax_state_dict(jstate.params, jstate.batch_stats))
-    worker = start_ranks(str(tmp_path), spec)
+    worker = start_ranks(tmp, dict(ranks=2, device="cpu", layouts=[
+        runs[1], runs[2], mesh]))
     jmetrics = []
     for b in batches:
         jstate, m = jt.train_step(jstate, b)
         jmetrics.append({k: float(v) for k, v in m.items()})
-    got = ranks_result(str(tmp_path), worker)
+    wants = dict(zip(runs, one_process_results(one_tmp, one_worker,
+                                               len(runs))))
+    rc, out = worker.wait()
+    assert rc == 0, out[-6000:]
+    got = [layout_result(tmp, 2, f"_{i}") for i in range(3)]
+    return ({acc: (got[i], wants[acc], runs[acc]["init"])
+             for i, acc in enumerate((1, 2))}, (got[2], jmetrics, jstate))
 
+
+@pytest.mark.parametrize("acc_grads", [1, 2])
+def test_two_ranks_equal_one_process_on_the_global_batch(acc_grads,
+                                                         two_ranks):
+    got, want, init = two_ranks[0][acc_grads]
+    assert_step_equal(got, want)
+    # the update moved the weights, and the BatchNorm statistics
+    moved = [k for k, w in want["state_dict"].items()
+             if not torch.equal(w, init[k])]
+    assert any(k.endswith("norm.running_var") for k in moved)
+    assert len(moved) > len(want["names"]) // 2
+
+
+def test_two_ranks_equal_lasr_tpu_mesh_step(two_ranks):
+    got, jmetrics, jstate = two_ranks[1]
     for i, (g, w) in enumerate(zip(got["steps"], jmetrics)):
         for k in g:
             np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-4,

@@ -71,10 +71,24 @@ def test_config_knobs():
                       encoder_scan_layers=True,
                       encoder_pos_dropout_mode="rotated",
                       encoder_pipeline_microbatches=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        E2E_Conformer_CTC(**TINY, encoder_pipeline_stages=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        E2E_Conformer_CTC(**TINY, encoder_ff_int8=True, device="cpu")
+    # the pipelined encoder keeps the per-block parameters; its eval
+    # forward is the plain one (test_torch_port_pipeline.py trains it)
+    torch.manual_seed(0)
+    plain = E2E_Conformer_CTC(**TINY, device="cpu")
+    staged = E2E_Conformer_CTC(**TINY, encoder_pipeline_stages=2,
+                               device="cpu")
+    staged.load_state_dict(plain.state_dict())
+    x, xlen, ys = data()
+    with torch.no_grad():
+        assert torch.equal(staged(t(x), t(xlen), t(ys).long())["ctc_out"],
+                           plain(t(x), t(xlen), t(ys).long())["ctc_out"])
+    with pytest.raises(ValueError, match="not divisible"):
+        E2E_Conformer_CTC(**TINY, encoder_pipeline_stages=3, device="cpu")
+    # int8 feed-forwards, the same parameters
+    int8 = E2E_Conformer_CTC(**TINY, encoder_ff_int8=True, device="cpu")
+    int8.load_state_dict(plain.state_dict())
+    assert type(int8.encoder.encoders[1].feed_forward.w_2).__name__ \
+        == "QuantLinear"
     pm = E2E_Conformer_CTC(**TINY, device="cpu").train()
     x, xlen, ys = data()
     # train-mode dropout draws from a caller-owned generator only

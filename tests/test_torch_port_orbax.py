@@ -321,11 +321,15 @@ def test_reader_unstacks_a_scan_layers_tree(tmp_path):
     one = flax_to_state_dict({"params": {"encoder": {"layers_1": block}}})
     for k, v in one.items():
         assert torch.equal(sd[k], v), k
+    # a pipelined encoder's [stages, blocks per stage, ...] leaves
     pipelined = str(tmp_path / "pipe")
+    w = np.arange(12, dtype=np.float32).reshape(2, 2, 3)
     ocdbt.save_tree(pipelined, {"params": {"encoder": {"pipe_stages": {
-        "w": np.zeros((2, 1, 3), np.float32)}}}})
-    with pytest.raises(NotImplementedError, match="A8"):
-        load_reference_checkpoint(pipelined)
+        "block": {"norm_ff": {"bias": w}}}}}})
+    sd = load_reference_checkpoint(pipelined)
+    for i in range(4):
+        assert torch.equal(sd[f"encoder.encoders.{i}.norm_ff.bias"],
+                           torch.from_numpy(w[i // 2, i % 2])), i
 
 
 def test_chip_smoke_blob_is_what_orbax_restores(tmp_path):

@@ -63,15 +63,17 @@ from lasr_tpu.train.optimizer import Adam as JaxAdam
 from lasr_tpu.train.trainer import Trainer as JaxTrainer
 from lasr_tpu_torch.data.reader import write_wav
 from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
-from lasr_tpu_torch.parallel import dist, sharding
+from lasr_tpu_torch.parallel import sharding
 from lasr_tpu_torch.process.asrprocess import ASRProcess
 from lasr_tpu_torch.utils.weights import checkpoint_steps
 from tests.test_torch_port_cli import (TINY_CONFORMER, write_config,
                                        write_corpus)
 from tests.torch_port_common import flax_state_dict
 from tests.torch_port_dp_worker import (KW, Worker, assert_step_equal,
-                                        build_trainer, ranks_result,
-                                        run_steps, start_ranks, wav_batch)
+                                        build_trainer, float64_everywhere,
+                                        layout_result, one_process_results,
+                                        start_one_process, start_ranks,
+                                        wav_batch)
 
 ADAM = dict(lr=1e-3, eps=1e-3)
 # the vocabulary divides over 2 model ranks, so the embedding and the
@@ -89,29 +91,91 @@ LAYOUTS = {
 F32_GRAD_TOL = 3e-4
 
 
-@pytest.mark.parametrize("layout", list(LAYOUTS))
-def test_sharded_ranks_equal_one_process(layout, tmp_path, monkeypatch):
+def _layout_spec(layout):
+    """The spec of a layout of LAYOUTS, with the port's initial weights
+    (float64 where the layout says)."""
     grid = LAYOUTS[layout]
-    data = grid["ranks"] // grid.get("model_parallel", 1)
-    if grid.get("float64"):
-        monkeypatch.setattr(torch.Tensor, "float",
-                            lambda self: self.to(torch.float64))
     spec = dict(kw=KW_TP, chain=["norm", "fbank:20", "specaug"], adam=ADAM,
                 acc_grads=2 if layout.startswith("dp2xtp2") else 1,
                 device="cpu", batches=[wav_batch(0, 3, 3),
                                        wav_batch(1, 4, 4)], **grid)
-    torch.manual_seed(0)
-    model, trainer = build_trainer(dict(spec, fsdp=False), "cpu")
+    float64_everywhere(bool(grid.get("float64")))
+    try:
+        torch.manual_seed(0)
+        model, _ = build_trainer(dict(spec, fsdp=False), "cpu")
+    finally:
+        float64_everywhere(False)
     spec["init"] = {k: v.clone() for k, v in model.state_dict().items()}
-    worker = start_ranks(str(tmp_path), spec)
-    want = run_steps(trainer, model, spec["batches"],
-                     lambda b: dist.pad_rows(b, data))
-    got = ranks_result(str(tmp_path), worker, grid["ranks"])
+    return spec
 
+
+@pytest.fixture(scope="module")
+def groups(tmp_path_factory):
+    """Two process groups, of 2 and 4 ranks, each running its layouts of
+    LAYOUTS in turn (the 4-rank one then lasr_tpu's mesh batches on its
+    weights); the port's one-process steps (in a process of their own)
+    and lasr_tpu's Trainers run meanwhile."""
+    specs = {name: _layout_spec(name) for name in LAYOUTS}
+    tmp = {n: str(tmp_path_factory.mktemp(f"ranks{n}")) for n in (1, 2, 4)}
+    one_worker = start_one_process(tmp[1], [
+        (spec, ("pad", spec["ranks"] // spec.get("model_parallel", 1)),
+         None) for spec in specs.values()])
+    chain = ["norm", "fbank:20"]
+    batches = [wav_batch(2, 4, 4), wav_batch(3, 3, 4), wav_batch(2, 4, 4)]
+    jt = JaxTrainer(jax_models.E2E_Conformer_CTC(**KW_TP),
+                    JaxLoss(KW_TP["odim"], smoothing=0.1, rate=0.3),
+                    JaxAdam(**ADAM).make(), JaxFrontend(chain),
+                    mesh=make_mesh(data=2, model=2,
+                                   devices=jax.devices()[:4]),
+                    partition_params=True, fsdp_params=True,
+                    fsdp_min_size=0, use_ema=True, seed=0, log_interval=1)
+    jstate = jt.init_state(batches[0])
+    mesh = dict(kw=KW_TP, chain=chain, adam=ADAM, acc_grads=1, device="cpu",
+                batches=batches, ranks=4, model_parallel=2, fsdp=True,
+                fsdp_min_size=0,
+                init=flax_state_dict(jstate.params, jstate.batch_stats))
+    members = {n: [name for name in LAYOUTS if LAYOUTS[name]["ranks"] == n]
+               for n in (2, 4)}
+    workers = {n: start_ranks(tmp[n], dict(ranks=n, device="cpu", layouts=[
+        specs[name] for name in members[n]] + ([mesh] if n == 4 else [])))
+        for n in (2, 4)}
+    one = JaxTrainer(jax_models.E2E_Conformer_CTC(**KW_TP),
+                     JaxLoss(KW_TP["odim"], smoothing=0.1, rate=0.3),
+                     JaxAdam(**ADAM).make(), JaxFrontend(chain),
+                     mesh=make_mesh(data=1, devices=jax.devices()[:1]),
+                     use_ema=True, seed=0, log_interval=1)
+    one_state = one.init_state(batches[0])
+    want_shapes = _jax_shard_shapes(jstate.params)
+    jmetrics, one_metrics = [], []
+    for b in batches:
+        jstate, m = jt.train_step(jstate, b)
+        jmetrics.append({k: float(v) for k, v in m.items()})
+        one_state, m = one.train_step(one_state, b)
+        one_metrics.append({k: float(v) for k, v in m.items()})
+    wants = dict(zip(specs, one_process_results(tmp[1], one_worker,
+                                                len(specs))))
+    got = {}
+    for n, worker in workers.items():
+        rc, out = worker.wait()
+        assert rc == 0, out[-6000:]
+        for i, name in enumerate(members[n]):
+            got[name] = layout_result(tmp[n], n, f"_{i}")
+    mesh_got = layout_result(tmp[4], 4, f"_{len(members[4])}")
+    return ({name: (got[name], wants[name], specs[name]["init"])
+             for name in LAYOUTS},
+            (mesh_got, want_shapes, jmetrics, one_metrics, jstate,
+             one_state))
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_sharded_ranks_equal_one_process(layout, groups):
+    grid = LAYOUTS[layout]
+    data = grid["ranks"] // grid.get("model_parallel", 1)
+    got, want, init = groups[0][layout]
     loose = None if grid.get("float64") else {"": F32_GRAD_TOL}
     assert_step_equal(got, want, loose=loose)
     moved = [k for k, w in want["state_dict"].items()
-             if not torch.equal(w, spec["init"][k])]
+             if not torch.equal(w, init[k])]
     assert len(moved) > len(want["names"]) // 2
     # the layout split what it should
     shapes = got["shard_shapes"]
@@ -130,37 +194,8 @@ def _jax_shard_shapes(params):
     return {k: tuple(v.shape) for k, v in flax_state_dict(shards).items()}
 
 
-def test_four_ranks_equal_lasr_tpu_mesh_step(tmp_path):
-    chain = ["norm", "fbank:20"]
-    batches = [wav_batch(2, 4, 4), wav_batch(3, 3, 4), wav_batch(2, 4, 4)]
-    jt = JaxTrainer(jax_models.E2E_Conformer_CTC(**KW_TP),
-                    JaxLoss(KW_TP["odim"], smoothing=0.1, rate=0.3),
-                    JaxAdam(**ADAM).make(), JaxFrontend(chain),
-                    mesh=make_mesh(data=2, model=2,
-                                   devices=jax.devices()[:4]),
-                    partition_params=True, fsdp_params=True,
-                    fsdp_min_size=0, use_ema=True, seed=0, log_interval=1)
-    jstate = jt.init_state(batches[0])
-    one = JaxTrainer(jax_models.E2E_Conformer_CTC(**KW_TP),
-                     JaxLoss(KW_TP["odim"], smoothing=0.1, rate=0.3),
-                     JaxAdam(**ADAM).make(), JaxFrontend(chain),
-                     mesh=make_mesh(data=1, devices=jax.devices()[:1]),
-                     use_ema=True, seed=0, log_interval=1)
-    one_state = one.init_state(batches[0])
-    spec = dict(kw=KW_TP, chain=chain, adam=ADAM, acc_grads=1, device="cpu",
-                batches=batches, ranks=4, model_parallel=2, fsdp=True,
-                fsdp_min_size=0,
-                init=flax_state_dict(jstate.params, jstate.batch_stats))
-    worker = start_ranks(str(tmp_path), spec)
-    want_shapes = _jax_shard_shapes(jstate.params)
-    jmetrics, one_metrics = [], []
-    for b in batches:
-        jstate, m = jt.train_step(jstate, b)
-        jmetrics.append({k: float(v) for k, v in m.items()})
-        one_state, m = one.train_step(one_state, b)
-        one_metrics.append({k: float(v) for k, v in m.items()})
-    got = ranks_result(str(tmp_path), worker, 4)
-
+def test_four_ranks_equal_lasr_tpu_mesh_step(groups):
+    got, want_shapes, jmetrics, one_metrics, jstate, one_state = groups[1]
     assert got["shard_shapes"] == want_shapes
     for i, (g, w, w1) in enumerate(zip(got["steps"], jmetrics,
                                        one_metrics)):

@@ -7,8 +7,10 @@ their own: no JAX is imported here or in the ranks it spawns.
              0's initial weights, global batches, ``acc_grads``, Adam's
              settings, the device: ``cpu``, ``cuda:0`` for every rank, or
              ``cuda`` for rank r on ``cuda:r``; the backend, default
-             ``gloo``; optionally ``model_parallel``, ``fsdp``,
-             ``fsdp_min_size`` and ``float64``), build the model (ranks
+             ``gloo``; optionally ``model_parallel``, ``seq_parallel``,
+             ``pipeline_parallel``, ``fsdp``, ``fsdp_min_size``,
+             ``float64`` and ``model``: ``MODELS``' key, default the
+             Conformer), build the model (ranks
              > 0 from other seeds: rank 0's weights arrive by
              broadcast), take the global
              gradient of the first batch (``Trainer.loss_and_grads``, the
@@ -17,6 +19,17 @@ their own: no JAX is imported here or in the ranks it spawns.
              (``shard_rows``), and write ``DIR/rank<r>.pt``: the metrics,
              the gradient, the final state_dict and EMA shadow (whole,
              gathered from the shards), and each leaf's shard shape.
+             With ``spec["layouts"]`` (a list of such specs over the same
+             ranks) the one process group runs each in turn
+             (``dist.set_grid``), writing ``DIR/rank<r>_<i>.pt``; a
+             layout with ``encode`` = (features, lengths) instead
+             encodes them in eval mode with the encoder's time split
+             (``act_sharding``) and writes ``{"hs", "hs_len"}``.
+  one DIR    the one-process runs of ``DIR/one.pt`` (a list of (spec,
+             rows, init): ``one_process_run``'s arguments) in turn,
+             writing ``DIR/one_<i>.pt``: the tests' references,
+             computed beside the ranks and the main process's
+             ``lasr_tpu`` steps (``start_one_process``).
   cli ARGV   ``lasr_tpu_torch.bin.train.main(ARGV)``; with
              ``DP_KILL_AFTER=N`` in the environment every rank raises
              "simulated preemption" when it asks for its (N+1)-th train
@@ -37,7 +50,9 @@ import torch
 
 from lasr_tpu_torch.data.dataset import AudioDataSet
 from lasr_tpu_torch.data.frontend import DeviceFrontend
-from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
+from lasr_tpu_torch.models.e2e_ctc_att import (E2E_Conformer_CTC,
+                                                E2E_Transformer_CTC)
+from lasr_tpu_torch.models.e2e_online import E2E_Transformer_CTC_Online
 from lasr_tpu_torch.models.losses import E2E_Loss
 from lasr_tpu_torch.modules.layers import set_compute_dtype
 from lasr_tpu_torch.parallel import dist
@@ -57,6 +72,10 @@ KW = dict(idim=20, odim=9, encoder_attention_dim=32,
           encoder_selfattention_layer_type="rel_selfattn",
           encoder_cnn_kernel=7, encoder_dropout_rate=0.0,
           decoder_dropout_rate=0.0, ctc_dropout=0.0)
+MODELS = {"conformer": E2E_Conformer_CTC,
+          "transformer": E2E_Transformer_CTC,
+          "online": E2E_Transformer_CTC_Online}
+_FLOAT = torch.Tensor.float
 # parameters whose true gradient is 0 (test_torch_port_trainer.py)
 NOISE_LEAVES = ("conv_module.depthwise_conv.bias", "linear_k.bias")
 
@@ -80,13 +99,12 @@ if os.environ.get("DP_KILL_AFTER"):
     _kill_after(int(os.environ["DP_KILL_AFTER"]))
 
 
-def wav_batch(seed, n, B):
-    """A global batch of ``B`` rows, ``n`` of them real (the rest
-    zero-length), ragged lengths."""
+def wav_batch(seed, n, B, S=8000):
+    """A global batch of ``B`` rows of ``S`` samples, ``n`` of them real
+    (the rest zero-length), ragged lengths."""
     rng = np.random.default_rng(seed)
-    S = 8000
     lens = np.zeros(B, np.int32)
-    lens[:n] = rng.integers(4800, S + 1, n)
+    lens[:n] = rng.integers(S * 3 // 5, S + 1, n)
     lens[0] = S
     wav = (0.2 * rng.standard_normal((B, S))).astype(np.float32)
     wav *= np.arange(S)[None, :] < lens[:, None]
@@ -97,12 +115,14 @@ def wav_batch(seed, n, B):
             "token_len": tlen}
 
 
-def float64_everywhere():
+def float64_everywhere(on=True):
     """Make this process compute the port's float32 paths in float64
     (``Tensor.float`` widens to float64): a check of the algebra alone,
     as float32's rounding, amplified by the model's conditioning, moves
-    gradients ~1e-4 when only the order of sums changes."""
-    torch.Tensor.float = lambda self: self.to(torch.float64)
+    gradients ~1e-4 when only the order of sums changes.  ``on=False``
+    puts float32 back."""
+    torch.Tensor.float = (lambda self: self.to(torch.float64)) if on \
+        else _FLOAT
 
 
 def build_trainer(spec, device, init=None):
@@ -110,7 +130,8 @@ def build_trainer(spec, device, init=None):
     (if given) and its Trainer (which, under a process group, broadcasts
     rank 0's weights); with ``spec["float64"]`` in float64 (after
     ``float64_everywhere``)."""
-    model = E2E_Conformer_CTC(**spec["kw"], device=device)
+    model = MODELS[spec.get("model", "conformer")](**spec["kw"],
+                                                   device=device)
     if spec.get("float64"):
         model.double()
         set_compute_dtype(model, torch.float64)
@@ -150,14 +171,41 @@ def run_steps(trainer, model, batches, rows):
                              zip(trainer.names, trainer.masters)}}
 
 
+def _rows(rows):
+    """A one-process run's view of a global batch: ("pad", n) pads it to
+    a multiple of n rows (``dist.pad_rows``); ("take", [i, ...]) takes
+    those rows in that order."""
+    kind, arg = rows
+    if kind == "pad":
+        return lambda b: dist.pad_rows(b, arg)
+    return lambda b: {k: v[arg] for k, v in b.items()}
+
+
+def one_process_run(spec, rows=("pad", 1), init=None):
+    """``run_steps`` of ``spec`` in one process, on the weights that
+    ``torch.manual_seed(0)`` builds (``spec["init"]``, which the ranks
+    start from) or on ``init``; in float64 where the spec says."""
+    float64_everywhere(bool(spec.get("float64")))
+    try:
+        torch.manual_seed(0)
+        model, trainer = build_trainer(dict(spec, fsdp=False), "cpu", init)
+        if init is None and "init" in spec:
+            for k, v in model.state_dict().items():
+                assert torch.equal(v, spec["init"][k]), k
+        return run_steps(trainer, model, spec["batches"], _rows(rows))
+    finally:
+        float64_everywhere(False)
+
+
 class Worker:
     """``python -m MODULE ARGS`` in a session of its own, one thread per
-    process; ``wait`` kills it with its ranks after TIMEOUT_S."""
+    process unless ``env`` says otherwise; ``wait`` kills it with its
+    ranks after TIMEOUT_S."""
 
     def __init__(self, args, tmp, env=None,
                  module="tests.torch_port_dp_worker", name="worker"):
-        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                   **(env or {}))
+        env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
+               **(env or {})}
         self.log = open(os.path.join(tmp, f"{name}.log"), "w+")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", module, *args],
@@ -198,25 +246,51 @@ def start_ranks(tmp, spec):
     return Worker(["step", tmp], tmp)
 
 
+def start_one_process(tmp, runs):
+    """``one_process_run(*run)`` of each of ``runs`` in a process of its
+    own, with this process's threads (so its float32 sums split as they
+    would here); ``one_process_results`` waits for them."""
+    torch.save(runs, os.path.join(tmp, "one.pt"))
+    return Worker(["one", tmp], tmp, name="one", env={
+        "OMP_NUM_THREADS": str(torch.get_num_threads())})
+
+
+def one_process_results(tmp, worker, n):
+    rc, out = worker.wait()
+    assert rc == 0, out[-6000:]
+    return [torch.load(os.path.join(tmp, f"one_{i}.pt"), weights_only=False)
+            for i in range(n)]
+
+
 def ranks_result(tmp, worker, n=2):
     """Rank 0's results, once every one of the ``n`` ranks has equal
     ones."""
     rc, out = worker.wait()
     assert rc == 0, out[-6000:]
-    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-             for r in range(n)]
+    return layout_result(tmp, n)
+
+
+def layout_result(tmp, n=2, tag=""):
+    """Rank 0's results of ``rank<r><tag>.pt``, once every one of the
+    ``n`` ranks has equal ones (an ``encode`` layout's: equal ``hs``)."""
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}{tag}.pt"),
+                        weights_only=False) for r in range(n)]
     for other in ranks[1:]:
-        _same_ranks(ranks[0], other)
+        if "hs" in other:
+            assert torch.equal(other["hs"], ranks[0]["hs"])
+        else:
+            _same_ranks(ranks[0], other)
     return ranks[0]
 
 
-def assert_step_equal(got, want, tol=1e-5, loose=None):
+def assert_step_equal(got, want, tol=1e-5, loose=None, noise=NOISE_LEAVES):
     """Rank 0's results (``run_steps``) against the one-process ones:
     every metric (relative), the first batch's gradient (relative L2; the
     leaves whose true gradient is 0 ~0 on both sides), the final weights,
     BatchNorm statistics and EMA shadow (absolute), all within ``tol``
     but the gradient leaves named by a suffix in ``loose`` ({suffix:
-    tolerance}).  Every quantity out of its tolerance is reported."""
+    tolerance}).  ``noise``: the suffixes of the leaves whose true
+    gradient is 0.  Every quantity out of its tolerance is reported."""
     loose = loose or {}
     bad = []
     for k, v in want["metrics0"].items():
@@ -232,7 +306,7 @@ def assert_step_equal(got, want, tol=1e-5, loose=None):
     # sides (test_torch_port_trainer.py): ~0 against the largest gradient
     top = max(float(w.abs().max()) for w in want["grads0"])
     for name, g, w in zip(want["names"], got["grads0"], want["grads0"]):
-        if name.endswith(NOISE_LEAVES):
+        if name.endswith(noise):
             err = max(float(g.abs().max()), float(w.abs().max())) / top
             if err > tol:
                 bad.append(f"gradient of {name}: {err:.3e} of the largest "
@@ -256,30 +330,61 @@ def assert_step_equal(got, want, tol=1e-5, loose=None):
     assert not bad, "\n".join(bad)
 
 
-def _step_rank(rendezvous, root):
-    torch.set_num_threads(1)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    spec = torch.load(os.path.join(root, "spec.pt"), weights_only=False)
-    if spec.get("float64"):
-        float64_everywhere()
-    device = torch.device(spec["device"])
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", rendezvous.rank)
-    dist.init(device, spec.get("backend", "gloo"), rendezvous,
-              timeout_s=TIMEOUT_S,
-              model_parallel=spec.get("model_parallel", 1))
-    try:
-        rank = dist.rank()
-        torch.manual_seed(1000 + rank)
+def _grid(spec):
+    return dict(model_parallel=spec.get("model_parallel", 1),
+                seq_parallel=spec.get("seq_parallel", 1),
+                pipeline_parallel=spec.get("pipeline_parallel", 1))
+
+
+def _encode(spec, device):
+    """The eval-mode encoder output of ``spec["encode"]`` with the
+    encoder's time split over the grid's seq ranks."""
+    model = MODELS[spec.get("model", "conformer")](**spec["kw"],
+                                                   device=device)
+    model.load_state_dict(spec["init"])
+    model.encoder.act_sharding = True
+    x, xlen = (torch.as_tensor(a, device=device) for a in spec["encode"])
+    with torch.no_grad():
+        hs, hs_len = model.encode(x, xlen)
+    return {"hs": hs.cpu(), "hs_len": hs_len.cpu()}
+
+
+def _run_layout(spec, device, path):
+    float64_everywhere(bool(spec.get("float64")))
+    dist.set_grid(**_grid(spec))
+    rank = dist.rank()
+    torch.manual_seed(1000 + rank)
+    if "encode" in spec:
+        out = _encode(spec, device)
+    else:
         model, trainer = build_trainer(spec, device,
                                        spec["init"] if rank == 0 else None)
         d, n = dist.data_rank(), dist.data_size()
         out = run_steps(trainer, model, spec["batches"],
                         lambda b: dist.shard_rows(b, d, n))
-        out["jax_modules"] = [n for n in sys.modules
-                              if n.split(".")[0] in ("jax", "lasr_tpu")]
-        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    out["jax_modules"] = [n for n in sys.modules
+                          if n.split(".")[0] in ("jax", "lasr_tpu")]
+    torch.save(out, path)
+
+
+def _step_rank(rendezvous, root):
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(os.path.join(root, "spec.pt"), weights_only=False)
+    device = torch.device(spec.get("device", "cpu"))
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", rendezvous.rank)
+    dist.init(device, spec.get("backend", "gloo"), rendezvous,
+              timeout_s=TIMEOUT_S)
+    try:
+        rank = dist.rank()
+        layouts = spec.get("layouts")
+        if layouts is None:
+            _run_layout(spec, device, os.path.join(root, f"rank{rank}.pt"))
+        for i, layout in enumerate(layouts or ()):
+            _run_layout(dict(layout, device=spec.get("device", "cpu")),
+                        device, os.path.join(root, f"rank{rank}_{i}.pt"))
     finally:
         dist.shutdown()
 
@@ -290,6 +395,13 @@ def main(argv):
         spec = torch.load(os.path.join(argv[1], "spec.pt"),
                           weights_only=False)
         dist.spawn(_step_rank, spec.get("ranks", 2), (argv[1],))
+        return 0
+    if mode == "one":
+        runs = torch.load(os.path.join(argv[1], "one.pt"),
+                          weights_only=False)
+        for i, run in enumerate(runs):
+            torch.save(one_process_run(*run),
+                       os.path.join(argv[1], f"one_{i}.pt"))
         return 0
     if mode == "cli":
         from lasr_tpu_torch.bin import train
