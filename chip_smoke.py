@@ -263,7 +263,14 @@ Phases, always all of them, in this order:
            {"stretch_1b": ...} line; the kernel list gains
            ``launches_stretch_1b`` (K3 / K4 over (b)'s steps, K1 / K2 over
            (e)'s) and K1-K4's ``stretch_1b_float32`` / ``_bfloat16``
-           numbers (K1's served ones ``stretch_1b_served_*``).
+           numbers (K1's served ones ``stretch_1b_served_*``).  K1 / K2
+           in bf16 at these widths are their wgmma forms
+           (rot_attention_fwd_wgmma, rot_attention_bwd_wgmma: entries of
+           their own, launched by (e)'s steps and, K1's, by a bf16 served
+           forward of configuration A against the plain path, 2e-2
+           relative L2); (a) holds them at every width too, K2's twice
+           bitwise equal, and their bf16 1B times replace the wide
+           form's.
   queue_a  the modules of ROADMAP queue A (A1, A3, A4): (a) served B
            (the recipe Conformer, B=8 x 10 s through K3, 12 launches,
            beam 10, ctc_beam 15, nbest 4) searched with parallel_scan
@@ -443,7 +450,8 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, repeats: int = 5) -> float:
 
 # the device functions of csrc/*.cu, by the kernel they make up
 PORT_KERNELS = {
-    "K1 rot_attention_fwd": ("rot_attention_fwd_kernel",),
+    "K1 rot_attention_fwd": ("rot_attention_fwd_kernel",
+                             "rot_attention_fwd_wgmma"),
     "K2 rot_attention_bwd": ("rot_bwd_",),
     "K3 rel_attention_fwd": ("rel_attention_fwd_kernel",),
     "K4 rel_attention_bwd": ("rel_bwd_",),
@@ -695,7 +703,8 @@ def _kernel_specs():
     # name, kernel, plain, inputs, cost, library, source, replaces, shapes,
     # design: "wmma-tf32x3" WMMA tensor-core tiles (3xTF32 for f32 inputs,
     # one TF32 product for bf16), "wmma-tf32x3-warp-rows" the same with
-    # each warp owning its query rows (one block barrier per key tile)
+    # each warp owning its query rows (one block barrier per key tile);
+    # K1 / K2's bf16 wide forms ("wgmma-tma-bf16") are _wide_form_specs
     return [
         ("rot_attention_fwd", rot_attention_forward, rot_attention_reference,
          _rot_inputs, _rot_cost, _rot_library, src + "rot_attention.cu",
@@ -715,6 +724,33 @@ def _kernel_specs():
          _rel_bwd_cost, None, src + "rel_attention_bwd.cu", rel + ":282",
          (TRAINING,), "wmma-tf32x3"),
     ]
+
+
+def _wide_form_specs():
+    """K1 / K2's bf16 wide forms on wgmma and TMA (``rot_kernel_form``
+    "wgmma"): stretch_1b (a) holds them against their plain versions at
+    every head width and times them at the 1B shapes (their rows replace
+    the wide form's bf16 1B times); (e) and the 1B served path run through
+    them.  name: (label, kernel, plain, inputs, cost, library, source,
+    replaces, design)."""
+    from lasr_tpu_torch.ops.rot_attention import (
+        rot_attention_backward_reference, rot_attention_backward_wgmma,
+        rot_attention_forward_wgmma, rot_attention_reference)
+    rot = "lasr_tpu/ops/rot_attention.py"
+    src = "lasr_tpu_torch/csrc/"
+    return {
+        "rot_attention_fwd_wgmma": (
+            "K1w", rot_attention_forward_wgmma, rot_attention_reference,
+            _rot_inputs, _rot_cost, _rot_library,
+            src + "rot_attention_sm90.cu", rot + ":85", "wgmma-tma-bf16"),
+        "rot_attention_bwd_wgmma": (
+            "K2w", rot_attention_backward_wgmma,
+            rot_attention_backward_reference,
+            _with_grad_inputs(_rot_inputs, rot_attention_forward_wgmma),
+            _rot_bwd_cost, _rot_bwd_library,
+            src + "rot_attention_bwd_sm90.cu", rot + ":216",
+            "wgmma-tma-bf16"),
+    }
 
 
 def phase_kernels(state):
@@ -3878,7 +3914,8 @@ def _stretch_batch(seed, rows):
 def _stretch_kernels(state):
     """(a) K1-K4 against their plain versions at every head width up to
     128 (K1 / K2 at M = 16 dk, the model width), ragged kv_len; K2 run
-    twice bitwise equal; K1 and K3 refuse dk = 136 before a launch; the
+    twice bitwise equal; K1 / K2's older wide form in bf16 at rows that
+    TMA cannot describe; K1 and K3 refuse dk = 136 before a launch; the
     times of K1-K4 at the 1B training shape and of K1 at the 1B served
     shape, beside the plain versions, SDPA (K1 / K2) and the bounds."""
     import torch
@@ -3887,7 +3924,7 @@ def _stretch_kernels(state):
         rel_attention_forward, rel_attention_reference)
     from lasr_tpu_torch.ops.rot_attention import (
         rot_attention_backward, rot_attention_backward_reference,
-        rot_attention_forward, rot_attention_reference)
+        rot_attention_forward, rot_attention_reference, rot_kernel_form)
     dev = torch.device("cuda")
     rng = np.random.default_rng(state["seed"] + 15)
     card = state["card"]
@@ -3908,12 +3945,17 @@ def _stretch_kernels(state):
                               rel_attention_backward_reference, rel_bwd_in,
                               _rel_bwd_cost, None),
     }
+    wide = _wide_form_specs()
+    for name, (k, kern, plain, make, cost, library, *_) in wide.items():
+        specs[name] = (k, kern, plain, make, cost, library)
     worst, repeat = {}, []
     for dk in STRETCH_DKS:
         shape = dict(B=3, H=4, T=300, dk=dk, M=16 * dk)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
             for name, (k, kern, plain, make, _, _) in specs.items():
+                if name in wide and dtype != torch.bfloat16:
+                    continue  # the wgmma forms take bf16 only
                 args = make(rng, dtype, dev, shape)
                 got = kern(*args)
                 torch.cuda.synchronize()
@@ -3923,19 +3965,64 @@ def _stretch_kernels(state):
                 worst[f"{k} dk={dk} {dn}"] = err
                 check(err <= TOL[dn], f"stretch_1b: {k} dk={dk} {dn}: "
                       f"error {err} > {TOL[dn]}")
-                if name == "rot_attention_bwd":
+                if name.startswith("rot_attention_bwd"):
                     again = kern(*args)
                     torch.cuda.synchronize()
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
                     repeat.append(same)
-                    check(same, f"stretch_1b: K2 dk={dk} {dn} is not "
+                    check(same, f"stretch_1b: {k} dk={dk} {dn} is not "
                           f"bitwise repeatable")
                 del args, got
     log(f"stretch_1b (a): K1-K4 against their plain versions at dk "
-        f"{STRETCH_DKS} (K1 / K2 at M = 16 dk), f32 / bf16 (tol 1e-4 / "
-        f"2e-2; fwd abs, bwd rel): "
+        f"{STRETCH_DKS} (K1 / K2 at M = 16 dk; K1w / K2w their bf16 wgmma "
+        f"forms, called at every width), f32 / bf16 (tol 1e-4 / 2e-2; fwd "
+        f"abs, bwd rel): "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-        + f"; K2 twice bitwise equal at every width: {all(repeat)}")
+        + f"; K2 and K2w twice bitwise equal at every width: "
+        f"{all(repeat)}")
+
+    # bf16 rows that TMA cannot describe (dk or M not a multiple of 8)
+    # keep the older wide form: routed there, held to its plain version,
+    # K2 twice bitwise equal, and no wgmma form launched
+    wgmma = [wide[n][1] for n in wide]
+    rot_pair = (rot_attention_forward, rot_attention_backward)
+    old_wide = {}
+    for dk, M in ((80, 1284), (77, 1232)):
+        forms = [rot_kernel_form(dk, M, torch.bfloat16, b)
+                 for b in (False, True)]
+        check(forms == ["wide", "wide"], f"stretch_1b: dk={dk} M={M} bf16 "
+              f"routes to {forms}")
+        before = [f.launches for f in rot_pair + tuple(wgmma)]
+        args = _rot_inputs(rng, torch.bfloat16, dev,
+                           dict(B=3, H=4, T=300, dk=dk, M=M))
+        out, lse = rot_attention_forward(*args)
+        dout = _tensor(rng, torch.bfloat16, dev, *out.shape)
+        grads = rot_attention_backward(*args, out, lse, dout)
+        again = rot_attention_backward(*args, out, lse, dout)
+        torch.cuda.synchronize()
+        moved = [f.launches - b for f, b in
+                 zip(rot_pair + tuple(wgmma), before)]
+        check(moved == [1, 2, 0, 0], f"stretch_1b: dk={dk} M={M} bf16 "
+              f"launches K1, K2, K1w, K2w {moved}, not [1, 2, 0, 0]")
+        ref = _f32(args)
+        fwd_err = max(e for e, _ in _errors(
+            (out, lse), rot_attention_reference(*ref)))
+        bwd_err = max(r for _, r in _errors(
+            grads, rot_attention_backward_reference(
+                *ref, out.float(), lse, dout.float())))
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        old_wide[f"dk={dk} M={M}"] = (fwd_err, bwd_err, same)
+        check(fwd_err <= TOL["bfloat16"] and bwd_err <= TOL["bfloat16"],
+              f"stretch_1b: the wide form at dk={dk} M={M} bf16: errors "
+              f"{fwd_err} / {bwd_err} > {TOL['bfloat16']}")
+        check(same, f"stretch_1b: K2's wide form at dk={dk} M={M} bf16 is "
+              f"not bitwise repeatable")
+        del args, out, lse, dout, grads, again
+    log("stretch_1b (a): K1 / K2's older wide form in bf16 where TMA cannot "
+        "describe the rows (launches K1 1, K2 2, K1w 0, K2w 0 each; fwd "
+        "abs / bwd rel error, tol 2e-2; K2 twice bitwise equal): "
+        + ", ".join(f"{s} {f:.2e} / {b:.2e} {r}"
+                    for s, (f, b, r) in old_wide.items()))
 
     # refused before a launch: heads above 128
     z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
@@ -3957,17 +4044,26 @@ def _stretch_kernels(state):
     check(len(refused) == 2, f"stretch_1b: refusals {refused}")
     log(f"stretch_1b (a): dk = 136 refused before launch: {refused}")
 
-    # times at the 1B shapes, on inputs drawn on the card
+    # times at the 1B shapes, on inputs drawn on the card; K1 / K2 in
+    # bf16 are their wgmma forms (what the routed call runs there)
     gen = torch.Generator(device=dev)
     gen.manual_seed(state["seed"] + 16)
-    for name, shape, key in (
-            ("rot_attention_fwd", STRETCH_ROT, "stretch_1b"),
-            ("rot_attention_fwd", STRETCH_ROT_SERVED, "stretch_1b_served"),
-            ("rot_attention_bwd", STRETCH_ROT, "stretch_1b"),
-            ("rel_attention_fwd", STRETCH_SHAPE, "stretch_1b"),
-            ("rel_attention_bwd", STRETCH_SHAPE, "stretch_1b")):
+    f32, both = (torch.float32,), (torch.float32, torch.bfloat16)
+    for name, shape, key, dtypes in (
+            ("rot_attention_fwd", STRETCH_ROT, "stretch_1b", f32),
+            ("rot_attention_fwd_wgmma", STRETCH_ROT, "stretch_1b",
+             (torch.bfloat16,)),
+            ("rot_attention_fwd", STRETCH_ROT_SERVED, "stretch_1b_served",
+             f32),
+            ("rot_attention_fwd_wgmma", STRETCH_ROT_SERVED,
+             "stretch_1b_served", (torch.bfloat16,)),
+            ("rot_attention_bwd", STRETCH_ROT, "stretch_1b", f32),
+            ("rot_attention_bwd_wgmma", STRETCH_ROT, "stretch_1b",
+             (torch.bfloat16,)),
+            ("rel_attention_fwd", STRETCH_SHAPE, "stretch_1b", both),
+            ("rel_attention_bwd", STRETCH_SHAPE, "stretch_1b", both)):
         k, kern, plain, make, cost, library = specs[name]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             dn = str(dtype).split(".")[-1]
             args = make(gen, dtype, dev, shape)
             got = kern(*args)
@@ -3998,10 +4094,18 @@ def _stretch_kernels(state):
                 f"{bound * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
                 f"{flops / 1e9:.3f} GFLOP), tensor-core bound "
                 f"{bound_tc * 1e3:.2f} us [{card}]")
-            state["kernels"][name][f"{key}_{dn}"] = dict(
+            numbers = dict(
                 max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 bound_tc_ms=bound_tc, library_ms=lib_ms)
+            if name in wide:
+                _, _, _, _, _, _, src, tpu, design = wide[name]
+                entry = state["kernels"].setdefault(name, {
+                    "name": name, "route": "cuda", "source": src,
+                    "replaces": tpu, "status": "ported", "design": design})
+                if key == "stretch_1b":  # its own numbers: 1B training
+                    entry.update(numbers)
+            state["kernels"][name][f"{key}_{dn}"] = numbers
             del args, got
             torch.cuda.empty_cache()
 
@@ -4204,6 +4308,67 @@ def _stretch_serve(model, configs, blocks, seed, card):
     return out
 
 
+def _stretch_serve_bf16(state, model, blocks, seed, card):
+    """B=8 x 10 s served in bf16 through configuration A, where K1 runs
+    its wgmma form (a launch a block), against the plain rotated fold in
+    bf16 on the same features: the encoder output within 2e-2 (relative
+    L2, as bf16's served B).  The control, logged beside it: the same
+    path with K1's u·V term dropped (u zeroed before the kernel).  With
+    random weights through 24 blocks it reads about as close as the sound
+    path (1.30e-2 against 1.19e-2 on an H100), so this gate checks the
+    launches and finite output, not K1's values: (a) holds those."""
+    import torch
+    from lasr_tpu_torch.data.frontend import DeviceFrontend
+    from lasr_tpu_torch.modules import attention
+    from lasr_tpu_torch.modules.layers import set_compute_dtype
+    from lasr_tpu_torch.ops.rot_attention import rot_attention_forward_wgmma
+    label = "(e) configuration A, bf16"
+    set_compute_dtype(model, torch.bfloat16)
+    model.eval()
+    frontend = DeviceFrontend(["norm", "fbank:80"])
+    wav = torch.from_numpy(make_waves(seed + 1, BATCH)).cuda()
+    wav_len = torch.full((BATCH,), wav.shape[1], dtype=torch.int32,
+                         device=wav.device)
+    with torch.no_grad():
+        feats, feat_len = frontend(wav, wav_len)
+
+        def encode():
+            return model.encode(feats, feat_len, solo_pad=True)
+        _stretch_config(model, "A", False)
+        hs_p, len_p = encode()
+        _stretch_config(model, "A", True)
+        rot_attention_forward_wgmma.launches = 0
+        hs, hs_len = encode()
+        torch.cuda.synchronize()
+        served = rot_attention_forward_wgmma.launches
+        enc_ms = time_ms(encode, iters=3, warmup=1, repeats=3)
+        context = attention.rot_attention_context
+        attention.rot_attention_context = \
+            lambda q_u, u, *rest: context(q_u, torch.zeros_like(u), *rest)
+        try:
+            hs_c, _ = encode()
+        finally:
+            attention.rot_attention_context = context
+    rel = lambda a: float((a.float() - hs_p.float()).norm()  # noqa: E731
+                          / hs_p.float().norm())
+    err, control = rel(hs), rel(hs_c)
+    log(f"stretch_1b {label}: served B={BATCH} x {SECS:g} s (T="
+        f"{hs.shape[1]}): encode {enc_ms:.1f} ms (warm, device time), "
+        f"rot_attention_forward_wgmma launches {served}; encoder output vs "
+        f"the plain path in bf16: relative L2 {err:.2e} (tol 2e-2); the "
+        f"control, K1 without its u·V term: {control:.2e} [{card}]")
+    check(served == blocks, f"stretch_1b {label}: the wgmma K1 launched "
+          f"{served} times in a served forward, expected {blocks}")
+    check(torch.equal(hs_len, len_p) and bool(torch.isfinite(hs).all())
+          and err <= 2e-2, f"stretch_1b {label}: served encoder output "
+          f"differs by {err}")
+    state["stretch_launches"]["rot_attention_fwd_wgmma_served"] = served
+    set_compute_dtype(model, torch.float32)
+    return dict(bf16_encode_ms=enc_ms, bf16_served_enc_err=err,
+                bf16_served_control_err=control,
+                bf16_served_k1w_launches=served)
+
+
 def _stretch_train(state):
     """(b) the 1B model trained in bf16 with remat in configuration B, (e)
     the same model switched to configuration A (rotated); then, on its
@@ -4213,8 +4378,9 @@ def _stretch_train(state):
     from lasr_tpu_torch.models.e2e_ctc_att import E2E_Conformer_CTC
     from lasr_tpu_torch.ops.rel_attention import (rel_attention_backward,
                                                   rel_attention_forward)
-    from lasr_tpu_torch.ops.rot_attention import (rot_attention_backward,
-                                                  rot_attention_forward)
+    from lasr_tpu_torch.ops.rot_attention import (
+        rot_attention_backward, rot_attention_backward_wgmma,
+        rot_attention_forward, rot_attention_forward_wgmma)
     from lasr_tpu_torch.utils.weights import load_model_weights
 
     seed, card = state["seed"], state["card"]
@@ -4244,18 +4410,29 @@ def _stretch_train(state):
                    launches_per_step=dict(K3=fwd // STRETCH_STEPS_B,
                                           K4=bwd // STRETCH_STEPS_B))
     _stretch_config(model, "A")
-    tstate, summary_a, (fwd_a, bwd_a) = _stretch_steps(
-        state, "(e) configuration A", trainer, tstate, batch, rot,
+    # bf16 at dk = 80, M = 1,280: every K1 / K2 launch is its wgmma form
+    wgmma = (rot_attention_forward_wgmma, rot_attention_backward_wgmma)
+    tstate, summary_a, (fwd_a, bwd_a, fwd_w, bwd_w) = _stretch_steps(
+        state, "(e) configuration A", trainer, tstate, batch, rot + wgmma,
         STRETCH_STEPS_A)
     check(fwd_a == 2 * blocks * STRETCH_STEPS_A
           and bwd_a == blocks * STRETCH_STEPS_A,
           f"stretch_1b: K1 / K2 launched {fwd_a} / {bwd_a} times over "
           f"{STRETCH_STEPS_A} steps, expected {2 * blocks} / {blocks} a step")
+    check(fwd_w == fwd_a and bwd_w == bwd_a,
+          f"stretch_1b: K1 / K2's wgmma forms launched {fwd_w} / {bwd_w} "
+          f"of K1 / K2's {fwd_a} / {bwd_a} launches")
     summary_a["launches_per_step"] = dict(K1=fwd_a // STRETCH_STEPS_A,
-                                          K2=bwd_a // STRETCH_STEPS_A)
+                                          K2=bwd_a // STRETCH_STEPS_A,
+                                          K1w=fwd_w // STRETCH_STEPS_A,
+                                          K2w=bwd_w // STRETCH_STEPS_A)
     state["stretch_launches"] = {
         "rel_attention_fwd": fwd, "rel_attention_bwd": bwd,
-        "rot_attention_fwd": fwd_a, "rot_attention_bwd": bwd_a}
+        "rot_attention_fwd": fwd_a, "rot_attention_bwd": bwd_a,
+        "rot_attention_fwd_wgmma": fwd_w, "rot_attention_bwd_wgmma": bwd_w}
+    # the main path of the wgmma forms: (e)'s steps
+    state["launches"]["rot_attention_fwd_wgmma"] = fwd_w
+    state["launches"]["rot_attention_bwd_wgmma"] = bwd_w
     weights = model.state_dict()
     del tstate, trainer, model
     torch.cuda.empty_cache()
@@ -4281,6 +4458,7 @@ def _stretch_train(state):
         card)
     summary.update(served["(b) configuration B"])
     summary_a.update(served["(e) configuration A"])
+    summary_a.update(_stretch_serve_bf16(state, model, blocks, seed, card))
     summary["config_a"] = summary_a
     state["timings"]["stretch_1b"] = summary
     del model
@@ -6327,6 +6505,9 @@ def main(argv=None) -> int:
             entry["launches_decoders"] = state["decoders_launches"][name]
         if name in state["stretch_launches"]:
             entry["launches_stretch_1b"] = state["stretch_launches"][name]
+        if f"{name}_served" in state["stretch_launches"]:
+            entry["launches_stretch_1b_served"] = \
+                state["stretch_launches"][f"{name}_served"]
         if name in state["queue_a_launches"]:
             entry["launches_queue_a"] = state["queue_a_launches"][name]
         if name in state["orbax_launches"]:

@@ -21,7 +21,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNEL_SOURCES = ("rot_attention", "rot_attention_bwd", "rel_attention",
-                  "rel_attention_bwd")
+                  "rel_attention_bwd", "rot_attention_sm90",
+                  "rot_attention_bwd_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,7 +15,13 @@ Each kernel has two forms: the narrow one keeps a block's 32 rows of
 shared memory (the recipe: dk = 40, M = 320); the wide one streams S's
 depth in chunks of 128 columns and takes any dk <= 128 and any M (the 1B
 config: dk = 80, M = 1280).  ``rot_kernel_wide`` picks the form; dk > 128
-raises ``ValueError`` before any launch (``check_rot_kernel_shape``).
+raises ``ValueError`` before any launch (``check_rot_kernel_shape``).  In
+bf16 the wide form runs on Hopper's wgmma and TMA
+(``csrc/rot_attention_sm90.cu``, ``csrc/rot_attention_bwd_sm90.cu``:
+``rot_attention_forward_wgmma``, ``rot_attention_backward_wgmma``) where
+TMA can describe the tensors: dk and M multiples of 8 and 16-byte-aligned
+bases (``rot_kernel_form``); other wide shapes, and f32, keep the wide
+form above.
 """
 
 from __future__ import annotations
@@ -156,6 +162,31 @@ def rot_kernel_wide(dk: int, M: int, backward: bool,
         or _narrow_smem_bytes(dk, M, backward) > smem_limit
 
 
+def wgmma_describable(dk: int, M: int) -> bool:
+    """True where the wgmma forms' tensor maps describe q_u / k / v (rows
+    of dk bf16) and u / V (rows of M): rows of a multiple of 16 bytes, and
+    dk within the kernels' two 64-column boxes."""
+    return 8 <= dk <= ROT_DK_MAX and dk % 8 == 0 and M >= 8 and M % 8 == 0
+
+
+def rot_kernel_form(dk: int, M: int, dtype, backward: bool,
+                    aligned: bool = True,
+                    smem_limit: int = SMEM_PER_BLOCK) -> str:
+    """Which K1 (forward) / K2 (backward) kernel runs at (dk, M):
+    "narrow", "wide" (f32, or bf16 that TMA cannot describe) or
+    "wgmma" (bf16 where the wide form holds, ``wgmma_describable`` and
+    ``aligned``: every tensor's base 16-byte aligned)."""
+    if not rot_kernel_wide(dk, M, backward, smem_limit):
+        return "narrow"
+    if dtype == torch.bfloat16 and aligned and wgmma_describable(dk, M):
+        return "wgmma"
+    return "wide"
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def rot_kernel_smem_bytes(dk: int, M: int, backward: bool,
                           smem_limit: int = SMEM_PER_BLOCK) -> int:
     """The least dynamic shared memory of the K1 / K2 block that runs at
@@ -256,8 +287,13 @@ def rot_attention_forward(q_u, u, k, v, vt, kv_len):
         return rot_attention_reference(q_u, u, k, v, vt, kv_len)
     smem = _smem_limit(q_u.device)
     check_rot_kernel_shape("rot_attention", dk, M, False, smem)
-    symbol = "lasr_rot_attention_fwd" + (
-        "_wide" if rot_kernel_wide(dk, M, False, smem) else "")
+    form = rot_kernel_form(dk, M, q_u.dtype, False,
+                           _aligned16(q_u, u, k, v, vt), smem)
+    if form == "wgmma":
+        out, lse = rot_attention_forward_wgmma(q_u, u, k, v, vt, kv_len)
+        rot_attention_forward.launches += 1
+        return out, lse
+    symbol = "lasr_rot_attention_fwd" + ("_wide" if form == "wide" else "")
     out = torch.empty_like(q_u)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
     stream = torch.cuda.current_stream(q_u.device).cuda_stream
@@ -297,13 +333,20 @@ def rot_attention_backward(q_u, u, k, v, vt, kv_len, out, lse, dout):
                                                 out, lse, dout)
     smem = _smem_limit(q_u.device)
     check_rot_kernel_shape("rot_attention_bwd", dk, M, True, smem)
+    form = rot_kernel_form(dk, M, q_u.dtype, True,
+                           _aligned16(q_u, u, k, v, vt, dout), smem)
+    if form == "wgmma":
+        grads = rot_attention_backward_wgmma(q_u, u, k, v, vt, kv_len, out,
+                                             lse, dout)
+        rot_attention_backward.launches += 1
+        return grads
     dq_u, du, dk_, dv = (torch.empty_like(q_u), torch.empty_like(u),
                          torch.empty_like(k), torch.empty_like(v))
     delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
     ptrs = [_ptr(x) for x in (q_u, u, k, v, vt, kv_len, out, lse, dout,
                               delta, dq_u, du, dk_, dv)]
     symbol = "lasr_rot_attention_bwd"
-    if rot_kernel_wide(dk, M, True, smem):
+    if form == "wide":
         # the wide form's dz, written once by its key pass: (BH, T32, T32)
         # f32, T32 = T rounded up to 32 (354 MB at the 1B training shape)
         symbol += "_wide"
@@ -320,6 +363,82 @@ def rot_attention_backward(q_u, u, k, v, vt, kv_len, out, lse, dout):
 
 
 rot_attention_backward.launches = 0
+
+
+def _check_wgmma(name, dk, M, tensors):
+    """Before a wgmma form's launch: bf16 CUDA inputs that TMA can
+    describe, else ``ValueError``."""
+    if tensors[0].dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the wgmma form takes bfloat16 inputs, "
+                         f"got {tensors[0].dtype}")
+    if not wgmma_describable(dk, M):
+        raise ValueError(f"{name}: the wgmma form takes dk <= {ROT_DK_MAX} "
+                         f"and dk, M multiples of 8, got dk={dk}, M={M}")
+    if not _aligned16(*tensors):
+        raise ValueError(f"{name}: the wgmma form's tensors must start on "
+                         f"16-byte boundaries")
+    if not _device_path(name, tensors[0].device):
+        raise ValueError(f"{name}: the wgmma form takes CUDA tensors "
+                         f"(rot_attention_forward / _backward run the "
+                         f"plain version on the CPU)")
+
+
+def rot_attention_forward_wgmma(q_u, u, k, v, vt, kv_len):
+    """K1's bf16 wide form on Hopper's wgmma and TMA
+    (``csrc/rot_attention_sm90.cu``): the launch that
+    ``rot_attention_forward`` makes for ``rot_kernel_form`` "wgmma",
+    after its shape, kv_len and device checks; callable at any dk it
+    takes on CUDA tensors that pass those checks, as the card's tests do.
+    bf16 only, dk <= 128 and dk, M multiples of 8, 16-byte-aligned
+    tensors, else ``ValueError`` before a launch.  Counted in
+    ``rot_attention_forward_wgmma.launches``."""
+    BH, T, dk = q_u.shape
+    M = u.shape[-1]
+    name = "rot_attention_wgmma"
+    _check_wgmma(name, dk, M, [q_u, u, k, v, vt])
+    out = torch.empty_like(q_u)
+    lse = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
+    stream = torch.cuda.current_stream(q_u.device).cuda_stream
+    _launch(name, _bind("rot_attention_sm90", "lasr_rot_attention_fwd_wgmma",
+                        8, 4),
+            _ptr(q_u), _ptr(u), _ptr(k), _ptr(v), _ptr(vt), _ptr(kv_len),
+            _ptr(out), _ptr(lse), BH, T, dk, M, ctypes.c_void_p(stream))
+    rot_attention_forward_wgmma.launches += 1
+    return out, lse
+
+
+rot_attention_forward_wgmma.launches = 0
+
+
+def rot_attention_backward_wgmma(q_u, u, k, v, vt, kv_len, out, lse, dout):
+    """K2's bf16 wide form on Hopper's wgmma and TMA
+    (``csrc/rot_attention_bwd_sm90.cu``: delta, the key pass, the query
+    pass): the launch that ``rot_attention_backward`` makes for
+    ``rot_kernel_form`` "wgmma", after its checks; arguments, results and
+    refusals as ``rot_attention_backward`` and
+    ``rot_attention_forward_wgmma``.  dz goes through a (BH, T, T8) bf16
+    scratch (dz^T, T8 = T rounded up to 8: 156 MB at the 1B training
+    shape).  Counted in ``rot_attention_backward_wgmma.launches``."""
+    BH, T, dk = q_u.shape
+    M = u.shape[-1]
+    name = "rot_attention_bwd_wgmma"
+    _check_wgmma(name, dk, M, [q_u, u, k, v, vt, dout])
+    dq_u, du, dk_, dv = (torch.empty_like(q_u), torch.empty_like(u),
+                         torch.empty_like(k), torch.empty_like(v))
+    delta = torch.empty((BH, T), dtype=torch.float32, device=q_u.device)
+    dzt = torch.empty((BH, T, -(-T // 8) * 8), dtype=torch.bfloat16,
+                      device=q_u.device)
+    ptrs = [_ptr(x) for x in (q_u, u, k, v, vt, kv_len, out, lse, dout,
+                              delta, dq_u, du, dk_, dv, dzt)]
+    stream = torch.cuda.current_stream(q_u.device).cuda_stream
+    _launch(name, _bind("rot_attention_bwd_sm90",
+                        "lasr_rot_attention_bwd_wgmma", len(ptrs), 4),
+            *ptrs, BH, T, dk, M, ctypes.c_void_p(stream))
+    rot_attention_backward_wgmma.launches += 1
+    return dq_u, du, dk_, dv
+
+
+rot_attention_backward_wgmma.launches = 0
 
 
 class _RotAttentionContext(torch.autograd.Function):

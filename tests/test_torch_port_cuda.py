@@ -22,7 +22,8 @@ from lasr_tpu_torch.ops.rel_attention import (
     rel_attention_forward, rel_attention_reference)
 from lasr_tpu_torch.ops.rot_attention import (
     rot_attention_backward, rot_attention_backward_reference,
-    rot_attention_forward, rot_attention_reference)
+    rot_attention_backward_wgmma, rot_attention_forward,
+    rot_attention_forward_wgmma, rot_attention_reference)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -218,6 +219,50 @@ def test_rot_wide_backward_kernel_is_bitwise_repeatable(dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,dk,M,lens", [
+    (300, dk, 16 * dk, [300, 151, 1, 0]) for dk in (40, 64, 80, 96, 128)] + [
+    (45, 88, 1000, [45, 44, 1, 0]),   # dk, M off the 64-column boxes
+    (130, 8, 8, [130, 129, 64, 1]),   # the narrowest rows; tile edges
+])
+def test_rot_wgmma_forms_match_plain(T, dk, M, lens):
+    """K1 / K2's bf16 wgmma forms (csrc/rot_attention_sm90.cu,
+    csrc/rot_attention_bwd_sm90.cu), called at each head width at M = 16
+    dk (the routed call takes them from dk = 64 at these M) and at widths
+    whose last box is part zero fill, ragged kv_len with a row at 1 and an
+    empty row, against the plain versions in f32 (2e-2); K2 twice bitwise
+    equal; each call one launch."""
+    dev = _card()
+    H = 2
+    args = _inputs("rot", len(lens) * H, H, T, dk, M, lens, torch.bfloat16,
+                   dev)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    n_fwd = rot_attention_forward_wgmma.launches
+    n_bwd = rot_attention_backward_wgmma.launches
+    out, lse = rot_attention_forward_wgmma(*args)
+    torch.cuda.synchronize()
+    want, want_lse = rot_attention_reference(*f32)
+    assert out.dtype == torch.bfloat16
+    assert float((out.float() - want).abs().max()) <= TOL[torch.bfloat16]
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert float((lse - want_lse)[finite].abs().max()) <= TOL[torch.bfloat16]
+    dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        out.shape).astype(np.float32)).to(dev, torch.bfloat16)
+    grads = rot_attention_backward_wgmma(*args, out, lse, dout)
+    again = rot_attention_backward_wgmma(*args, out, lse, dout)
+    torch.cuda.synchronize()
+    assert rot_attention_forward_wgmma.launches == n_fwd + 1
+    assert rot_attention_backward_wgmma.launches == n_bwd + 2
+    wants = rot_attention_backward_reference(*f32, out.float(), lse,
+                                             dout.float())
+    empty = torch.from_numpy(np.repeat(np.asarray(lens) == 0, H)).to(dev)
+    for i, (g, w, g2) in enumerate(zip(grads, wants, again)):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, g2)
+        err = float((g.float() - w).abs().max()) / float(w.abs().max())
+        assert err <= TOL[torch.bfloat16], (i, err)
+        assert not bool(g[empty].any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

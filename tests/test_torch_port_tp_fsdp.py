@@ -117,9 +117,11 @@ def groups(tmp_path_factory):
     and lasr_tpu's Trainers run meanwhile."""
     specs = {name: _layout_spec(name) for name in LAYOUTS}
     tmp = {n: str(tmp_path_factory.mktemp(f"ranks{n}")) for n in (1, 2, 4)}
+    # one thread: beside the other xdist workers a thread a core stalls it
+    # past TIMEOUT_S (start_one_process)
     one_worker = start_one_process(tmp[1], [
         (spec, ("pad", spec["ranks"] // spec.get("model_parallel", 1)),
-         None) for spec in specs.values()])
+         None) for spec in specs.values()], threads=1)
     chain = ["norm", "fbank:20"]
     batches = [wav_batch(2, 4, 4), wav_batch(3, 3, 4), wav_batch(2, 4, 4)]
     jt = JaxTrainer(jax_models.E2E_Conformer_CTC(**KW_TP),

@@ -113,7 +113,8 @@ def _rot_case(T, dk, M, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,dk,M", [(37, 80, 1280), (33, 128, 256)])
+@pytest.mark.parametrize("T,dk,M", [(37, 80, 1280), (33, 128, 256),
+                                     (40, 80, 160)])
 def test_plain_k1_k2_match_pallas_at_wide_heads(T, dk, M, dtype):
     xs, kv, dout = _rot_case(T, dk, M, seed=dk)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16

@@ -246,13 +246,18 @@ def start_ranks(tmp, spec):
     return Worker(["step", tmp], tmp)
 
 
-def start_one_process(tmp, runs):
+def start_one_process(tmp, runs, threads=None):
     """``one_process_run(*run)`` of each of ``runs`` in a process of its
-    own, with this process's threads (so its float32 sums split as they
-    would here); ``one_process_results`` waits for them."""
+    own, with ``threads`` threads, by default this process's (so its
+    float32 sums split as they would here); ``one_process_results`` waits
+    for them.  Under pytest-xdist's other workers a process with a thread
+    for each core waits on its own OpenMP threads: on an 8-core host the
+    tensor-parallel file's runs (1.6 s alone) took 72 s with 8 threads
+    beside 16 busy processes and 3.3 s with one, so that file asks for
+    one."""
     torch.save(runs, os.path.join(tmp, "one.pt"))
     return Worker(["one", tmp], tmp, name="one", env={
-        "OMP_NUM_THREADS": str(torch.get_num_threads())})
+        "OMP_NUM_THREADS": str(threads or torch.get_num_threads())})
 
 
 def one_process_results(tmp, worker, n):
